@@ -13,7 +13,8 @@ from __future__ import annotations
 from ..core.planner import MemoryPlanner
 from . import flash_attention as _fa
 from . import paged_attention as _pa
-from .ref import ref_attention_bhsd, ref_paged_attention
+from . import ssd_scan as _ssd
+from .ref import ref_attention_bhsd, ref_paged_attention, ssd_chunked
 
 
 def _check_smem(blocks, what: str) -> None:
@@ -58,9 +59,32 @@ def paged_attention(q, k_pages, v_pages, tables, positions):
     return out
 
 
+def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=128):
+    """``ref.ssd_chunked`` with the CUDA kernel as its chunk scan for CUDA
+    tensors: x (B,S,H,P), dt (B,S,H) softplus'd, a_log (H,), b/c (B,S,G,N),
+    d_skip (H,).  Returns (y f32, h_final f32).
+
+    The dt scaling and ``dta = dt * A`` happen before the scan and the D
+    skip after it, as in the reference's wrapper.  ``chunk`` is the plain
+    version's chunk length; the kernel scans in chunks of its own
+    (``ssd_scan.CHUNK``), which changes the result only by rounding."""
+    _check_smem(_ssd.smem_blocks(), "ssd scan")
+    if _device_type(x) == "cpu":
+        return ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk)
+    return ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, scan=_ssd_kernel)
+
+
+def _ssd_kernel(xdt, dta, b_mat, c_mat, *, chunk, h0):
+    del chunk, h0           # the kernel's own chunks, from a zero state
+    out = _ssd.ssd_scan_kernel(xdt, dta, b_mat.contiguous(), c_mat.contiguous())
+    ssd_scan.launches += 1
+    return out
+
+
 flash_attention.launches = 0
 paged_attention.launches = 0
-WRAPPERS = (flash_attention, paged_attention)
+ssd_scan.launches = 0
+WRAPPERS = (flash_attention, paged_attention, ssd_scan)
 
 
 def reset_launches() -> None:

@@ -2,13 +2,15 @@
 
 They run wherever the tensors lie: the kernel wrappers in ``ops`` take them
 for CPU tensors, and ``chip_smoke.py`` holds each kernel against them on the
-card.  Both compute in float32 and return the input dtype.
+card.  The attention versions compute in float32 and return the input
+dtype; the SSD versions return float32.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -51,3 +53,93 @@ def ref_paged_attention(q, k_pages, v_pages, tables, positions):
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgs,bskh->bkgh", p, v).to(q.dtype)
+
+
+def ref_ssd(x, dta, b_mat, c_mat, h0=None):
+    """Sequential SSD recurrence, the oracle of the chunk scan.  x: (B,S,H,P)
+    dt-scaled; dta: (B,S,H) log-decays; b/c: (B,S,G,N).  Returns
+    (y (B,S,H,P) f32, h (B,H,P,N) f32)."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = h // g
+    bh = b_mat.float().repeat_interleave(rep, dim=2)
+    ch = c_mat.float().repeat_interleave(rep, dim=2)
+    hst = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+           if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        a = torch.exp(dta[:, t].float())[:, :, None, None]          # (B,H,1,1)
+        hst = a * hst + torch.einsum("bhn,bhp->bhpn", bh[:, t], x[:, t].float())
+        ys.append(torch.einsum("bhn,bhpn->bhp", ch[:, t], hst))
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros((bsz, 0, h, p), dtype=torch.float32)
+    return y, hst
+
+
+def ssd_chunk_scan(x, dta, b_mat, c_mat, *, chunk=256, h0=None):
+    """Plain version of the SSD chunk-scan kernel: the core of
+    ``ssd_chunked`` after dt-scaling, before the D skip.
+
+    x: (B,S,H,P) dt-scaled; dta: (B,S,H) log-decays; b/c: (B,S,G,N).  Per
+    chunk of ``chunk`` tokens: the intra-chunk term ``(L o C B^T) x`` with
+    ``L[i,j] = exp(cum_i - cum_j)`` for i >= j, the incoming state's term
+    ``exp(cum_i) C_i h``, and the state update.  A ragged tail is padded
+    with zero x / dta / B / C, which leaves the state unchanged.  Returns
+    (y (B,S,H,P) f32, h_final (B,H,P,N) f32)."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = h // g
+    q = min(chunk, s)
+    pad = (-s) % q
+    x, dta = x.float(), dta.float()
+    bf, cf = b_mat.float(), c_mat.float()
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dta = F.pad(dta, (0, 0, 0, pad))
+        bf = F.pad(bf, (0, 0, 0, 0, 0, pad))
+        cf = F.pad(cf, (0, 0, 0, 0, 0, pad))
+    nc = x.shape[1] // q
+    xc = x.reshape(bsz, nc, q, h, p)
+    dtac = dta.reshape(bsz, nc, q, h)
+    bc = bf.reshape(bsz, nc, q, g, n)
+    cc = cf.reshape(bsz, nc, q, g, n)
+    head_group = torch.arange(h, device=x.device) // rep
+    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    hst = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+           if h0 is None else h0.float())
+    ys = []
+    for ci in range(nc):
+        xq, bq, cq = xc[:, ci], bc[:, ci], cc[:, ci]
+        cum = dtac[:, ci].cumsum(dim=1)                               # (B,q,H)
+        li = cum[:, :, None, :] - cum[:, None, :, :]                  # (B,q,q,H)
+        # mask before the exponential: cum_i - cum_j > 0 above the diagonal
+        l_mat = torch.where(causal[None, :, :, None], li, -math.inf).exp()
+        cb = torch.einsum("bign,bjgn->bijg", cq, bq)[..., head_group]
+        y_intra = torch.einsum("bijh,bjhp->bihp", cb * l_mat, xq)
+        bq_h, cq_h = bq[:, :, head_group], cq[:, :, head_group]       # (B,q,H,N)
+        y_inter = torch.einsum("bihn,bhpn->bihp",
+                               cq_h * cum.exp()[..., None], hst)
+        total = cum[:, -1, :]                                         # (B,H)
+        decay_out = (total[:, None, :] - cum).exp()                   # (B,q,H)
+        hst = (total.exp()[:, :, None, None] * hst
+               + torch.einsum("bjhn,bjhp->bhpn", bq_h * decay_out[..., None], xq))
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)[:, :s]
+    return y, hst
+
+
+def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=256, h0=None,
+                scan=ssd_chunk_scan):
+    """SSD over a full sequence (port of ``repro.models.ssm.ssd_chunked``).
+
+    x: (B,S,H,P) inputs; dt: (B,S,H) softplus'd step sizes; a_log: (H,) with
+    A = -exp(a_log); b_mat/c_mat: (B,S,G,N); d_skip: (H,).  The dt scaling
+    and ``dta = dt * A`` happen before ``scan`` and the D skip after it;
+    ``scan`` is the plain ``ssd_chunk_scan`` unless ``ops.ssd_scan`` passes
+    the CUDA kernel's launcher.
+    Returns (y: (B,S,H,P) f32, h_final: (B,H,P,N) f32).
+    """
+    a = -torch.exp(a_log.float())                                   # (H,)
+    dta = dt.float() * a                                            # log-decay
+    xdt = x.float() * dt.float()[..., None]
+    y, h_fin = scan(xdt, dta, b_mat, c_mat, chunk=chunk, h0=h0)
+    return y + x.float() * d_skip.float()[None, None, :, None], h_fin

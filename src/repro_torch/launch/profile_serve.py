@@ -2,6 +2,10 @@
 window of engine steps with every request already decoding.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --preset full
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mamba2-130m
+
+Attention models decode off the paged pool (``attn_mode="paged"``); models
+with recurrent state decode in gather mode, the only mode they support.
 
 Prints the host time per step, the device time the profiler attributes to
 kernels per step, their ratio (the device's busy share), and the kernels
@@ -47,7 +51,8 @@ def main(argv=None) -> None:
     trace = [Request(rid=i + 1, prompt_len=args.prompt_len, gen_len=gen_len,
                      arrival=0) for i in range(args.batch)]
     eng = ServeEngine(model, params, sample_trace=trace, max_len=args.max_len,
-                      max_batch=args.batch, attn_mode="paged")
+                      max_batch=args.batch,
+                      attn_mode="paged" if ServeEngine.pads_prefill(cfg) else "gather")
     eng.warmup()
     g = torch.Generator().manual_seed(1)
     for r in trace:
@@ -76,7 +81,8 @@ def main(argv=None) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.steps
     print(f"[profile] {cfg.name} batch={args.batch} prompt={args.prompt_len} "
-          f"steps={args.steps} on {model.device}: host step_ms={wall_ms:.3f} "
+          f"attn={eng.attn_mode} steps={args.steps} on {model.device}: "
+          f"host step_ms={wall_ms:.3f} "
           f"device_ms_per_step={dev_ms:.3f} busy_share={dev_ms / wall_ms:.3f}")
     for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
         print(f"[profile]   {_device_us(e) / 1e3 / args.steps:8.4f} ms/step "

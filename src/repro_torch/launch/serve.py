@@ -5,9 +5,12 @@ Runs a model through ``repro_torch.serving.ServeEngine`` over a synthetic
 request trace — queue -> chunked prefill -> batched decode -> completion —
 and reports throughput, page-pool telemetry, and the arena-vs-pool memory
 comparison at full arch scale.  Prefill runs the flash-attention CUDA
-kernel; ``--attn paged`` decodes through the paged-attention CUDA kernel.
+kernel (attention models) or the SSD chunk-scan CUDA kernel (mamba2);
+``--attn paged`` decodes through the paged-attention CUDA kernel and is for
+attention models only.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --preset full --attn paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --preset full
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch versions instead.
 ``--share-hbm``, ``--trace`` and the ``--slo-*`` reports of the reference

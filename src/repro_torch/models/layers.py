@@ -50,3 +50,29 @@ def mlp(x, p):
 
 def embed_lookup(table, tokens):
     return F.embedding(tokens, table)
+
+
+def causal_conv1d(x, w, b=None):
+    """x: (B, S, C), w: (K, C) depthwise causal; returns (B, S, C).
+
+    A sum over K shifted copies of the left-padded input, in x's dtype, as
+    the reference computes it."""
+    k = w.shape[0]
+    s = x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i:i + s, :] * w[i].to(x.dtype)
+    if b is not None:
+        out = out + b.to(x.dtype)
+    return out
+
+
+def conv1d_update(state, x_t, w, b=None):
+    """Single-token conv update.  state: (B, K-1, C); x_t: (B, C).  Returns
+    (new state, y); the window is summed in f32, as the reference does."""
+    window = torch.cat([state, x_t[:, None, :]], dim=1)          # (B, K, C)
+    y = torch.einsum("bkc,kc->bc", window.float(), w.float()).to(x_t.dtype)
+    if b is not None:
+        y = y + b.to(x_t.dtype)
+    return window[:, 1:, :], y

@@ -1,5 +1,6 @@
-"""Dense GQA decoder (port of ``repro.models.transformer`` for
-``block_pattern=("attn",)``).
+"""Decoder over one block kind (port of ``repro.models.transformer`` for
+``block_pattern=("attn",)``, the dense GQA decoder, and ``("mamba2",)``, the
+attention-free SSD stack).
 
 Entry points, with the reference's contracts:
   * ``prefill(params, batch)``        — inference forward, builds the cache
@@ -10,9 +11,12 @@ Entry points, with the reference's contracts:
 
 Parameters are a plain nested dict: ``embed`` (padded_vocab, D) tied with
 the output head, ``final_norm``, and ``layers``, one dict per layer with the
-reference's layouts (``wq`` (D,H,hd), ``wo`` (H,hd,D), ``w_up``/``w_gate``
-(D,F), ``w_down`` (F,D)).  Caches are dicts of tensors with a leading layer
-axis; decode updates their KV leaves in place and returns the same tensors.
+reference's layouts (attention: ``wq`` (D,H,hd), ``wo`` (H,hd,D),
+``w_up``/``w_gate`` (D,F), ``w_down`` (F,D); mamba2: ``w_in`` (D,proj),
+``w_conv`` (K,conv_dim), ``w_out`` (d_inner,D) and per-head vectors).
+Caches are dicts of tensors with a leading layer axis (attention: ``k``/``v``;
+mamba2: ``conv`` (L,B,K-1,conv_dim) and ``ssm`` (L,B,H,P,N) f32); decode
+updates them in place and returns the same tensors.
 """
 from __future__ import annotations
 
@@ -25,16 +29,23 @@ import torch
 from ..configs.base import ModelConfig
 from ..runtime.device import resolve_device
 from . import attention as attn
+from . import ssm as ssm_lib
 from .layers import apply_rope, embed_lookup, mlp, rms_norm, rope_angles
 from .schema import P, Schema, init_params
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# leaves the reference reads in f32 (``astype(float32)``) or casts at each
+# use to another dtype than the compute dtype: kept f32 at load
+F32_LEAVES = frozenset({"scale", "norm_scale", "dt_bias", "a_log", "d_skip",
+                        "w_conv", "b_conv"})
 
 
 @dataclass(frozen=True)
 class RunOpts:
     """Runtime knobs independent of the architecture spec."""
     attention_impl: str = "kernel"    # kernel (flash CUDA kernel) | full
+    use_kernels: bool = True          # SSD chunk scan through the CUDA kernel
+    ssd_chunk: int = 256              # chunk length of the plain SSD path
 
 
 def _attn_schema(cfg) -> Schema:
@@ -54,7 +65,26 @@ def _attn_schema(cfg) -> Schema:
     return s
 
 
+def _mamba2_schema(cfg) -> Schema:
+    d_in = cfg.d_inner
+    g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = d_in + 2 * g * n
+    return {
+        "norm": {"scale": P((cfg.d_model,), init="zeros")},
+        "w_in": P((cfg.d_model, 2 * d_in + 2 * g * n + h)),
+        "w_conv": P((cfg.conv_width, conv_dim), scale=0.1),
+        "b_conv": P((conv_dim,), init="zeros"),
+        "dt_bias": P((h,), init="zeros"),
+        "a_log": P((h,), init="ones", scale=1.0),
+        "d_skip": P((h,), init="ones"),
+        "norm_scale": P((d_in,), init="zeros"),
+        "w_out": P((d_in, cfg.d_model)),
+    }
+
+
 def _block_schema(cfg) -> Schema:
+    if cfg.block_pattern[0] == "mamba2":
+        return _mamba2_schema(cfg)
     return {"attn": _attn_schema(cfg),
             "mlp_norm": {"scale": P((cfg.d_model,), init="zeros")},
             "mlp": {"w_up": P((cfg.d_model, cfg.d_ff)),
@@ -62,25 +92,38 @@ def _block_schema(cfg) -> Schema:
                     "w_gate": P((cfg.d_model, cfg.d_ff))}}
 
 
+def _unsupported(cfg) -> list[str]:
+    """What of ``cfg`` the port does not run yet (empty when it runs it)."""
+    out = []
+    pattern = tuple(cfg.block_pattern)
+    if pattern not in (("attn",), ("mamba2",)) or cfg.tail_pattern:
+        out.append(f"pattern {cfg.block_pattern} + {cfg.tail_pattern}")
+    if cfg.is_encoder_decoder or cfg.n_experts:
+        out.append("encoder-decoder / MoE")
+    if pattern == ("attn",) and (cfg.act != "swiglu" or not cfg.rope):
+        out.append(f"act {cfg.act} / rope {cfg.rope}")
+    if pattern == ("mamba2",) and (cfg.rope or cfg.family != "ssm"):
+        out.append(f"mamba2 with rope {cfg.rope} / family {cfg.family}")
+    if cfg.norm != "rmsnorm":
+        out.append(f"norm {cfg.norm}")
+    if not cfg.tie_embeddings or cfg.family == "hybrid" or cfg.local_window:
+        out.append("untied head / hybrid / local window")
+    if cfg.dtype not in DTYPES:
+        out.append(f"dtype {cfg.dtype}")
+    return out
+
+
 class Transformer:
     def __init__(self, cfg: ModelConfig, opts: RunOpts = RunOpts(),
                  device=None):
         """``device=None`` means the card; raises ``RuntimeError`` without one."""
-        unsupported = []
-        if tuple(cfg.block_pattern) != ("attn",) or cfg.tail_pattern:
-            unsupported.append(f"pattern {cfg.block_pattern} + {cfg.tail_pattern}")
-        if cfg.is_encoder_decoder or cfg.n_experts:
-            unsupported.append("encoder-decoder / MoE")
-        if cfg.norm != "rmsnorm" or cfg.act != "swiglu" or not cfg.rope:
-            unsupported.append(f"norm {cfg.norm} / act {cfg.act} / rope {cfg.rope}")
-        if not cfg.tie_embeddings or cfg.family == "hybrid" or cfg.local_window:
-            unsupported.append("untied head / hybrid / local window")
-        if cfg.dtype not in DTYPES:
-            unsupported.append(f"dtype {cfg.dtype}")
+        unsupported = _unsupported(cfg)
         if unsupported:
             raise ValueError(f"{cfg.name}: the port runs dense attention "
-                             f"decoders only ({'; '.join(unsupported)})")
+                             f"decoders and mamba2 stacks only "
+                             f"({'; '.join(unsupported)})")
         self.cfg = cfg
+        self.kind = cfg.block_pattern[0]
         self.opts = opts
         self.device = resolve_device(device)
         self.compute_dtype = DTYPES[cfg.dtype]
@@ -102,14 +145,16 @@ class Transformer:
         """Parameters on this model's device, cast once to the compute dtype.
 
         The reference casts each f32 weight at every use (``cdt``); one cast
-        at load gives the same numbers.  Norm scales stay f32 because the
-        reference reads them in f32."""
+        at load gives the same numbers.  ``F32_LEAVES`` stay f32 because the
+        reference reads them in f32 (norm scales, the SSD's per-head vectors)
+        or casts them elsewhere than to the compute dtype (the conv weights:
+        to the compute dtype in prefill, to f32 in decode)."""
         def rec(tree, key=""):
             if isinstance(tree, dict):
                 return {k: rec(v, k) for k, v in tree.items()}
             if isinstance(tree, list):
                 return [rec(v) for v in tree]
-            dt = torch.float32 if key == "scale" else self.compute_dtype
+            dt = torch.float32 if key in F32_LEAVES else self.compute_dtype
             return tree.to(device=self.device, dtype=dt)
         return rec(params)
 
@@ -132,11 +177,21 @@ class Transformer:
 
     # ---- serving: caches -----------------------------------------------------------
     def cache_spec(self, batch: int, max_len: int) -> dict:
-        """{name: (shape, dtype)} of the contiguous decode cache."""
+        """{name: (shape, dtype)} of the contiguous decode cache.  Mamba2
+        layers hold O(1) state: the conv window and the f32 SSD state."""
         cfg = self.cfg
+        spec = {"pos": ((batch,), torch.int32)}
+        if self.kind == "mamba2":
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            spec["conv"] = ((cfg.n_layers, batch, cfg.conv_width - 1, conv_dim),
+                            self.compute_dtype)
+            spec["ssm"] = ((cfg.n_layers, batch, cfg.ssm_heads,
+                            cfg.ssm_head_dim, cfg.ssm_state), torch.float32)
+            return spec
         kvs = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {"pos": ((batch,), torch.int32),
-                "k": (kvs, self.compute_dtype), "v": (kvs, self.compute_dtype)}
+        spec["k"] = (kvs, self.compute_dtype)
+        spec["v"] = (kvs, self.compute_dtype)
+        return spec
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return {k: torch.zeros(s, dtype=dt, device=self.device)
@@ -172,6 +227,8 @@ class Transformer:
         selects the paged path.  KV leaves are updated in place."""
         if "block_tables" in cache:
             return self._decode_step_paged(params, cache, tokens)
+        if self.kind == "mamba2":
+            return self._decode_step_mamba2(params, cache, tokens)
         pos = cache["pos"]
         k_cache, v_cache = cache["k"], cache["v"]
         x = embed_lookup(params["embed"], tokens[:, None])
@@ -187,6 +244,31 @@ class Transformer:
         x = rms_norm(x, params["final_norm"]["scale"])
         logits = self.logits(params, x)[:, 0, :]
         return logits, {"pos": pos + 1, "k": k_cache, "v": v_cache}
+
+    def _decode_step_mamba2(self, params, cache, tokens):
+        """One token through every mamba2 layer; the conv windows and SSD
+        states are replaced in place."""
+        x = embed_lookup(params["embed"], tokens[:, None])
+        for i, p in enumerate(params["layers"]):
+            h = rms_norm(x, p["norm"]["scale"])
+            y, st = ssm_lib.mamba2_block_decode(
+                h[:, 0], {"conv": cache["conv"][i], "ssm": cache["ssm"][i]},
+                p, self.cfg, self.compute_dtype)
+            x = x + y[:, None, :]
+            cache["conv"][i] = st["conv"]
+            cache["ssm"][i] = st["ssm"]
+        x = rms_norm(x, params["final_norm"]["scale"])
+        logits = self.logits(params, x)[:, 0, :]
+        return logits, {"pos": cache["pos"] + 1, "conv": cache["conv"],
+                        "ssm": cache["ssm"]}
+
+    def _mamba2_layer(self, x, p):
+        """Residual mamba2 block over a whole sequence -> (x, decode state)."""
+        h = rms_norm(x, p["norm"]["scale"])
+        y, st = ssm_lib.mamba2_block_prefill(
+            h, p, self.cfg, self.compute_dtype, chunk=self.opts.ssd_chunk,
+            use_kernel=self.opts.use_kernels)
+        return x + y, st
 
     def _decode_step_paged(self, params, cache, tokens):
         """One decode step against the paged pools: the new token's KV is
@@ -223,13 +305,29 @@ class Transformer:
         ``true_len`` supports length-bucketed prompts: tokens beyond it are
         padding — the returned logits are read at position ``true_len - 1``
         and the cache position starts there, so the padded tail is masked out
-        of every later decode step until it is overwritten."""
+        of every later decode step until it is overwritten.  Only attention
+        caches are pad-safe: a mamba2 state integrates every input token, so
+        callers pass mamba2 prompts unpadded.  Mamba2 prefill runs the SSD
+        kernel when ``RunOpts.use_kernels`` is set (the reference's prefill
+        always runs the plain chunked scan; the results agree)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         true_len = batch.get("true_len")
         b, s = tokens.shape
         max_len = max_len or s
         x = embed_lookup(params["embed"], tokens)
+        pos0 = s if true_len is None else int(true_len)
+        if self.kind == "mamba2":
+            states = []
+            for p in params["layers"]:
+                x, st = self._mamba2_layer(x, p)
+                states.append(st)
+            cache = {"pos": torch.full((b,), pos0, dtype=torch.int32,
+                                       device=x.device),
+                     "conv": torch.stack([st["conv"] for st in states]),
+                     "ssm": torch.stack([st["ssm"] for st in states])}
+            x = rms_norm(x, params["final_norm"]["scale"])
+            return self.logits(params, x[:, pos0 - 1:pos0, :])[:, 0, :], cache
         rope_cs = self._rope(torch.arange(s, device=tokens.device)[None, :])
         kv_shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
@@ -243,7 +341,6 @@ class Transformer:
             x = self._finish_block(x, ctx, p)
             k_all[i, :, :n] = k[:, :n]
             v_all[i, :, :n] = v[:, :n]
-        pos0 = s if true_len is None else int(true_len)
         cache = {"pos": torch.full((b,), pos0, dtype=torch.int32,
                                    device=x.device),
                  "k": k_all, "v": v_all}
@@ -255,6 +352,10 @@ class Transformer:
     @torch.no_grad()
     def forward(self, params, tokens):
         x = embed_lookup(params["embed"], tokens)
+        if self.kind == "mamba2":
+            for p in params["layers"]:
+                x, _ = self._mamba2_layer(x, p)
+            return self.logits(params, rms_norm(x, params["final_norm"]["scale"]))
         rope_cs = self._rope(torch.arange(tokens.shape[1],
                                           device=tokens.device)[None, :])
         for p in params["layers"]:

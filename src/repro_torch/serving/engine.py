@@ -9,10 +9,13 @@ under serving churn).
 
 ``cache["pos"]`` is a per-slot position vector, so every row attends and
 writes at its own offset no matter when it was admitted.  Decode runs
-through the bucketed ``DecodeRunner``; prompts are padded to a power-of-two
-ladder before prefill.  ``attn_mode="paged"`` decodes straight off per-layer
-page pools through the paged-attention CUDA kernel; prefill runs the flash
-kernel when the model's ``RunOpts.attention_impl`` is ``"kernel"``.
+through the bucketed ``DecodeRunner``; prompts of pure-attention models are
+padded to a power-of-two ladder before prefill (a recurrent state would
+integrate the pad tokens, so mamba2 prompts go in unpadded).
+``attn_mode="paged"`` decodes straight off per-layer page pools through the
+paged-attention CUDA kernel; prefill runs the flash kernel when the model's
+``RunOpts.attention_impl`` is ``"kernel"`` and the SSD kernel when
+``RunOpts.use_kernels`` is set.
 """
 from __future__ import annotations
 
@@ -75,10 +78,16 @@ class ServeEngine:
         self.prefill_time_s = 0.0
         self.decode_steps = 0
         self.decode_time_s = 0.0
+        cfg = model.cfg
+        self._pad_prefill = self.pads_prefill(cfg)
         if attn_mode not in ("gather", "paged"):
             raise ValueError(f"unknown attn_mode {attn_mode!r}")
         self.attn_mode = attn_mode
         if attn_mode == "paged":
+            if not self._pad_prefill:
+                raise ValueError(
+                    "attn_mode='paged' needs a pure-attention decoder "
+                    f"(pattern {cfg.block_pattern}, tail {cfg.tail_pattern})")
             ept = self.kv.page_tokens
             # +1 page: the exec grant runs one token ahead of accounting
             # (decode writes position T before append_token commits T+1)
@@ -117,13 +126,23 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @staticmethod
+    def pads_prefill(cfg: ModelConfig) -> bool:
+        """Prompt padding is exact only when every cache is positional
+        attention (recurrent state integrates pad tokens; MoE capacity
+        counts them into expert load).  The same pure-attention decoder is
+        what ``attn_mode="paged"`` needs: its pools store K/V only."""
+        return (set(cfg.block_pattern) | set(cfg.tail_pattern) <= {"attn"}
+                and not cfg.is_encoder_decoder and not cfg.n_experts)
+
     def warmup(self) -> None:
-        """Warm every runner bucket and every prefill ladder shape, so the
-        serving loop sees no first-call cost and the compile counters stay
-        flat from step 0."""
+        """Warm every runner bucket and, for padded prompts, every prefill
+        ladder shape, so the serving loop sees no first-call cost and the
+        compile counters stay flat from step 0.  Unpadded (mamba2) prompts
+        have no ladder to warm."""
         self.runner.warmup(self.params, self.cache, self.tokens)
         padded = PREFILL_BUCKET_MIN
-        while True:
+        while self._pad_prefill:
             p = min(padded, self.max_len)
             self._prefill({"tokens": torch.zeros((1, p), dtype=torch.int32,
                                                  device=self.device),
@@ -173,9 +192,12 @@ class ServeEngine:
         """Pad the prompt to a power-of-two ladder so prefill sees
         O(log max_len) shapes.  The padded tail is exact: logits are read at
         ``true_len - 1`` and decode masks cache positions >= ``true_len``
-        until they are overwritten."""
+        until they are overwritten.  Without ``_pad_prefill`` the prompt
+        goes in as it is."""
         prompt = torch.as_tensor(prompt, dtype=torch.int32).to(self.device)
         s = int(prompt.shape[0])
+        if not self._pad_prefill:
+            return {"tokens": prompt[None, :]}
         padded = PREFILL_BUCKET_MIN
         while padded < s:
             padded *= 2
@@ -328,11 +350,17 @@ class ServeEngine:
 
 def _merge_slot(batched_cache: dict, single_cache: dict, slot: int) -> None:
     """Copy one request's prefill cache into slot ``slot`` of the batch cache
-    in place: its position clock and its K/V rows, zero past the prompt."""
+    in place: its position clock, and every per-layer leaf's row (batch axis
+    1).  K/V rows are zero past the prompt; the mamba2 ``conv``/``ssm``
+    state rows have the same shape on both sides and are copied whole."""
     batched_cache["pos"][slot] = single_cache["pos"][0]
-    for name in ("k", "v"):
-        row = batched_cache[name][:, slot]          # (L, C, kv, hd) view
+    for name, leaf in batched_cache.items():
+        if name == "pos":
+            continue
+        row = leaf[:, slot]                         # (L, ...) view
         src = single_cache[name][:, 0]
-        n = min(src.shape[1], row.shape[1])
-        row[:, :n] = src[:, :n]
-        row[:, n:] = 0
+        if src.shape != row.shape:                  # K/V: prompt vs max_len
+            n = min(src.shape[1], row.shape[1])
+            row[:, n:] = 0
+            src = src[:, :n]
+        row[:, :src.shape[1]] = src

@@ -8,7 +8,8 @@ is "compiled" when it is first warmed: ``n_compiles`` (and the
 ``warmup()``.  Capturing one CUDA graph per bucket is a later change.
 
 Each step gathers the running slots' rows of the small per-slot leaves
-(positions, page-table rows, and the contiguous K/V rows in gather mode),
+(positions, page-table rows, and the contiguous K/V or mamba2 state rows in
+gather mode),
 runs the model's decode step, and scatters the updated rows back.  Paged
 pool leaves (``*_pages``) carry no batch axis: they are never gathered, and
 the step updates them in place.  A partial batch is padded to its bucket by
@@ -41,11 +42,12 @@ def bucket_ladder(max_batch: int) -> tuple[int, ...]:
 
 
 def _batch_axis(name: str):
-    """Contiguous K/V leaves are (L, B, ...); pools (``*_pages``) have no
-    batch axis; everything else is (B, ...)."""
+    """Positions and page-table rows are (B, ...); pools (``*_pages``) have
+    no batch axis; every per-layer leaf (K/V, mamba2 ``conv``/``ssm``) is
+    (L, B, ...)."""
     if name.endswith("_pages"):
         return None
-    return 1 if name in ("k", "v") else 0
+    return 0 if name in ("pos", "block_tables") else 1
 
 
 def _gather_rows(cache: dict, slots: torch.Tensor) -> dict:

@@ -157,3 +157,59 @@ def test_profile_cli_on_cpu(capsys):
     profile_serve.main(["--preset", "tiny", "--device", "cpu", "--batch", "2",
                         "--prompt-len", "8", "--max-len", "32", "--steps", "2"])
     assert "[profile] qwen2-0.5b-tiny batch=2" in capsys.readouterr().out
+
+
+# --------------------------------------------------------------------------
+# mamba2: O(1)-state requests, unpadded prefill, gather-mode decode
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mamba2_pair():
+    from test_torch_ssm import mamba2_models
+    return mamba2_models("float32")
+
+
+def test_mamba2_engine_matches_reference_under_churn(mamba2_pair):
+    """Staggered admissions and finishes through 4 slots; live generations
+    outrun the profile.  Each request holds one state-sized page that never
+    grows; prompts go in unpadded (one prefill shape per distinct prompt
+    length, a length under the conv width among them) and prefill runs the
+    SSD wrapper (the reference: its chunked scan)."""
+    jm, jp, tm, tp = mamba2_pair
+    shapes = [(i + 1, (3, 2, 9, 6)[i % 4], 4, 5 + (3 * i) % 7, i) for i in range(10)]
+    jt, tt, jl, tl = _workload(jm.cfg, shapes)
+    kw = dict(max_len=32, max_batch=4, page_tokens=None, attn_mode="gather")
+    jeng = JServeEngine(jm, jp, sample_trace=jt, **kw)
+    teng = ServeEngine(tm, tp, sample_trace=tt, **kw)
+    jeng.warmup()
+    teng.warmup()
+    assert teng.prefill_compiles == jeng.prefill_compiles == 0   # no ladder
+    js, ts = jeng.run(jl), teng.run(tl)
+    assert ts["n_completed"] == len(shapes) and ts["max_concurrent"] >= 3
+    _assert_same(jeng, js, teng, ts)
+    assert teng.prefill_compiles == jeng.prefill_compiles == 4
+    assert teng.kv.stats()["used_pages"] == 0
+    assert teng.runner.n_compiles == len(bucket_ladder(4))
+
+
+def test_paged_mode_refuses_a_recurrent_model(mamba2_pair):
+    jm, jp, tm, tp = mamba2_pair
+    jt, tt, _, _ = _workload(jm.cfg, [(1, 4, 4, 4, 0)])
+    for eng, m, p, trace in ((JServeEngine, jm, jp, jt), (ServeEngine, tm, tp, tt)):
+        with pytest.raises(ValueError, match="pure-attention"):
+            eng(m, p, sample_trace=trace, max_len=16, max_batch=2, attn_mode="paged")
+
+
+def test_mamba2_cli_on_cpu(capsys):
+    """Both launch drivers at mamba2-130m's tiny preset on an explicit CPU
+    (gather mode: the default of serve, the only mode profile_serve picks)."""
+    from repro_torch.launch import profile_serve, serve
+    serve.main(["--device", "cpu", "--arch", "mamba2-130m", "--requests", "3",
+                "--max-batch", "2", "--max-len", "32"])
+    out = capsys.readouterr().out
+    assert "[paged pool] page_tokens=" in out and "completed 3/3 requests" in out
+    profile_serve.main(["--arch", "mamba2-130m", "--preset", "tiny", "--device", "cpu",
+                        "--batch", "2", "--prompt-len", "8", "--max-len", "32",
+                        "--steps", "2"])
+    assert "[profile] mamba2-130m-tiny batch=2 prompt=8 attn=gather" in capsys.readouterr().out
