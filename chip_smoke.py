@@ -15,7 +15,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      because the sum order differs.  SSD: max-abs 1e-4 of max|y| (of max|h|
      for the state), for bf16 and f32 B/C alike, since both versions compute
      in f32 from the same converted inputs but sum in other orders and chunk
-     lengths (the kernel scans in chunks of 64, the plain version of 256);
+     lengths (the kernels scan in chunks of 64, the plain version of 256).
+     RG-LRU: max-abs 1e-5 of max|y|: both sides compute in f32 from the same
+     inputs, the kernel sequentially, the plain version log-depth;
   4. serve full-width qwen2-0.5b (24 layers, bf16, seeded random weights)
      through the port's ``ServeEngine`` with paged decode and flash prefill,
      and check that path against its plain version on a small f32 input;
@@ -24,15 +26,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      against its plain path: token streams of a 2-layer f32 model, and the
      full-width bf16 ``forward`` logits, within twice what re-chunking the
      plain path moves them;
-  6. print the kernels JSON line, the card line, and the result line.
+  6. serve full-width, full-depth recurrentgemma-9b (38 layers, bf16, seeded
+     random weights drawn and cast one leaf at a time) in gather mode with
+     the RG-LRU kernel in every rec prefill and the D=256 flash kernel in
+     every local prefill, on a trace whose two longest prompts pass the
+     2048-token window; then check it against its plain path: token streams
+     of a 5-layer full-width f32 model (one group and the tail), and the
+     bf16 ``forward`` logits over 2600 tokens of the served weights cut to
+     one group and the tail, within twice what re-blocking the plain scan
+     moves them (at full depth the random-weight stack is chaotic enough
+     that the yardstick itself moves most argmaxes: that reading is
+     printed, not held);
+  7. print the kernels JSON line, the card line, and the result line.
 
 Each serving path runs with every launch counter set to 0 just before it
-and read just after it.
+and read just after it, and each path's models are freed before the next.
 
 Imports nothing of JAX.  Stdout's last line is the result JSON.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -45,9 +59,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SSD_REL_TOL = 1e-4          # of max|y| / max|h|, both B/C dtypes
+RGLRU_REL_TOL = 1e-5        # of max|y|
 ARCH = "qwen2-0.5b"
 SSM_ARCH = "mamba2-130m"
+HYBRID_ARCH = "recurrentgemma-9b"
 MAX_BATCH, MAX_LEN, GEN_LEN, N_REQUESTS, SEED = 8, 1024, 32, 12, 0
+HYBRID_MAX_LEN = 4096       # room for the 2100-3000-token prompts
 
 
 def card_line() -> str:
@@ -64,11 +81,9 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
     host's pace, as the engine sees it.  Device ms: the same calls queued
     behind a GPU sleep long enough to cover their host work, so the kernels
     run back to back and the events time the device alone."""
-    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
         torch.cuda.synchronize()
-    host_s = (time.perf_counter() - t0) / warmup
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -78,8 +93,9 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
     end.synchronize()
     call_ms = start.elapsed_time(end) / iters
     # hold the stream: ~2e9 cycles/s is at or above the H100's SM clock, so
-    # the sleep lasts at least 1.5x the queued calls' host time
-    torch.cuda._sleep(int(2e9 * (1.5 * iters * host_s + 2e-3)))
+    # the sleep lasts at least 1.5x the queued calls' host time, which the
+    # steady-state pace (call ms, no first-call costs) bounds from above
+    torch.cuda._sleep(int(2e9 * (1.5 * iters * call_ms / 1e3 + 2e-3)))
     start.record()
     for _ in range(iters):
         fn()
@@ -163,52 +179,109 @@ def paged_cases(torch, ops, ref, pt: int):
     return out, worst
 
 
-def flash_cases(torch, ops, ref):
-    """Flash prefill at the padding ladder's shapes (B=1, H=14 over KV=2,
-    D=64), plus one sliding-window and one q_offset case."""
+def attention_pairs(sq: int, sk: int, q_off: int, window: int) -> int:
+    """Valid (query, key) pairs of a causal prefill with an optional window."""
+    qp = range(q_off, q_off + sq)
+    return sum(min(p + 1, sk) - (max(0, p - window + 1) if window else 0) for p in qp)
+
+
+def flash_cases(torch, ops, ref, h: int, kv: int, d: int, cases, seed: int,
+                iters: int = 20):
+    """Flash prefill (B=1) at a model's head layout against its plain
+    version, timed beside SDPA: ``cases`` are (dtype, Sq, window, q_offset).
+    SDPA gets the causal flag, or a boolean mask where a window or an offset
+    needs one."""
     F = torch.nn.functional
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    cases = [("bfloat16", sq, 0, 0) for sq in (8, 37, 512, 1024)]
-    cases += [("bfloat16", 512, 128, 0), ("bfloat16", 64, 0, 512),
-              ("float32", 512, 0, 0)]
+    g = torch.Generator(device="cuda").manual_seed(seed)
     out, worst = {}, {}
     for dtype_name, sq, window, q_off in cases:
         dt = getattr(torch, dtype_name)
         sk = sq + q_off
-        q = torch.randn(1, sq, 2, 7, 64, generator=g, device="cuda").to(dt)
-        k = torch.randn(1, sk, 2, 64, generator=g, device="cuda").to(dt)
-        v = torch.randn(1, sk, 2, 64, generator=g, device="cuda").to(dt)
+        q = torch.randn(1, sq, kv, h // kv, d, generator=g, device="cuda").to(dt)
+        k = torch.randn(1, sk, kv, d, generator=g, device="cuda").to(dt)
+        v = torch.randn(1, sk, kv, d, generator=g, device="cuda").to(dt)
         kw = dict(causal=True, window=window, q_offset=q_off)
-        qh, kh, vh = q.reshape(1, sq, 14, 64).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        qh, kh, vh = q.reshape(1, sq, h, d).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         got = ops.flash_attention(q, k, v, **kw)
-        want = ref.ref_attention_bhsd(qh, kh, vh, **kw).transpose(1, 2).reshape(got.shape)
+        want = ops.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        check(f"flash Sq={sq} window={window} q_offset={q_off} {dtype_name}", err, dtype_name)
+        check(f"flash D={d} Sq={sq} window={window} q_offset={q_off} {dtype_name}",
+              err, dtype_name)
         worst[dtype_name] = max(worst.get(dtype_name, 0.0), err)
-        k_ms, k_call = time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw))
+        k_ms, k_call = time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), iters=iters)
         p_ms, _ = time_ms(torch, lambda: ref.ref_attention_bhsd(qh, kh, vh, **kw), iters=5)
-        s_ms = None
-        if window == 0 and q_off == 0:
-            s_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True, enable_gqa=True))
-        qp = torch.arange(sq) + q_off
-        kpos = torch.arange(sk)
-        ok = kpos[None, :] <= qp[:, None]
-        if window:
-            ok &= kpos[None, :] > qp[:, None] - window
-        pairs = int(ok.sum())
-        isz = q.element_size()
-        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * isz
-        bms, by = bound_ms(n_bytes, 4 * 64 * 14 * pairs, dtype_name)
+        if window or q_off:
+            qp = torch.arange(sq, device="cuda")[:, None] + q_off
+            kp = torch.arange(sk, device="cuda")[None, :]
+            mask = (kp <= qp) & ((kp > qp - window) if window else True)
+            sdpa = dict(attn_mask=mask)
+        else:
+            sdpa = dict(is_causal=True)
+        s_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, enable_gqa=True, **sdpa))
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bms, by = bound_ms(n_bytes, 4 * d * h * attention_pairs(sq, sk, q_off, window),
+                           dtype_name)
         out[(dtype_name, sq, window, q_off)] = dict(
             err=err, ms=k_ms, plain_ms=p_ms, sdpa_ms=s_ms, bound_ms=bms, bound_by=by)
-        print(f"[flash] Sq={sq} Sk={sk} window={window} q_offset={q_off} "
-              f"{dtype_name} max_abs_err={err:.3g} kernel_ms={k_ms:.4f} "
-              f"wrapper_call_ms={k_call:.4f} "
-              f"plain_ms={p_ms:.4f} sdpa_ms="
-              f"{'n/a' if s_ms is None else f'{s_ms:.4f}'} "
-              f"bound_ms={bms:.5f} ({by})", flush=True)
+        print(f"[flash] D={d} H={h} KV={kv} Sq={sq} Sk={sk} window={window} "
+              f"q_offset={q_off} {dtype_name} max_abs_err={err:.3g} "
+              f"kernel_ms={k_ms:.4f} wrapper_call_ms={k_call:.4f} "
+              f"plain_ms={p_ms:.4f} sdpa_ms={s_ms:.4f} bound_ms={bms:.5f} ({by})",
+              flush=True)
+    return out, worst
+
+
+def rglru_cases(torch, ops, rg, ref):
+    """The RG-LRU kernel against its plain version at recurrentgemma-9b's
+    width (L=4096): a short prompt, a serving prompt, one past the window
+    and a batch of two, with and without h0.  a and b are made as the
+    model's gates make them (a = exp(-8 softplus(1) r), b = sqrt(1 - a^2) i x),
+    so y stays O(1)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    lru = 4096
+    out, worst = {}, 0.0
+    for b, s in ((1, 37), (1, 512), (1, 2600), (2, 1024)):
+        r = torch.sigmoid(torch.randn(b, s, lru, generator=g, device="cuda"))
+        a = torch.exp(-8.0 * math.log1p(math.e) * r)          # softplus(1) = log(1 + e)
+        i = torch.sigmoid(torch.randn(b, s, lru, generator=g, device="cuda"))
+        x = torch.randn(b, s, lru, generator=g, device="cuda")
+        bb = torch.sqrt(torch.clamp(1 - a * a, min=1e-6)) * i * x
+        h0 = torch.randn(b, lru, generator=g, device="cuda")
+        for with_h0 in (False, True):
+            h = h0 if with_h0 else None
+            y = ops.rglru_scan(a, bb, h)
+            want = ref.ref_rglru(a, bb, h)
+            torch.cuda.synchronize()
+            err = (y - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            if not (math.isfinite(err) and err <= RGLRU_REL_TOL * scale):
+                raise AssertionError(f"rglru B={b} S={s} h0={with_h0}: max_abs_err "
+                                     f"{err:.3g} > {RGLRU_REL_TOL} of max|y| {scale:.3g}")
+            worst = max(worst, err)
+            k_ms, k_call = time_ms(torch, lambda: rg.rglru_scan_kernel(a, bb, h))
+            p_ms, _ = time_ms(torch, lambda: ref.ref_rglru(a, bb, h), iters=5)
+            n_bytes = 3 * 4 * a.numel() + (4 * h.numel() if with_h0 else 0)
+            bms, by = bound_ms(n_bytes, 2 * a.numel(), "float32")
+            out[(b, s, with_h0)] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                        bound_by=by)
+            print(f"[rglru] B={b} S={s} L={lru} h0={with_h0} max_abs_err={err:.3g} "
+                  f"(max|y| {scale:.3g}) tol={RGLRU_REL_TOL} of max "
+                  f"kernel_ms={k_ms:.4f} wrapper_call_ms={k_call:.4f} "
+                  f"plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by})", flush=True)
+            if (b, s, with_h0) == (1, 2600, False):
+                # how much of the scan the forward check's yardstick reorders,
+                # beside how much the kernel does
+                def changed(other):
+                    return ((other != want).float().mean().item(),
+                            (other.bfloat16() != want.bfloat16()).float().mean().item())
+                for name, other in (("kernel", y),
+                                    *((f"plain block {k}", ref.ref_rglru(a, bb, block=k))
+                                      for k in (1, 4, 64))):
+                    f32, bf16 = changed(other)
+                    print(f"[rglru] S={s} against plain block 256: {name} changes "
+                          f"{f32:.4f} of the f32 outputs, {bf16:.2e} of their bf16 casts")
     return out, worst
 
 
@@ -273,9 +346,10 @@ def ssd_cases(torch, ops, ssd, ssm, ref):
     return out, worst
 
 
-def serve_trace(cfg, torch, n: int, seed: int):
-    """Staggered requests with prompts of 100-600 tokens and GEN_LEN
-    generated tokens; prompts are seeded random token ids."""
+def serve_trace(cfg, torch, n: int, seed: int, long_rids=()):
+    """Staggered requests with prompts of 100-600 tokens (2100-3000 for the
+    rids in ``long_rids``) and GEN_LEN generated tokens; prompts are seeded
+    random token ids."""
     from repro_torch.runtime.serve_lib import Request
     from repro_torch.serving import GenRequest
     rng = random.Random(seed)
@@ -283,13 +357,18 @@ def serve_trace(cfg, torch, n: int, seed: int):
     trace, t = [], 0
     for i in range(n):
         t += rng.randint(0, 3)
-        trace.append(Request(rid=i + 1, prompt_len=rng.randint(100, 600),
-                             gen_len=GEN_LEN, arrival=t))
+        n_prompt = rng.randint(2100, 3000) if i + 1 in long_rids else rng.randint(100, 600)
+        trace.append(Request(rid=i + 1, prompt_len=n_prompt, gen_len=GEN_LEN,
+                             arrival=t))
     live = [GenRequest(rid=r.rid, prompt=torch.randint(
                 0, cfg.vocab_size, (r.prompt_len,), generator=g,
                 dtype=torch.int32), gen_len=r.gen_len, arrival=r.arrival)
             for r in trace]
     return trace, live
+
+
+def stamp(t_start: float, what: str) -> None:
+    print(f"[time] {what} done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
 
 def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
@@ -340,55 +419,95 @@ def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
     return launches
 
 
-def same_streams(torch, small, variants, Transformer, ServeEngine, what: str) -> None:
-    """A 2-layer full-width f32 model serves identical greedy token streams
+def free_cuda(torch) -> None:
+    """Return the freed models' memory to the card before the next path."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def load_model(torch, Transformer, cfg, opts, seed: int, tag: str):
+    """A model and its weights drawn from ``seed``, one leaf at a time
+    (``init_loaded``): the peak is the loaded weights plus one f32 leaf."""
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(cfg, opts)
+    params = model.init_loaded(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    print(f"[serve:{tag}] weights {torch.cuda.memory_allocated() / 1e9:.2f}GB "
+          f"({cfg.n_layers} layers, {cfg.dtype}), init peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}GB", flush=True)
+    return model, params
+
+
+def same_streams(torch, small, variants, Transformer, ServeEngine, what: str, *,
+                 max_len: int = MAX_LEN, long_rids=()) -> None:
+    """A shallow full-width f32 model serves identical greedy token streams
     through each ``(RunOpts, attn_mode)`` variant: the kernels' path and
-    the plain path."""
-    trace_s, live_s = serve_trace(small, torch, 4, SEED + 3)
+    the plain path, on the same weights."""
+    trace_s, live_s = serve_trace(small, torch, 4, SEED + 3, long_rids)
     streams = []
+    params = None
     for opts, mode in variants:
         m = Transformer(small, opts)
-        p = m.load(m.init(torch.Generator(device="cuda").manual_seed(SEED + 3)))
-        e = ServeEngine(m, p, sample_trace=trace_s, max_len=MAX_LEN, max_batch=4,
+        if params is None:
+            params = m.init_loaded(torch.Generator(device="cuda").manual_seed(SEED + 3))
+        e = ServeEngine(m, params, sample_trace=trace_s, max_len=max_len, max_batch=4,
                         attn_mode=mode)
         e.run(live_s)
         streams.append(e.completed)
     same = sum(streams[0][r] == streams[1][r] for r in streams[1])
-    print(f"[check] {small.name} f32 2-layer full-width: {what} token streams "
-          f"identical for {same}/{len(live_s)} requests")
+    print(f"[check] {small.name} f32 {small.n_layers}-layer full-width: {what} token "
+          f"streams identical for {same}/{len(live_s)} requests (prompts "
+          f"{[r.prompt_len for r in trace_s]})")
     if same != len(live_s):
         raise AssertionError(f"token streams differ: {streams}")
 
 
-def check_forward(torch, cfg, Transformer, RunOpts) -> None:
-    """Full-width bf16 mamba2 ``forward`` logits through the SSD kernel and
-    through the plain path.  The two sum in other orders, so the f32 scan
-    outputs differ in the last bits, a few of their bf16 casts round the
-    other way, and 24 random-weight layers carry it.  The yardstick is the
-    plain path against itself at the kernel's chunk length, which moves
-    the scan by rounding alone: the kernel's max-abs error and its share of
-    argmax disagreements may each be at most twice the yardstick's."""
-    models = {k: Transformer(cfg, RunOpts(use_kernels=k)) for k in (True, False)}
-    params = models[True].load(models[True].init(
-        torch.Generator(device="cuda").manual_seed(SEED + 5)))
-    tokens = torch.randint(0, cfg.vocab_size, (2, 300), device="cuda",
-                           generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
-    want = models[False].forward(params, tokens).float()
-    rechunked = Transformer(cfg, RunOpts(use_kernels=False, ssd_chunk=64))
+def check_forward(torch, cfg, Transformer, params, tokens, kernel, plain, yardstick,
+                  what: str, *, hold: bool = True, slack: int = 0) -> None:
+    """Full-width bf16 ``forward`` logits through the kernels (RunOpts
+    ``kernel``) and through their plain versions (``plain``).  The two sum
+    in other orders, so the f32 kernel outputs differ in the last bits, a
+    few of their bf16 casts round the other way, and many random-weight
+    layers carry it.  The yardstick is the plain path against itself with
+    another block or chunk length (``yardstick``), which moves the scan by
+    rounding alone: the kernels' max-abs error and their share of argmax
+    disagreements may each be at most twice the yardstick's (plus
+    ``slack`` positions, for a near-tie that any rounding can flip).
+    ``hold=False`` prints the reading with no limit: where the stack is
+    deep enough that the yardstick itself is saturated, there is nothing
+    to hold it to."""
+    want = Transformer(cfg, plain).forward(params, tokens).float()
     read = {}
-    for name, model in (("kernel", models[True]), ("yardstick", rechunked)):
-        got = model.forward(params, tokens).float()
+    for name, opts in (("kernel", kernel), ("yardstick", yardstick)):
+        got = Transformer(cfg, opts).forward(params, tokens).float()
         read[name] = ((got - want).abs().max().item(),
                       (got.argmax(-1) != want.argmax(-1)).float().mean().item())
+        del got
     (err, off), (err_y, off_y) = read["kernel"], read["yardstick"]
-    print(f"[check] {cfg.name} {cfg.dtype} full-width forward (2 x 300 tokens) "
-          f"against plain chunk 256: kernel max_abs_err={err:.4g} argmax "
-          f"disagreement {off:.4f}; yardstick (plain chunk 64) max_abs_err="
-          f"{err_y:.4g} argmax disagreement {off_y:.4f}; max|logits|="
-          f"{want.abs().max().item():.4g}; limits 2x the yardstick's")
-    if not (math.isfinite(err) and err <= 2 * err_y and off <= 2 * off_y):
+    n_pos = tokens.numel()
+    limit = (f"limits 2x the yardstick's{f' + {slack} position' if slack else ''}"
+             if hold else "reading only: the yardstick is saturated at this depth")
+    print(f"[check] {cfg.name} {cfg.dtype} {cfg.n_layers}-layer full-width forward "
+          f"({' x '.join(map(str, tokens.shape))} tokens) {what}: kernel "
+          f"max_abs_err={err:.4g} argmax disagreement {off:.4f}; yardstick "
+          f"max_abs_err={err_y:.4g} argmax disagreement {off_y:.4f}; "
+          f"max|logits|={want.abs().max().item():.4g}; {limit}", flush=True)
+    if not math.isfinite(err) or want.shape[:2] != tokens.shape:
+        raise AssertionError(f"forward: logits {tuple(want.shape)}, max_abs_err {err}")
+    if hold and not (err <= 2 * err_y and off <= 2 * off_y + slack / n_pos):
         raise AssertionError(f"forward: kernel vs plain max_abs_err {err:.4g}, "
                              f"argmax disagreement {off:.4f}, over 2x the yardstick")
+
+
+def first_groups(cfg, params, groups: int):
+    """The model cut to its first ``groups`` pattern groups and its tail,
+    sharing the weights: (config, parameters)."""
+    n = len(cfg.block_pattern) * groups
+    tail = len(cfg.tail_pattern)
+    return (cfg.with_overrides(n_layers=n + tail),
+            {**params, "layers": params["layers"][:n] + params["layers"][-tail:]})
 
 
 def main() -> int:
@@ -403,9 +522,12 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.planner import MemoryPlanner
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import RunOpts, Transformer
     from repro_torch.models import ssm
+    from repro_torch.runtime.serve_lib import layer_kinds
     from repro_torch.serving import ServeEngine
     from repro_torch.serving.pages import choose_page_tokens
 
@@ -432,49 +554,133 @@ def main() -> int:
           f"(check_smem working set {smem_py} B)")
     if smem_src != smem_py:
         raise AssertionError("ssd_scan.smem_blocks() disagrees with csrc SMEM_BYTES")
+    for d in fa.HEAD_DIMS:
+        smem_src = build.library("flash_attention").flash_attention_smem_bytes(d)
+        smem_py = MemoryPlanner.smem_footprint(fa.smem_blocks(d))
+        print(f"[build] flash_attention D={d} shared memory {smem_src} B per CTA "
+              f"({'dynamic' if d >= fa.WIDE else 'static'}; check_smem working set "
+              f"{smem_py} B)")
+        if smem_src != smem_py:
+            raise AssertionError(f"flash_attention.smem_blocks({d}) disagrees with "
+                                 "csrc flash_attention_smem_bytes")
 
+    stamp(t_start, "phase 2")
     # -- 3. kernels against their plain versions -------------------------------------
     cfg = get_config(ARCH)
     trace, live = serve_trace(cfg, torch, N_REQUESTS, SEED)
     pt = choose_page_tokens(cfg, trace).page_tokens
     paged, paged_worst = paged_cases(torch, ops, ref, pt)
-    flash, flash_worst = flash_cases(torch, ops, ref)
+    stamp(t_start, "[paged]")
+    # qwen2's layout (14 heads over 2, D=64) at the padding ladder's shapes,
+    # one sliding window and one offset; recurrentgemma's local attention
+    # (16 heads over 1, D=256, window 2048) short of the window and past it
+    flash, flash_worst = flash_cases(torch, ops, ref, 14, 2, 64, [
+        *(("bfloat16", sq, 0, 0) for sq in (8, 37, 512, 1024)),
+        ("bfloat16", 512, 128, 0), ("bfloat16", 64, 0, 512), ("float32", 512, 0, 0)],
+        SEED + 2)
+    flash_wide, flash_wide_worst = flash_cases(torch, ops, ref, 16, 1, 256, [
+        *((dt, sq, 2048, 0) for dt in ("bfloat16", "float32") for sq in (37, 512, 2600)),
+        ("bfloat16", 64, 2048, 2500)], SEED + 6, iters=10)
+    stamp(t_start, "[flash]")
     ssd_res, ssd_worst = ssd_cases(torch, ops, ssd, ssm, ref)
+    stamp(t_start, "[ssd]")
+    rglru, rglru_worst = rglru_cases(torch, ops, rg, ref)
 
+    stamp(t_start, "phase 3")
     # -- 4. the qwen2 path: full-width qwen2-0.5b, paged decode, flash prefill -------
-    model = Transformer(cfg, RunOpts(attention_impl="kernel"))
-    params = model.load(model.init(torch.Generator(device="cuda").manual_seed(SEED)))
+    model, params = load_model(torch, Transformer, cfg, RunOpts(attention_impl="kernel"),
+                               SEED, "qwen2")
     eng = ServeEngine(model, params, sample_trace=trace, max_len=MAX_LEN,
                       max_batch=MAX_BATCH, attn_mode="paged")
     qwen2 = serve_path(torch, ops, eng, live, lambda steps, prefills: {
         "flash_attention": cfg.n_layers * prefills,
-        "paged_attention": cfg.n_layers * steps, "ssd_scan": 0}, card, "qwen2")
+        "paged_attention": cfg.n_layers * steps, "ssd_scan": 0,
+        "rglru_scan": 0}, card, "qwen2")
+    del model, params, eng
     same_streams(torch, cfg.with_overrides(n_layers=2, dtype="float32"),
                  [(RunOpts(attention_impl="kernel"), "paged"),
                   (RunOpts(attention_impl="full"), "gather")],
                  Transformer, ServeEngine, "paged+kernels vs gather+plain")
 
+    stamp(t_start, "phase 4")
     # -- 5. the mamba2 path: full-width mamba2-130m, gather decode, SSD prefill -------
     cfg_m = get_config(SSM_ARCH)
     trace_m, live_m = serve_trace(cfg_m, torch, N_REQUESTS, SEED)
-    model = Transformer(cfg_m, RunOpts(use_kernels=True))
-    params = model.load(model.init(torch.Generator(device="cuda").manual_seed(SEED)))
+    model, params = load_model(torch, Transformer, cfg_m, RunOpts(use_kernels=True),
+                               SEED, "mamba2")
     eng = ServeEngine(model, params, sample_trace=trace_m, max_len=MAX_LEN,
                       max_batch=MAX_BATCH, attn_mode="gather")
     mamba2 = serve_path(torch, ops, eng, live_m, lambda steps, prefills: {
         "flash_attention": 0, "paged_attention": 0,
-        "ssd_scan": cfg_m.n_layers * prefills}, card, "mamba2")
+        "ssd_scan": cfg_m.n_layers * prefills, "rglru_scan": 0}, card, "mamba2")
     del model, params, eng
+    stamp(t_start, "[serve:mamba2]")
     same_streams(torch, cfg_m.with_overrides(n_layers=2, dtype="float32"),
                  [(RunOpts(use_kernels=True), "gather"),
                   (RunOpts(use_kernels=False), "gather")],
                  Transformer, ServeEngine, "SSD kernel vs plain prefill")
-    check_forward(torch, cfg_m, Transformer, RunOpts)
+    stamp(t_start, "mamba2 token streams")
+    model, params = load_model(torch, Transformer, cfg_m, RunOpts(), SEED + 5,
+                               "mamba2 forward check")
+    check_forward(torch, cfg_m, Transformer, params, torch.randint(
+        0, cfg_m.vocab_size, (2, 300), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 5)),
+        RunOpts(use_kernels=True), RunOpts(use_kernels=False),
+        RunOpts(use_kernels=False, ssd_chunk=64),
+        "against plain chunk 256, yardstick plain chunk 64")
+    del model, params
 
-    # -- 6. records ------------------------------------------------------------------------
+    stamp(t_start, "phase 5")
+    # -- 6. the recurrentgemma path: full-width recurrentgemma-9b, gather decode,
+    #       RG-LRU kernel in rec prefill, D=256 flash kernel in local prefill ---------
+    cfg_r = get_config(HYBRID_ARCH)
+    long_rids = (4, 9)
+    trace_r, live_r = serve_trace(cfg_r, torch, N_REQUESTS, SEED, long_rids)
+    print(f"[serve:rgemma] prompts {[r.prompt_len for r in trace_r]} against a "
+          f"{cfg_r.local_window}-token window", flush=True)
+    kinds = layer_kinds(cfg_r)
+    n_rec, n_local = kinds.count("rec"), kinds.count("local")
+    model, params = load_model(torch, Transformer, cfg_r, RunOpts(), SEED, "rgemma")
+    eng = ServeEngine(model, params, sample_trace=trace_r, max_len=HYBRID_MAX_LEN,
+                      max_batch=MAX_BATCH, attn_mode="gather")
+    rgemma = serve_path(torch, ops, eng, live_r, lambda steps, prefills: {
+        "flash_attention": n_local * prefills, "paged_attention": 0,
+        "ssd_scan": 0, "rglru_scan": n_rec * prefills}, card, "rgemma")
+    del eng
+    stamp(t_start, "[serve:rgemma]")
+    free_cuda(torch)
+    # the random-weight stack is chaotic: rounding flips grow with depth until
+    # even the yardstick moves most argmaxes, so the limit holds at one group
+    # and the tail (every kind of layer, the window acting) and the full
+    # depth is read only.  The yardstick re-blocks the plain scan by 1 step,
+    # which changes about as large a share of its f32 outputs as the
+    # kernel's sequential order does (the [rglru] calibration line prints
+    # both); the gates make a ~ e^-5, so only the last few steps carry and
+    # coarser blocks leave most sums in the same order.
+    tokens = torch.randint(0, cfg_r.vocab_size, (1, 2600), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
+    plain = RunOpts(attention_impl="plain", use_kernels=False)
+    for groups, hold in ((1, True), (cfg_r.n_pattern_groups, False)):
+        cfg_g, params_g = first_groups(cfg_r, params, groups)
+        check_forward(torch, cfg_g, Transformer, params_g, tokens, RunOpts(), plain,
+                      RunOpts(attention_impl="plain", use_kernels=False, rglru_block=1),
+                      "against the plain versions (RG-LRU block 256), yardstick "
+                      "RG-LRU block 1", hold=hold, slack=1)
+    del model, params, params_g
+    free_cuda(torch)
+    stamp(t_start, "recurrentgemma forward checks")
+    same_streams(torch, cfg_r.with_overrides(n_layers=5, dtype="float32"),
+                 [(RunOpts(), "gather"),
+                  (RunOpts(attention_impl="full", use_kernels=False), "gather")],
+                 Transformer, ServeEngine, "RG-LRU + flash kernels vs plain prefill",
+                 max_len=HYBRID_MAX_LEN, long_rids=(2,))
+
+    stamp(t_start, "phase 6")
+    # -- 7. records ------------------------------------------------------------------------
     pk = paged[("bfloat16", MAX_BATCH)]
     fk = flash[("bfloat16", 512, 0, 0)]
     sk = ssd_res[("bfloat16", 1, 512)]
+    rk = rglru[(1, 512, False)]
     kernels = [
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -486,8 +692,9 @@ def main() -> int:
         {"name": "flash_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73",
-         "launches": qwen2["flash_attention"],
-         "max_abs_err": flash_worst["bfloat16"], "ms": fk["ms"],
+         "launches": qwen2["flash_attention"] + rgemma["flash_attention"],
+         "max_abs_err": max(flash_worst["bfloat16"], flash_wide_worst["bfloat16"]),
+         "ms": fk["ms"],
          "plain_ms": fk["plain_ms"], "bound_ms": fk["bound_ms"],
          "bound_by": fk["bound_by"], "library_ms": fk["sdpa_ms"]},
         {"name": "ssd_scan_kernel", "route": "cuda",
@@ -497,6 +704,13 @@ def main() -> int:
          "max_abs_err": ssd_worst["bfloat16"], "ms": sk["ms"],
          "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
          "bound_by": sk["bound_by"], "library_ms": None},
+        {"name": "rglru_scan_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:40",
+         "launches": rgemma["rglru_scan"],
+         "max_abs_err": rglru_worst, "ms": rk["ms"],
+         "plain_ms": rk["plain_ms"], "bound_ms": rk["bound_ms"],
+         "bound_by": rk["bound_by"], "library_ms": None},
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

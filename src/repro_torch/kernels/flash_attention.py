@@ -3,14 +3,19 @@
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention.
 flash_attention_bhsd``: causal, sliding-window and k-padding masks by
 position with ``q_offset``, GQA by ``h // group`` with no repeated K/V,
-online softmax in f32.  One CTA per (batch * head, 64-row query tile) stages
+online softmax in f32.  One CTA per (batch * head, query tile) stages
 32-key K/V tiles through shared memory and skips key tiles wholly in the
-causal future; see the source for the design and its bound.  The plain
-PyTorch version is ``ref.ref_attention_bhsd``.
+causal future or before the window.  Head dim 64 runs two threads per query
+row (64 rows per CTA, static shared memory); head dim 256 runs eight threads
+per row, each owning a slice of q and of the output (32 rows per CTA, 64 KB
+of dynamic shared memory); see the source for both designs and their bound.
+The plain PyTorch version is ``ref.ref_attention_bhsd``.
 
 Layout: q (B, H, Sq, D); k/v (B, KV, Sk, D) -> out (B, H, Sq, D).  Any
-strides are taken as long as the last dimension is contiguous, so the
-model's (B, S, H, D) tensors are passed as transposed views, not copies.
+strides are taken as long as the last dimension is contiguous (at D=256 also
+multiples of 8 elements on 16-byte aligned tensors, for its vector loads),
+so the model's (B, S, H, D) tensors are passed as transposed views, not
+copies.
 """
 from __future__ import annotations
 
@@ -21,18 +26,22 @@ import torch
 
 from . import build
 
-BLOCK_K = 32                    # keys per tile (csrc: BK)
-HEAD_DIMS = (64,)               # head dims the kernel is instantiated for
+BLOCK_K = 32                    # keys per tile (csrc: BK, W_BK)
+HEAD_DIMS = (64, 256)           # head dims the kernel is instantiated for
+WIDE = 256                      # head dims from here run the wide design
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def smem_blocks(d: int):
-    """Shared-memory working set per CTA, for ``MemoryPlanner.check_smem``."""
+    """Shared-memory working set per CTA, for ``MemoryPlanner.check_smem``
+    (csrc: ``flash_attention_smem_bytes``): f32 K and V tiles, rows padded by
+    one float in the D=64 design, unpadded float4 rows in the wide one."""
     f32 = np.dtype("float32")
-    return [((BLOCK_K, d + 1), f32),          # k tile
-            ((BLOCK_K, d + 1), f32)]          # v tile
+    row = d if d >= WIDE else d + 1
+    return [((BLOCK_K, row), f32),            # k tile
+            ((BLOCK_K, row), f32)]            # v tile
 
 
 def _fn():
@@ -63,6 +72,9 @@ def flash_attention_bhsd(q, k, v, *, causal=True, window=0, q_offset=0):
             raise ValueError(f"{name} must lie on q's CUDA device, got {t.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dimension")
+        if d >= WIDE and (t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3])):
+            raise ValueError(f"{name} needs 16-byte alignment and strides in "
+                             f"multiples of 8 elements at head dim {d}")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of "
                          f"{list(DTYPE_CODES)} for all three")

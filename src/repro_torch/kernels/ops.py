@@ -13,8 +13,9 @@ from __future__ import annotations
 from ..core.planner import MemoryPlanner
 from . import flash_attention as _fa
 from . import paged_attention as _pa
+from . import rglru_scan as _rg
 from . import ssd_scan as _ssd
-from .ref import ref_attention_bhsd, ref_paged_attention, ssd_chunked
+from .ref import ref_attention_bhsd, ref_paged_attention, ref_rglru, ssd_chunked
 
 
 def _check_smem(blocks, what: str) -> None:
@@ -29,21 +30,32 @@ def _device_type(t) -> str:
     return t.device.type
 
 
+def _in_model_layout(fn, q, k, v, **kw):
+    """Run a (B,H,S,D) attention ``fn`` on the model's layout q:
+    (B,S,KV,G,hd), k/v: (B,S,KV,hd) -> ctx (B,S,KV,G,hd), through views."""
+    b, s, kv, g, hd = q.shape
+    out = fn(q.reshape(b, s, kv * g, hd).transpose(1, 2), k.transpose(1, 2),
+             v.transpose(1, 2), **kw)
+    return out.transpose(1, 2).reshape(b, s, kv, g, hd)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Model layout q: (B,S,KV,G,hd); k/v: (B,S,KV,hd) -> ctx (B,S,KV,G,hd)."""
-    b, s, kv, g, hd = q.shape
-    _check_smem(_fa.smem_blocks(hd), "flash attention")
-    qh = q.reshape(b, s, kv * g, hd).transpose(1, 2)
-    kh = k.transpose(1, 2)
-    vh = v.transpose(1, 2)
+    _check_smem(_fa.smem_blocks(q.shape[-1]), "flash attention")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
     if _device_type(q) == "cpu":
-        out = ref_attention_bhsd(qh, kh, vh, causal=causal, window=window,
-                                 q_offset=q_offset)
-    else:
-        out = _fa.flash_attention_bhsd(qh, kh, vh, causal=causal,
-                                       window=window, q_offset=q_offset)
-        flash_attention.launches += 1
-    return out.transpose(1, 2).reshape(b, s, kv, g, hd)
+        return flash_attention_plain(q, k, v, **kw)
+    out = _in_model_layout(_fa.flash_attention_bhsd, q, k, v, **kw)
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0):
+    """The flash kernel's plain version in the model layout, on any device:
+    what the wrapper runs for CPU tensors and what the kernel is held
+    against on the card."""
+    return _in_model_layout(ref_attention_bhsd, q, k, v, causal=causal,
+                            window=window, q_offset=q_offset)
 
 
 def paged_attention(q, k_pages, v_pages, tables, positions):
@@ -81,10 +93,25 @@ def _ssd_kernel(xdt, dta, b_mat, c_mat, *, chunk, h0):
     return out
 
 
+def rglru_scan(a, b, h0=None, *, block=256):
+    """``h_t = a_t h_{t-1} + b_t`` over a, b (B,S,L) with optional h0 (B,L)
+    -> y (B,S,L) f32.  ``block`` is the plain version's block length; the
+    kernel walks the whole sequence, which changes the result only by
+    rounding.  The kernel needs no shared memory, so there is nothing to
+    check against the budget."""
+    if _device_type(a) == "cpu":
+        return ref_rglru(a, b, h0, block=block)
+    out = _rg.rglru_scan_kernel(a.contiguous(), b.contiguous(),
+                                None if h0 is None else h0.float().contiguous())
+    rglru_scan.launches += 1
+    return out
+
+
 flash_attention.launches = 0
 paged_attention.launches = 0
 ssd_scan.launches = 0
-WRAPPERS = (flash_attention, paged_attention, ssd_scan)
+rglru_scan.launches = 0
+WRAPPERS = (flash_attention, paged_attention, ssd_scan, rglru_scan)
 
 
 def reset_launches() -> None:

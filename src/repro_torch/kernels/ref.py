@@ -3,7 +3,7 @@
 They run wherever the tensors lie: the kernel wrappers in ``ops`` take them
 for CPU tensors, and ``chip_smoke.py`` holds each kernel against them on the
 card.  The attention versions compute in float32 and return the input
-dtype; the SSD versions return float32.
+dtype; the SSD and RG-LRU versions return float32.
 """
 from __future__ import annotations
 
@@ -143,3 +143,50 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=256, h0=None,
     xdt = x.float() * dt.float()[..., None]
     y, h_fin = scan(xdt, dta, b_mat, c_mat, chunk=chunk, h0=h0)
     return y + x.float() * d_skip.float()[None, None, :, None], h_fin
+
+
+def _linear_scan(a, b, dim: int):
+    """Inclusive scan of ``h_t = a_t h_{t-1} + b_t`` along ``dim`` from a
+    zero state, log-depth (Hillis-Steele): at offset d every step folds in
+    the pair d steps earlier, ``(a, b)_t <- (a_{t-d} a_t, a_t b_{t-d} + b_t)``,
+    the combine of the reference's ``associative_scan``.  Returns the
+    running products of a and the scanned b."""
+    n = a.shape[dim]
+    d = 1
+    while d < n:
+        head_a, tail_a = a.narrow(dim, 0, d), a.narrow(dim, d, n - d)
+        prev_a, prev_b = a.narrow(dim, 0, n - d), b.narrow(dim, 0, n - d)
+        b = torch.cat([b.narrow(dim, 0, d),
+                       torch.addcmul(b.narrow(dim, d, n - d), tail_a, prev_b)], dim)
+        a = torch.cat([head_a, tail_a * prev_a], dim)
+        d *= 2
+    return a, b
+
+
+def ref_rglru(a, b, h0=None, *, block=256):
+    """Plain version of the RG-LRU scan kernel: ``h_t = a_t h_{t-1} + b_t``
+    over (B,S,L), with ``h0`` (B,L) folded in as ``a_0 h0``.  Two levels,
+    both log-depth: every block of ``block`` steps (0: the whole sequence)
+    is scanned from a zero state, then the blocks' carries are scanned and
+    added back through each block's running products.  A ragged last block
+    is padded with the identity (a = 1, b = 0), as the TPU kernel pads.
+    Returns y (B,S,L) f32."""
+    a, b = a.float(), b.float()
+    bsz, s, l = a.shape
+    if h0 is not None:
+        b = torch.cat([torch.addcmul(b[:, :1], a[:, :1], h0.float()[:, None]),
+                       b[:, 1:]], 1)
+    q = s if block <= 0 else min(block, s)
+    if q == 0:
+        return b.clone()
+    pad = (-s) % q
+    if pad:
+        a = F.pad(a, (0, 0, 0, pad), value=1.0)
+        b = F.pad(b, (0, 0, 0, pad))
+    n = a.shape[1] // q
+    prod, y = _linear_scan(a.reshape(bsz, n, q, l), b.reshape(bsz, n, q, l), 2)
+    if n > 1:
+        _, carry = _linear_scan(prod[:, :, -1], y[:, :, -1], 1)      # (B,n,L)
+        h_in = torch.cat([torch.zeros_like(carry[:, :1]), carry[:, :-1]], 1)
+        y = torch.addcmul(y, prod, h_in[:, :, None])
+    return y.reshape(bsz, n * q, l)[:, :s]

@@ -3,6 +3,7 @@ window of engine steps with every request already decoding.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --preset full
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mamba2-130m
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch recurrentgemma-9b
 
 Attention models decode off the paged pool (``attn_mode="paged"``); models
 with recurrent state decode in gather mode, the only mode they support.
@@ -44,8 +45,7 @@ def main(argv=None) -> None:
 
     cfg = reduced_config(args.arch, args.preset)
     model = Transformer(cfg, RunOpts(attention_impl="kernel"), device=args.device)
-    params = model.load(model.init(
-        torch.Generator(device=model.device).manual_seed(0)))
+    params = model.init_loaded(torch.Generator(device=model.device).manual_seed(0))
     gen_len = 3 * args.steps + 8
     # all requests arrive together, so the planned pool holds them at once
     trace = [Request(rid=i + 1, prompt_len=args.prompt_len, gen_len=gen_len,

@@ -5,12 +5,16 @@ Runs a model through ``repro_torch.serving.ServeEngine`` over a synthetic
 request trace — queue -> chunked prefill -> batched decode -> completion —
 and reports throughput, page-pool telemetry, and the arena-vs-pool memory
 comparison at full arch scale.  Prefill runs the flash-attention CUDA
-kernel (attention models) or the SSD chunk-scan CUDA kernel (mamba2);
-``--attn paged`` decodes through the paged-attention CUDA kernel and is for
-attention models only.
+kernel (attention layers), the SSD chunk-scan CUDA kernel (mamba2) and the
+RG-LRU scan CUDA kernel (recurrentgemma's rec layers); ``--attn paged``
+decodes through the paged-attention CUDA kernel and is for pure-attention
+models only.  Weights are drawn and cast one leaf at a time
+(``Transformer.init_loaded``), so recurrentgemma-9b's 9.6B parameters never
+exist in f32 all at once.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --preset full --attn paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --preset full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --preset full
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch versions instead.
 ``--share-hbm``, ``--trace`` and the ``--slo-*`` reports of the reference
@@ -96,7 +100,7 @@ def main(argv=None) -> None:
     cfg = reduced_config(args.arch, args.preset)
     model = Transformer(cfg, RunOpts(attention_impl="kernel"), device=args.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
-    params = model.load(model.init(gen))
+    params = model.init_loaded(gen)
 
     # profile run: the sample trace the planner sizes the page pool from
     trace = synth_trace(args.requests, args.prompt_len, args.gen_len,

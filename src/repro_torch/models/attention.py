@@ -3,7 +3,9 @@
 Implementations for full sequences (selected via ``impl``):
   * "full"   — materialized scores, plain PyTorch (the reference's default);
   * "kernel" — the flash-attention kernel wrapper (``kernels.ops``), the
-               counterpart of the reference's ``impl="pallas"``.
+               counterpart of the reference's ``impl="pallas"``;
+  * "plain"  — the flash kernel's plain version (scores in f32) on any
+               device: what the kernel is held against.
 
 Decode-time attention has two cache layouts: ``attend_decode`` over the
 contiguous per-slot batch cache, and ``attend_paged_decode`` straight off the
@@ -68,17 +70,33 @@ def attend(q, k, v, *, impl="kernel", causal=True, window=0, q_offset=0):
     if impl == "full":
         return attend_full(q, k, v, causal=causal, window=window,
                            q_offset=q_offset)
+    if impl == "plain":
+        return kops.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                          q_offset=q_offset)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
-def attend_decode(q, k_cache, v_cache, cache_pos):
+def attend_decode(q, k_cache, v_cache, cache_pos, *, window=0, rolling=False):
     """q: (B,1,kv,g,hd); caches: (B,C,kv,hd); cache_pos: (B,) per-slot
-    positions — row b attends to cache indices <= cache_pos[b]."""
+    positions — row b attends to cache indices <= cache_pos[b], and with a
+    ``window`` to those > cache_pos[b] - window.
+
+    ``rolling=True`` means the cache is a circular window buffer (local
+    attention): position t lives at index t % C, so every filled index is
+    inside the window and only the fill mask ``idx < min(pos + 1, C)``
+    applies."""
     hd = q.shape[-1]
     scale = hd ** -0.5
     s = torch.einsum("bqkgh,bskh->bkgqs", q, k_cache).float() * scale
-    idx = torch.arange(k_cache.shape[1], device=q.device)
-    valid = idx[None, :] <= cache_pos.reshape(-1, 1)
+    c = k_cache.shape[1]
+    idx = torch.arange(c, device=q.device)[None, :]
+    pos = cache_pos.reshape(-1, 1)
+    if rolling:
+        valid = idx < torch.clamp(pos + 1, max=c)
+    else:
+        valid = idx <= pos
+        if window:
+            valid &= idx > pos - window
     s = s + torch.where(valid[:, None, None, None, :], 0.0, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bkgqs,bskh->bqkgh", p, v_cache)

@@ -2,12 +2,16 @@
 
 ``params_from_jax`` takes the reference's parameter pytree as numpy arrays
 (``jax.tree.map(np.asarray, Transformer.init(key))``) and returns the port's
-nested dict: the stacked (G, ...) leading axis of ``pattern["0"]`` is split
-into one dict per layer, every other layout is kept as is (attention: ``wq``
-(D,H,hd), ``wo`` (H,hd,D), ``w_up``/``w_gate`` (D,F), ``w_down`` (F,D);
-mamba2: ``w_in``, ``w_conv``, ``b_conv``, ``dt_bias``, ``a_log``,
-``d_skip``, ``norm_scale``, ``w_out``; tied ``embed`` (padded_vocab, D)).  Leaves come back as f32 CPU tensors; ``Transformer.load``
-moves and casts them.
+nested dict: the stacked (G, ...) leading axis of each ``pattern[str(i)]``
+is split into one dict per layer and the layers are interleaved in
+execution order (group g runs pattern position 0, 1, ... before group
+g + 1), followed by the ``tail`` blocks; every other layout is kept as is
+(attention: ``wq`` (D,H,hd), ``wo`` (H,hd,D), ``w_up``/``w_gate`` (D,F),
+``w_down`` (F,D); mamba2: ``w_in``, ``w_conv``, ``b_conv``, ``dt_bias``,
+``a_log``, ``d_skip``, ``norm_scale``, ``w_out``; rec: ``w_branch``,
+``w_gate``, ``w_conv``, ``b_conv``, ``w_out``, ``lru``; ``embed``
+(padded_vocab, D) and, untied, ``lm_head`` of the same shape).  Leaves come
+back as f32 CPU tensors; ``Transformer.load`` moves and casts them.
 """
 from __future__ import annotations
 
@@ -25,6 +29,12 @@ def _layer(tree, i: int):
     return _tensor(np.asarray(tree)[i])
 
 
+def _unstacked(tree):
+    if isinstance(tree, dict):
+        return {k: _unstacked(v) for k, v in tree.items()}
+    return _tensor(tree)
+
+
 def _first_leaf(tree):
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
@@ -33,9 +43,17 @@ def _first_leaf(tree):
 
 def params_from_jax(tree) -> dict:
     pattern = tree["pattern"]
-    if set(pattern) != {"0"} or "tail" in tree or "lm_head" in tree:
-        raise ValueError("only tied-embedding single-kind patterns convert")
-    n_layers = np.asarray(_first_leaf(pattern["0"])).shape[0]
-    return {"embed": _tensor(tree["embed"]),
-            "final_norm": {"scale": _tensor(tree["final_norm"]["scale"])},
-            "layers": [_layer(pattern["0"], i) for i in range(n_layers)]}
+    n_pat = len(pattern)
+    if set(pattern) != {str(i) for i in range(n_pat)}:
+        raise ValueError(f"pattern keys {sorted(pattern)} are not 0..{n_pat - 1}")
+    n_groups = np.asarray(_first_leaf(pattern["0"])).shape[0]
+    layers = [_layer(pattern[str(i)], g)
+              for g in range(n_groups) for i in range(n_pat)]
+    tail = tree.get("tail", {})
+    layers += [_unstacked(tail[str(i)]) for i in range(len(tail))]
+    out = {"embed": _tensor(tree["embed"]),
+           "final_norm": {"scale": _tensor(tree["final_norm"]["scale"])}}
+    if "lm_head" in tree:
+        out["lm_head"] = _tensor(tree["lm_head"])
+    out["layers"] = layers
+    return out

@@ -41,9 +41,19 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def mlp(x, p):
-    """SwiGLU FFN: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
-    g = F.silu(x @ p["w_gate"])
+def gelu_tanh(x):
+    """The reference's ``jax.nn.gelu(approximate=True)``, the tanh form
+    (PyTorch's default ``F.gelu`` is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+GATED_ACTS = {"swiglu": F.silu, "geglu": gelu_tanh}
+
+
+def mlp(x, p, act: str = "swiglu"):
+    """Gated FFN: ``(act(x @ w_gate) * (x @ w_up)) @ w_down`` with act silu
+    (``swiglu``) or tanh gelu (``geglu``)."""
+    g = GATED_ACTS[act](x @ p["w_gate"])
     h = g * (x @ p["w_up"])
     return h @ p["w_down"]
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -40,8 +40,13 @@ def _children(s: Schema):
 
 
 def init_params(schema: Schema, generator: torch.Generator,
-                dtype: torch.dtype = torch.float32):
-    """Real parameters on ``generator.device``, leaves drawn in schema order."""
+                dtype: torch.dtype = torch.float32,
+                leaf: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None):
+    """Real parameters on ``generator.device``, leaves drawn in schema order.
+
+    ``leaf(key, tensor)``, when given, maps each leaf right after it is
+    drawn (a cast, a move), so only one leaf at ``dtype`` exists at a time;
+    the draws, and so the numbers, are the same as without it."""
     dev = generator.device
 
     def make(p: P):
@@ -50,12 +55,16 @@ def init_params(schema: Schema, generator: torch.Generator,
         if p.init == "ones":
             return torch.ones(p.shape, dtype=dtype, device=dev)
         scale = p.scale if p.scale is not None else 1.0 / math.sqrt(max(1, _fan_in(p)))
-        return (scale * torch.randn(p.shape, generator=generator,
-                                    device=dev)).to(dtype)
+        return torch.randn(p.shape, generator=generator,
+                           device=dev).mul_(scale).to(dtype)
 
     def rec(s: Schema):
-        out = {k: (make(v) if isinstance(v, P) else rec(v))
-               for k, v in _children(s)}
+        out = {}
+        for k, v in _children(s):
+            if isinstance(v, P):
+                out[k] = make(v) if leaf is None else leaf(str(k), make(v))
+            else:
+                out[k] = rec(v)
         return out if isinstance(s, dict) else [out[i] for i in range(len(s))]
 
     return rec(schema)

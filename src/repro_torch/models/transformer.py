@@ -1,6 +1,7 @@
-"""Decoder over one block kind (port of ``repro.models.transformer`` for
-``block_pattern=("attn",)``, the dense GQA decoder, and ``("mamba2",)``, the
-attention-free SSD stack).
+"""Decoder over block patterns (port of ``repro.models.transformer`` for
+``block_pattern=("attn",)``, the dense GQA decoder, ``("mamba2",)``, the
+attention-free SSD stack, and ``("rec", "rec", "local")`` with a tail, the
+Griffin hybrid of RG-LRU blocks and local attention).
 
 Entry points, with the reference's contracts:
   * ``prefill(params, batch)``        — inference forward, builds the cache
@@ -9,14 +10,20 @@ Entry points, with the reference's contracts:
                                         ``block_tables``, the paged pool
   * ``forward(params, tokens)``       — logits for every position
 
-Parameters are a plain nested dict: ``embed`` (padded_vocab, D) tied with
-the output head, ``final_norm``, and ``layers``, one dict per layer with the
-reference's layouts (attention: ``wq`` (D,H,hd), ``wo`` (H,hd,D),
+Parameters are a plain nested dict: ``embed`` (padded_vocab, D), tied with
+the output head unless an ``lm_head`` of the same shape is present,
+``final_norm``, and ``layers``, one dict per layer in execution order with
+the reference's layouts (attention: ``wq`` (D,H,hd), ``wo`` (H,hd,D),
 ``w_up``/``w_gate`` (D,F), ``w_down`` (F,D); mamba2: ``w_in`` (D,proj),
-``w_conv`` (K,conv_dim), ``w_out`` (d_inner,D) and per-head vectors).
-Caches are dicts of tensors with a leading layer axis (attention: ``k``/``v``;
-mamba2: ``conv`` (L,B,K-1,conv_dim) and ``ssm`` (L,B,H,P,N) f32); decode
-updates them in place and returns the same tensors.
+``w_conv`` (K,conv_dim), ``w_out`` (d_inner,D) and per-head vectors; rec:
+``w_branch``/``w_gate`` (D,lru), ``w_conv`` (K,lru), ``w_out`` (lru,D), the
+gates ``lru`` and an MLP).  Caches are dicts of tensors with a leading layer
+axis over the layers of one kind (attention: ``k``/``v`` (L,B,C,kv,hd);
+mamba2: ``conv`` (L,B,K-1,conv_dim) and ``ssm`` (L,B,H,P,N) f32; hybrid:
+``k``/``v`` over the local layers with C = min(local_window, max_len),
+``conv`` (n_rec,B,K-1,lru) and ``h`` (n_rec,B,lru) f32), so the batch axis
+is 1 for every leaf; decode updates them in place and returns the same
+tensors.
 """
 from __future__ import annotations
 
@@ -28,7 +35,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..runtime.device import resolve_device
+from ..runtime.serve_lib import layer_kinds
 from . import attention as attn
+from . import rglru as rglru_lib
 from . import ssm as ssm_lib
 from .layers import apply_rope, embed_lookup, mlp, rms_norm, rope_angles
 from .schema import P, Schema, init_params
@@ -37,15 +46,17 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # leaves the reference reads in f32 (``astype(float32)``) or casts at each
 # use to another dtype than the compute dtype: kept f32 at load
 F32_LEAVES = frozenset({"scale", "norm_scale", "dt_bias", "a_log", "d_skip",
-                        "w_conv", "b_conv"})
+                        "w_conv", "b_conv", "w_a", "b_a", "w_x", "b_x", "lam"})
+HYBRID_PATTERN = ("rec", "rec", "local")
 
 
 @dataclass(frozen=True)
 class RunOpts:
     """Runtime knobs independent of the architecture spec."""
-    attention_impl: str = "kernel"    # kernel (flash CUDA kernel) | full
-    use_kernels: bool = True          # SSD chunk scan through the CUDA kernel
+    attention_impl: str = "kernel"    # kernel (flash CUDA kernel) | full | plain
+    use_kernels: bool = True          # SSD / RG-LRU scans through the CUDA kernels
     ssd_chunk: int = 256              # chunk length of the plain SSD path
+    rglru_block: int = 256            # block length of the plain RG-LRU scan
 
 
 def _attn_schema(cfg) -> Schema:
@@ -82,21 +93,56 @@ def _mamba2_schema(cfg) -> Schema:
     }
 
 
-def _block_schema(cfg) -> Schema:
-    if cfg.block_pattern[0] == "mamba2":
+def _mlp_schema(cfg) -> Schema:
+    return {"w_up": P((cfg.d_model, cfg.d_ff)),
+            "w_down": P((cfg.d_ff, cfg.d_model)),
+            "w_gate": P((cfg.d_model, cfg.d_ff))}
+
+
+def _rec_schema(cfg) -> Schema:
+    """Griffin recurrent residual block: RG-LRU mixer + its own MLP."""
+    lru, nb = cfg.lru_width, cfg.n_heads      # block-diagonal gates, one per head
+    bs = lru // nb
+    return {
+        "mlp_norm": {"scale": P((cfg.d_model,), init="zeros")},
+        "mlp": _mlp_schema(cfg),
+        "norm": {"scale": P((cfg.d_model,), init="zeros")},
+        "w_branch": P((cfg.d_model, lru)),
+        "w_gate": P((cfg.d_model, lru)),
+        "w_conv": P((cfg.conv_width, lru), scale=0.1),
+        "b_conv": P((lru,), init="zeros"),
+        "w_out": P((lru, cfg.d_model)),
+        "lru": {"w_a": P((nb, bs, bs)),
+                "b_a": P((nb, bs), init="zeros"),
+                "w_x": P((nb, bs, bs)),
+                "b_x": P((nb, bs), init="zeros"),
+                "lam": P((lru,), init="ones", scale=1.0)},
+    }
+
+
+def _block_schema(kind: str, cfg) -> Schema:
+    if kind == "mamba2":
         return _mamba2_schema(cfg)
+    if kind == "rec":
+        return _rec_schema(cfg)
     return {"attn": _attn_schema(cfg),
             "mlp_norm": {"scale": P((cfg.d_model,), init="zeros")},
-            "mlp": {"w_up": P((cfg.d_model, cfg.d_ff)),
-                    "w_down": P((cfg.d_ff, cfg.d_model)),
-                    "w_gate": P((cfg.d_model, cfg.d_ff))}}
+            "mlp": _mlp_schema(cfg)}
 
 
 def _unsupported(cfg) -> list[str]:
     """What of ``cfg`` the port does not run yet (empty when it runs it)."""
     out = []
     pattern = tuple(cfg.block_pattern)
-    if pattern not in (("attn",), ("mamba2",)) or cfg.tail_pattern:
+    hybrid = pattern == HYBRID_PATTERN
+    if hybrid:
+        if not set(cfg.tail_pattern) <= {"rec"} or cfg.family != "hybrid":
+            out.append(f"hybrid tail {cfg.tail_pattern} / family {cfg.family}")
+        if (cfg.act != "geglu" or not cfg.rope or not cfg.local_window
+                or not cfg.lru_width or cfg.lru_width % cfg.n_heads):
+            out.append(f"hybrid with act {cfg.act} / rope {cfg.rope} / window "
+                       f"{cfg.local_window} / lru {cfg.lru_width}")
+    elif pattern not in (("attn",), ("mamba2",)) or cfg.tail_pattern:
         out.append(f"pattern {cfg.block_pattern} + {cfg.tail_pattern}")
     if cfg.is_encoder_decoder or cfg.n_experts:
         out.append("encoder-decoder / MoE")
@@ -106,7 +152,8 @@ def _unsupported(cfg) -> list[str]:
         out.append(f"mamba2 with rope {cfg.rope} / family {cfg.family}")
     if cfg.norm != "rmsnorm":
         out.append(f"norm {cfg.norm}")
-    if not cfg.tie_embeddings or cfg.family == "hybrid" or cfg.local_window:
+    if not hybrid and (not cfg.tie_embeddings or cfg.family == "hybrid"
+                       or cfg.local_window):
         out.append("untied head / hybrid / local window")
     if cfg.dtype not in DTYPES:
         out.append(f"dtype {cfg.dtype}")
@@ -120,10 +167,12 @@ class Transformer:
         unsupported = _unsupported(cfg)
         if unsupported:
             raise ValueError(f"{cfg.name}: the port runs dense attention "
-                             f"decoders and mamba2 stacks only "
-                             f"({'; '.join(unsupported)})")
+                             f"decoders, mamba2 stacks and the rec/rec/local "
+                             f"hybrid only ({'; '.join(unsupported)})")
         self.cfg = cfg
-        self.kind = cfg.block_pattern[0]
+        self.kinds = layer_kinds(cfg)
+        self.kind = ("hybrid" if tuple(cfg.block_pattern) == HYBRID_PATTERN
+                     else cfg.block_pattern[0])
         self.opts = opts
         self.device = resolve_device(device)
         self.compute_dtype = DTYPES[cfg.dtype]
@@ -131,15 +180,30 @@ class Transformer:
     # ---- schema / params ------------------------------------------------------
     def schema(self) -> Schema:
         cfg = self.cfg
-        return {
+        s: Schema = {
             "embed": P((cfg.padded_vocab, cfg.d_model), scale=0.02),
             "final_norm": {"scale": P((cfg.d_model,), init="zeros")},
-            "layers": [_block_schema(cfg) for _ in range(cfg.n_layers)],
         }
+        if not cfg.tie_embeddings:
+            s["lm_head"] = P((cfg.padded_vocab, cfg.d_model), scale=0.02)
+        s["layers"] = [_block_schema(kind, cfg) for kind in self.kinds]
+        return s
 
     def init(self, generator: torch.Generator):
         """f32 master parameters drawn from ``generator`` (on its device)."""
         return init_params(self.schema(), generator, dtype=torch.float32)
+
+    def init_loaded(self, generator: torch.Generator):
+        """``load(init(generator))`` — the same draws, so the same numbers —
+        made one leaf at a time: each f32 master is cast as soon as it is
+        drawn, so the peak is the loaded model plus its largest f32 leaf
+        rather than every f32 master at once (58 GB for recurrentgemma-9b)."""
+        return init_params(self.schema(), generator, dtype=torch.float32,
+                           leaf=self._load_leaf)
+
+    def _load_leaf(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        dt = torch.float32 if key in F32_LEAVES else self.compute_dtype
+        return t.to(device=self.device, dtype=dt)
 
     def load(self, params):
         """Parameters on this model's device, cast once to the compute dtype.
@@ -148,14 +212,15 @@ class Transformer:
         at load gives the same numbers.  ``F32_LEAVES`` stay f32 because the
         reference reads them in f32 (norm scales, the SSD's per-head vectors)
         or casts them elsewhere than to the compute dtype (the conv weights:
-        to the compute dtype in prefill, to f32 in decode)."""
+        to the compute dtype in prefill, to f32 in decode).  The RG-LRU gate
+        leaves are among them: loaded in bf16 they would compute something
+        else than the reference, which reads them in f32 at every use."""
         def rec(tree, key=""):
             if isinstance(tree, dict):
                 return {k: rec(v, k) for k, v in tree.items()}
             if isinstance(tree, list):
                 return [rec(v) for v in tree]
-            dt = torch.float32 if key in F32_LEAVES else self.compute_dtype
-            return tree.to(device=self.device, dtype=dt)
+            return self._load_leaf(key, tree)
         return rec(params)
 
     # ---- shared pieces -----------------------------------------------------------
@@ -170,17 +235,45 @@ class Transformer:
 
     def _finish_block(self, x, ctx, p):
         x = x + attn.out_project(ctx, p["attn"], self.cfg)
-        return x + mlp(rms_norm(x, p["mlp_norm"]["scale"]), p["mlp"])
+        return self._mlp_residual(x, p)
+
+    def _mlp_residual(self, x, p):
+        return x + mlp(rms_norm(x, p["mlp_norm"]["scale"]), p["mlp"],
+                       self.cfg.act)
+
+    def _embed_in(self, params, tokens):
+        x = embed_lookup(params["embed"], tokens)
+        if self.cfg.family == "hybrid":             # gemma-style embed scaling
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model),
+                                 dtype=self.compute_dtype, device=x.device)
+        return x
 
     def logits(self, params, x):
-        return x @ params["embed"].t()
+        return x @ params.get("lm_head", params["embed"]).t()
 
     # ---- serving: caches -----------------------------------------------------------
+    def _local_len(self, max_len: int) -> int:
+        """Cache length of a local layer: a rolling window buffer."""
+        return min(self.cfg.local_window, max_len)
+
     def cache_spec(self, batch: int, max_len: int) -> dict:
         """{name: (shape, dtype)} of the contiguous decode cache.  Mamba2
-        layers hold O(1) state: the conv window and the f32 SSD state."""
+        layers hold O(1) state: the conv window and the f32 SSD state; the
+        hybrid's local layers a rolling window of K/V and its rec layers the
+        conv window and the f32 RG-LRU state."""
         cfg = self.cfg
         spec = {"pos": ((batch,), torch.int32)}
+        if self.kind == "hybrid":
+            n_local = self.kinds.count("local")
+            n_rec = self.kinds.count("rec")
+            kvs = (n_local, batch, self._local_len(max_len), cfg.n_kv_heads,
+                   cfg.resolved_head_dim)
+            spec["k"] = (kvs, self.compute_dtype)
+            spec["v"] = (kvs, self.compute_dtype)
+            spec["conv"] = ((n_rec, batch, cfg.conv_width - 1, cfg.lru_width),
+                            self.compute_dtype)
+            spec["h"] = ((n_rec, batch, cfg.lru_width), torch.float32)
+            return spec
         if self.kind == "mamba2":
             conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
             spec["conv"] = ((cfg.n_layers, batch, cfg.conv_width - 1, conv_dim),
@@ -229,9 +322,11 @@ class Transformer:
             return self._decode_step_paged(params, cache, tokens)
         if self.kind == "mamba2":
             return self._decode_step_mamba2(params, cache, tokens)
+        if self.kind == "hybrid":
+            return self._decode_step_hybrid(params, cache, tokens)
         pos = cache["pos"]
         k_cache, v_cache = cache["k"], cache["v"]
-        x = embed_lookup(params["embed"], tokens[:, None])
+        x = self._embed_in(params, tokens[:, None])
         rope_cs = self._rope(pos[:, None])
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         slot = pos.clamp(max=k_cache.shape[2] - 1).long()
@@ -248,7 +343,7 @@ class Transformer:
     def _decode_step_mamba2(self, params, cache, tokens):
         """One token through every mamba2 layer; the conv windows and SSD
         states are replaced in place."""
-        x = embed_lookup(params["embed"], tokens[:, None])
+        x = self._embed_in(params, tokens[:, None])
         for i, p in enumerate(params["layers"]):
             h = rms_norm(x, p["norm"]["scale"])
             y, st = ssm_lib.mamba2_block_decode(
@@ -261,6 +356,76 @@ class Transformer:
         logits = self.logits(params, x)[:, 0, :]
         return logits, {"pos": cache["pos"] + 1, "conv": cache["conv"],
                         "ssm": cache["ssm"]}
+
+    def _decode_step_hybrid(self, params, cache, tokens):
+        """One token through the rec and local layers in order.  A local
+        layer writes its K/V at ``pos % C`` of its rolling window and attends
+        to the filled part of it; a rec layer replaces its conv window and
+        RG-LRU state in place."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        x = self._embed_in(params, tokens[:, None])
+        rope_cs = self._rope(pos[:, None])
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        slot = (pos % cache["k"].shape[2]).long()
+        i_local = i_rec = 0
+        for kind, p in zip(self.kinds, params["layers"]):
+            if kind == "local":
+                k_cache, v_cache = cache["k"][i_local], cache["v"][i_local]
+                q, k, v = self._attn_qkv(x, p, rope_cs)
+                k_cache[rows, slot] = k[:, 0]
+                v_cache[rows, slot] = v[:, 0]
+                ctx = attn.attend_decode(q, k_cache, v_cache, pos,
+                                         window=cfg.local_window, rolling=True)
+                x = self._finish_block(x, ctx, p)
+                i_local += 1
+                continue
+            h = rms_norm(x, p["norm"]["scale"])
+            y, st = rglru_lib.recurrent_block_decode(
+                h[:, 0], {"conv": cache["conv"][i_rec], "h": cache["h"][i_rec]},
+                p, cfg, self.compute_dtype)
+            x = self._mlp_residual(x + y[:, None, :], p)
+            cache["conv"][i_rec] = st["conv"]
+            cache["h"][i_rec] = st["h"]
+            i_rec += 1
+        x = rms_norm(x, params["final_norm"]["scale"])
+        logits = self.logits(params, x)[:, 0, :]
+        return logits, {"pos": pos + 1, "k": cache["k"], "v": cache["v"],
+                        "conv": cache["conv"], "h": cache["h"]}
+
+    def _hybrid_layers(self, params, x, max_len: Optional[int] = None):
+        """The rec and local layers over a whole sequence.  With ``max_len``
+        also returns the decode cache's leaves: each local layer's last
+        ``C = min(local_window, max_len)`` K/V rows in rolling order (position
+        t at index t % C; a prompt shorter than C fills indices [0, S) of a
+        length-S buffer), each rec layer's conv window and final state."""
+        cfg = self.cfg
+        s = x.shape[1]
+        rope_cs = self._rope(torch.arange(s, device=x.device)[None, :])
+        ks, vs, convs, hs = [], [], [], []
+        for kind, p in zip(self.kinds, params["layers"]):
+            if kind == "local":
+                q, k, v = self._attn_qkv(x, p, rope_cs)
+                ctx = attn.attend(q, k, v, impl=self.opts.attention_impl,
+                                  causal=True, window=cfg.local_window)
+                x = self._finish_block(x, ctx, p)
+                if max_len is not None:
+                    c = min(self._local_len(max_len), s)
+                    start = s - c
+                    ks.append(torch.roll(k[:, start:], start % c, dims=1))
+                    vs.append(torch.roll(v[:, start:], start % c, dims=1))
+                continue
+            h = rms_norm(x, p["norm"]["scale"])
+            y, st = rglru_lib.recurrent_block_prefill(
+                h, p, cfg, self.compute_dtype, use_kernel=self.opts.use_kernels,
+                block=self.opts.rglru_block)
+            x = self._mlp_residual(x + y, p)
+            convs.append(st["conv"])
+            hs.append(st["h"])
+        if max_len is None:
+            return x, None
+        return x, {"k": torch.stack(ks), "v": torch.stack(vs),
+                   "conv": torch.stack(convs), "h": torch.stack(hs)}
 
     def _mamba2_layer(self, x, p):
         """Residual mamba2 block over a whole sequence -> (x, decode state)."""
@@ -280,7 +445,7 @@ class Transformer:
         tables = cache["block_tables"]
         k_pages, v_pages = cache["k_pages"], cache["v_pages"]
         pt = k_pages.shape[2]
-        x = embed_lookup(params["embed"], tokens[:, None])
+        x = self._embed_in(params, tokens[:, None])
         rope_cs = self._rope(pos[:, None])
         page = tables.gather(1, (pos // pt).long()[:, None])[:, 0].long()
         off = (pos % pt).long()
@@ -306,17 +471,24 @@ class Transformer:
         padding — the returned logits are read at position ``true_len - 1``
         and the cache position starts there, so the padded tail is masked out
         of every later decode step until it is overwritten.  Only attention
-        caches are pad-safe: a mamba2 state integrates every input token, so
-        callers pass mamba2 prompts unpadded.  Mamba2 prefill runs the SSD
-        kernel when ``RunOpts.use_kernels`` is set (the reference's prefill
-        always runs the plain chunked scan; the results agree)."""
+        caches are pad-safe: a mamba2 or RG-LRU state integrates every input
+        token, so callers pass those prompts unpadded.  Mamba2 and rec
+        prefill run the SSD and RG-LRU kernels when ``RunOpts.use_kernels``
+        is set (the reference's prefill always runs the plain scans; the
+        results agree to rounding)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         true_len = batch.get("true_len")
         b, s = tokens.shape
         max_len = max_len or s
-        x = embed_lookup(params["embed"], tokens)
+        x = self._embed_in(params, tokens)
         pos0 = s if true_len is None else int(true_len)
+        if self.kind == "hybrid":
+            x, cache = self._hybrid_layers(params, x, max_len)
+            cache["pos"] = torch.full((b,), pos0, dtype=torch.int32,
+                                      device=x.device)
+            x = rms_norm(x, params["final_norm"]["scale"])
+            return self.logits(params, x[:, pos0 - 1:pos0, :])[:, 0, :], cache
         if self.kind == "mamba2":
             states = []
             for p in params["layers"]:
@@ -351,7 +523,10 @@ class Transformer:
     # ---- public: inference forward (no cache) -----------------------------------------
     @torch.no_grad()
     def forward(self, params, tokens):
-        x = embed_lookup(params["embed"], tokens)
+        x = self._embed_in(params, tokens)
+        if self.kind == "hybrid":
+            x, _ = self._hybrid_layers(params, x)
+            return self.logits(params, rms_norm(x, params["final_norm"]["scale"]))
         if self.kind == "mamba2":
             for p in params["layers"]:
                 x, _ = self._mamba2_layer(x, p)

@@ -19,7 +19,9 @@ from ..core import ArenaAllocator, Block, MemoryProfile, PoolAllocator, align, b
 DTYPE_ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
 
 
-def _layer_kinds(cfg: ModelConfig) -> list[str]:
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """Per-layer kinds in execution order: the pattern repeated over its
+    groups, then the tail."""
     return (list(cfg.block_pattern) * max(1, cfg.n_pattern_groups))[:max(
         0, cfg.n_layers - len(cfg.tail_pattern))] + list(cfg.tail_pattern)
 
@@ -29,7 +31,7 @@ def cache_bytes_per_token(cfg: ModelConfig) -> int:
     hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
     itemsize = DTYPE_ITEMSIZE[cfg.dtype]
     total = 0
-    for kind in _layer_kinds(cfg):
+    for kind in layer_kinds(cfg):
         if kind in ("attn", "xattn"):
             total += 2 * kv * hd * itemsize
         # local/rec/mamba2 have O(1) state — no per-token cache cost
@@ -40,7 +42,7 @@ def state_bytes(cfg: ModelConfig) -> int:
     """O(1) per-request state bytes (recurrent h / ssm state / local window)."""
     itemsize = DTYPE_ITEMSIZE[cfg.dtype]
     total = 0
-    for kind in _layer_kinds(cfg):
+    for kind in layer_kinds(cfg):
         if kind == "local":
             total += 2 * cfg.n_kv_heads * cfg.resolved_head_dim * \
                 cfg.local_window * itemsize

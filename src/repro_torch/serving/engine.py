@@ -11,11 +11,11 @@ under serving churn).
 writes at its own offset no matter when it was admitted.  Decode runs
 through the bucketed ``DecodeRunner``; prompts of pure-attention models are
 padded to a power-of-two ladder before prefill (a recurrent state would
-integrate the pad tokens, so mamba2 prompts go in unpadded).
-``attn_mode="paged"`` decodes straight off per-layer page pools through the
-paged-attention CUDA kernel; prefill runs the flash kernel when the model's
-``RunOpts.attention_impl`` is ``"kernel"`` and the SSD kernel when
-``RunOpts.use_kernels`` is set.
+integrate the pad tokens, so mamba2 and recurrentgemma prompts go in
+unpadded).  ``attn_mode="paged"`` decodes straight off per-layer page pools
+through the paged-attention CUDA kernel; prefill runs the flash kernel when
+the model's ``RunOpts.attention_impl`` is ``"kernel"`` and the SSD and
+RG-LRU kernels when ``RunOpts.use_kernels`` is set.
 """
 from __future__ import annotations
 
@@ -138,7 +138,7 @@ class ServeEngine:
     def warmup(self) -> None:
         """Warm every runner bucket and, for padded prompts, every prefill
         ladder shape, so the serving loop sees no first-call cost and the
-        compile counters stay flat from step 0.  Unpadded (mamba2) prompts
+        compile counters stay flat from step 0.  Unpadded (recurrent) prompts
         have no ladder to warm."""
         self.runner.warmup(self.params, self.cache, self.tokens)
         padded = PREFILL_BUCKET_MIN
@@ -351,8 +351,12 @@ class ServeEngine:
 def _merge_slot(batched_cache: dict, single_cache: dict, slot: int) -> None:
     """Copy one request's prefill cache into slot ``slot`` of the batch cache
     in place: its position clock, and every per-layer leaf's row (batch axis
-    1).  K/V rows are zero past the prompt; the mamba2 ``conv``/``ssm``
-    state rows have the same shape on both sides and are copied whole."""
+    1).  K/V rows are zero past the prompt; the state rows (mamba2
+    ``conv``/``ssm``, RG-LRU ``conv``/``h``) have the same shape on both
+    sides and are copied whole.  A local layer's rolling K/V window arrives
+    with length min(prompt, window): a prompt shorter than the window fills
+    indices [0, S) and the rest is zeroed; a longer one fills the whole
+    window in rolling order (position t at t % window)."""
     batched_cache["pos"][slot] = single_cache["pos"][0]
     for name, leaf in batched_cache.items():
         if name == "pos":

@@ -8,8 +8,8 @@ is "compiled" when it is first warmed: ``n_compiles`` (and the
 ``warmup()``.  Capturing one CUDA graph per bucket is a later change.
 
 Each step gathers the running slots' rows of the small per-slot leaves
-(positions, page-table rows, and the contiguous K/V or mamba2 state rows in
-gather mode),
+(positions, page-table rows, and the contiguous K/V or recurrent state rows
+in gather mode),
 runs the model's decode step, and scatters the updated rows back.  Paged
 pool leaves (``*_pages``) carry no batch axis: they are never gathered, and
 the step updates them in place.  A partial batch is padded to its bucket by
@@ -43,7 +43,7 @@ def bucket_ladder(max_batch: int) -> tuple[int, ...]:
 
 def _batch_axis(name: str):
     """Positions and page-table rows are (B, ...); pools (``*_pages``) have
-    no batch axis; every per-layer leaf (K/V, mamba2 ``conv``/``ssm``) is
+    no batch axis; every per-layer leaf (K/V, ``conv``/``ssm``/``h``) is
     (L, B, ...)."""
     if name.endswith("_pages"):
         return None

@@ -213,3 +213,57 @@ def test_mamba2_cli_on_cpu(capsys):
                         "--batch", "2", "--prompt-len", "8", "--max-len", "32",
                         "--steps", "2"])
     assert "[profile] mamba2-130m-tiny batch=2 prompt=8 attn=gather" in capsys.readouterr().out
+
+
+# --------------------------------------------------------------------------
+# recurrentgemma: rec states and rolling local windows, unpadded prefill,
+# gather-mode decode
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def hybrid_pair():
+    from test_torch_hybrid import hybrid_models
+    return hybrid_models("float32")
+
+
+def test_recurrentgemma_engine_matches_reference_under_churn(hybrid_pair):
+    """Staggered admissions and finishes through 4 slots, live generations
+    outrunning the profile.  Prompts of 2 to 20 tokens against a window of
+    8: shorter ones merge a prefill window of their own length into the
+    slot's rolling buffer, longer ones a full window in rolling order, and
+    decode runs past the window.  Prefill runs the RG-LRU and flash
+    wrappers (the reference: its plain scan and its Pallas flash)."""
+    jm, jp, tm, tp = hybrid_pair
+    lens = (3, 13, 5, 20, 9, 2)
+    shapes = [(i + 1, lens[i % 6], 4, 5 + (3 * i) % 9, i) for i in range(10)]
+    jt, tt, jl, tl = _workload(jm.cfg, shapes)
+    kw = dict(max_len=40, max_batch=4, page_tokens=None, attn_mode="gather")
+    jeng = JServeEngine(jm, jp, sample_trace=jt, **kw)
+    teng = ServeEngine(tm, tp, sample_trace=tt, **kw)
+    jeng.warmup()
+    teng.warmup()
+    assert teng.prefill_compiles == jeng.prefill_compiles == 0   # no ladder
+    assert not ServeEngine.pads_prefill(tm.cfg)
+    js, ts = jeng.run(jl), teng.run(tl)
+    assert ts["n_completed"] == len(shapes) and ts["max_concurrent"] >= 3
+    _assert_same(jeng, js, teng, ts)
+    assert teng.prefill_compiles == jeng.prefill_compiles == len(set(lens))
+    assert teng.kv.stats()["used_pages"] == 0
+    assert teng.cache["k"].shape[2] == jm.cfg.local_window
+
+
+def test_recurrentgemma_cli_on_cpu(capsys):
+    """Both launch entry points at recurrentgemma-9b's tiny preset (window 64) on
+    an explicit CPU, with prompts past the window."""
+    from repro_torch.launch import profile_serve, serve
+    serve.main(["--device", "cpu", "--arch", "recurrentgemma-9b", "--requests", "3",
+                "--max-batch", "2", "--prompt-len", "70", "--gen-len", "4",
+                "--max-len", "96"])
+    out = capsys.readouterr().out
+    assert "[paged pool] page_tokens=" in out and "completed 3/3 requests" in out
+    profile_serve.main(["--arch", "recurrentgemma-9b", "--preset", "tiny", "--device",
+                        "cpu", "--batch", "2", "--prompt-len", "8", "--max-len", "32",
+                        "--steps", "2"])
+    assert ("[profile] recurrentgemma-9b-tiny batch=2 prompt=8 attn=gather"
+            in capsys.readouterr().out)
