@@ -11,8 +11,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   3. hold each kernel against its plain PyTorch version on the card at the
      serving paths' shapes, and time kernel, plain version, the library call
      where one exists (SDPA, a yardstick the port never calls) and the bound.
-     Attention: bf16 max-abs 2e-2, the reference's own tolerance; f32 1e-4,
-     because the sum order differs.  SSD: max-abs 1e-4 of max|y| (of max|h|
+     Attention: bf16 max-abs 2e-2, the reference's own tolerance (bf16 flash
+     runs on the tensor cores and rounds P to bf16 for P V, where the plain
+     version keeps it in f32); f32 1e-4, because the sum order differs.  SSD: max-abs 1e-4 of max|y| (of max|h|
      for the state), for bf16 and f32 B/C alike, since both versions compute
      in f32 from the same converted inputs but sum in other orders and chunk
      lengths (the kernels scan in chunks of 64, the plain version of 256).
@@ -122,33 +123,50 @@ def check(name, err, dtype):
 def paged_cases(torch, ops, ref, pt: int):
     """Paged decode at the engine's pool geometry: fragmented non-monotonic
     page tables, partial last pages, zero-padded table tails; 24 layer pools
-    cycled so every launch reads K/V from HBM, as decode does."""
+    cycled so every launch reads K/V from HBM, as decode does.  Besides the
+    timed cases, B=1, 3 and 8 at positions on and across the split-KV
+    kernel's 64-token chunk edges, position 0 and the table's last token,
+    each called twice in a row (the completion counters must reset)."""
     F = torch.nn.functional
     maxp = math.ceil(MAX_LEN / pt) + 1
     n_pages = MAX_BATCH * maxp
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rng = random.Random(SEED + 1)
     out, worst = {}, {}
+    last = maxp * pt - 1
+    edges = ([0], [63, 64, 65], [0, 1, 63, 64, 127, 128, last, 500])
     for dtype_name, batches in (("bfloat16", (1, 3, 8)), ("float32", (8,))):
         dt = getattr(torch, dtype_name)
         layers = 24
         kp = torch.randn(layers, n_pages, pt, 2, 64, generator=g, device="cuda").to(dt)
         vp = torch.randn(layers, n_pages, pt, 2, 64, generator=g, device="cuda").to(dt)
-        for b in batches:
+
+        def case(pos):
+            b = len(pos)
             q = torch.randn(b, 2, 7, 64, generator=g, device="cuda").to(dt)
-            pos = [rng.randint(100, 631) for _ in range(b)]
             perm = torch.randperm(n_pages, generator=g, device="cuda").int()
             tables = torch.zeros(b, maxp, dtype=torch.int32, device="cuda")
             for i, p in enumerate(pos):
                 used = p // pt + 1
                 tables[i, :used] = perm[i * maxp:i * maxp + used]
             positions = torch.tensor(pos, dtype=torch.int32, device="cuda")
-            got = ops.paged_attention(q, kp[0], vp[0], tables, positions)
             want = ref.ref_paged_attention(q, kp[0], vp[0], tables, positions)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            check(f"paged B={b} {dtype_name}", err, dtype_name)
-            worst[dtype_name] = max(worst.get(dtype_name, 0.0), err)
+            errs = []
+            for _ in range(2):
+                got = ops.paged_attention(q, kp[0], vp[0], tables, positions)
+                torch.cuda.synchronize()
+                errs.append((got.float() - want.float()).abs().max().item())
+                check(f"paged B={b} {dtype_name} positions {pos}", errs[-1], dtype_name)
+            worst[dtype_name] = max(worst.get(dtype_name, 0.0), *errs)
+            return q, tables, positions, max(errs)
+
+        for pos in edges:
+            err = case(pos)[-1]
+            print(f"[paged] edge B={len(pos)} {dtype_name} pt={pt} pos={pos} "
+                  f"max_abs_err={err:.3g} (two calls in a row)", flush=True)
+        for b in batches:
+            pos = [rng.randint(100, 631) for _ in range(b)]
+            q, tables, positions, err = case(pos)
             calls = itertools.count()
 
             def cycled(fn):
@@ -523,6 +541,7 @@ def main() -> int:
     from repro_torch.core.planner import MemoryPlanner
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import RunOpts, Transformer
@@ -554,15 +573,24 @@ def main() -> int:
           f"(check_smem working set {smem_py} B)")
     if smem_src != smem_py:
         raise AssertionError("ssd_scan.smem_blocks() disagrees with csrc SMEM_BYTES")
-    for d in fa.HEAD_DIMS:
-        smem_src = build.library("flash_attention").flash_attention_smem_bytes(d)
-        smem_py = MemoryPlanner.smem_footprint(fa.smem_blocks(d))
-        print(f"[build] flash_attention D={d} shared memory {smem_src} B per CTA "
-              f"({'dynamic' if d >= fa.WIDE else 'static'}; check_smem working set "
+    for d, (dt, code) in itertools.product(fa.HEAD_DIMS, fa.DTYPE_CODES.items()):
+        smem_src = build.library("flash_attention").flash_attention_smem_bytes(d, code)
+        smem_py = MemoryPlanner.smem_footprint(fa.smem_blocks(d, dt))
+        static = dt == torch.float32 and d < fa.WIDE
+        print(f"[build] flash_attention D={d} {dt} shared memory {smem_src} B per CTA "
+              f"({'static' if static else 'dynamic'}; check_smem working set "
               f"{smem_py} B)")
         if smem_src != smem_py:
-            raise AssertionError(f"flash_attention.smem_blocks({d}) disagrees with "
-                                 "csrc flash_attention_smem_bytes")
+            raise AssertionError(f"flash_attention.smem_blocks({d}, {dt}) disagrees "
+                                 "with csrc flash_attention_smem_bytes")
+    for dt, code in pa.DTYPE_CODES.items():
+        smem_src = build.library("paged_attention").paged_attention_smem_bytes(7, 64, code)
+        smem_py = MemoryPlanner.smem_footprint(pa.smem_blocks(7, 64, dt))
+        print(f"[build] paged_attention G=7 hd=64 {dt} dynamic shared memory {smem_src} "
+              f"B per CTA (check_smem working set {smem_py} B)")
+        if smem_src != smem_py:
+            raise AssertionError(f"paged_attention.smem_blocks(7, 64, {dt}) disagrees "
+                                 "with csrc paged_attention_smem_bytes")
 
     stamp(t_start, "phase 2")
     # -- 3. kernels against their plain versions -------------------------------------
@@ -679,6 +707,7 @@ def main() -> int:
     # -- 7. records ------------------------------------------------------------------------
     pk = paged[("bfloat16", MAX_BATCH)]
     fk = flash[("bfloat16", 512, 0, 0)]
+    fw = flash_wide[("bfloat16", 2600, 2048, 0)]
     sk = ssd_res[("bfloat16", 1, 512)]
     rk = rglru[(1, 512, False)]
     kernels = [
@@ -696,7 +725,9 @@ def main() -> int:
          "max_abs_err": max(flash_worst["bfloat16"], flash_wide_worst["bfloat16"]),
          "ms": fk["ms"],
          "plain_ms": fk["plain_ms"], "bound_ms": fk["bound_ms"],
-         "bound_by": fk["bound_by"], "library_ms": fk["sdpa_ms"]},
+         "bound_by": fk["bound_by"], "library_ms": fk["sdpa_ms"],
+         "d256_sq2600_ms": fw["ms"], "d256_sq2600_bound_ms": fw["bound_ms"],
+         "d256_sq2600_library_ms": fw["sdpa_ms"]},
         {"name": "ssd_scan_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:64",

@@ -1,21 +1,22 @@
-"""Flash-attention forward — the CUDA kernel in ``csrc/flash_attention.cu``.
+"""Flash-attention forward — the CUDA kernels in ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention.
 flash_attention_bhsd``: causal, sliding-window and k-padding masks by
 position with ``q_offset``, GQA by ``h // group`` with no repeated K/V,
-online softmax in f32.  One CTA per (batch * head, query tile) stages
-32-key K/V tiles through shared memory and skips key tiles wholly in the
-causal future or before the window.  Head dim 64 runs two threads per query
-row (64 rows per CTA, static shared memory); head dim 256 runs eight threads
-per row, each owning a slice of q and of the output (32 rows per CTA, 64 KB
-of dynamic shared memory); see the source for both designs and their bound.
-The plain PyTorch version is ``ref.ref_attention_bhsd``.
+online softmax in f32, key tiles wholly in the causal future or before the
+window skipped.  The launcher dispatches on dtype, with no fallback between
+designs: bf16 runs on the tensor cores (wgmma; one warpgroup per 64 query
+rows, 64-key K/V tiles through a two-stage cp.async ring in shared memory,
+P rounded to bf16 for the P·V product), f32 on the CUDA cores (the D=64
+and the wide D=256 designs, f32 throughout); see the source for the
+designs and their bound.  The plain PyTorch version is
+``ref.ref_attention_bhsd``.
 
 Layout: q (B, H, Sq, D); k/v (B, KV, Sk, D) -> out (B, H, Sq, D).  Any
-strides are taken as long as the last dimension is contiguous (at D=256 also
-multiples of 8 elements on 16-byte aligned tensors, for its vector loads),
-so the model's (B, S, H, D) tensors are passed as transposed views, not
-copies.
+strides are taken as long as the last dimension is contiguous (for bf16
+and for D=256 also multiples of 8 elements on 16-byte aligned tensors, for
+the 16-byte copies), so the model's (B, S, H, D) tensors are passed as
+transposed views, not copies.
 """
 from __future__ import annotations
 
@@ -26,18 +27,29 @@ import torch
 
 from . import build
 
-BLOCK_K = 32                    # keys per tile (csrc: BK, W_BK)
-HEAD_DIMS = (64, 256)           # head dims the kernel is instantiated for
-WIDE = 256                      # head dims from here run the wide design
+BLOCK_K = 32                    # f32 designs: keys per tile (csrc: BK, W_BK)
+TC_ROWS = 64                    # bf16 design: query rows and keys per tile
+TC_STAGES = 2                   # bf16 design: K/V tiles in flight
+TC_ALIGN = 1024                 # bf16 design: slack to align the swizzle atoms
+HEAD_DIMS = (64, 256)           # head dims the kernels are instantiated for
+WIDE = 256                      # f32 head dims from here run the wide design
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def smem_blocks(d: int):
+def smem_blocks(d: int, dtype=torch.float32):
     """Shared-memory working set per CTA, for ``MemoryPlanner.check_smem``
-    (csrc: ``flash_attention_smem_bytes``): f32 K and V tiles, rows padded by
-    one float in the D=64 design, unpadded float4 rows in the wide one."""
+    (csrc: ``flash_attention_smem_bytes``).  f32: K and V tiles, rows
+    padded by one float in the D=64 design, unpadded float4 rows in the wide
+    one.  bf16: the Q tile, the two-stage K/V ring, and the slack that
+    aligns the 1 KB swizzle atoms (bf16 counted as its 2-byte storage)."""
+    if dtype == torch.bfloat16:
+        bf16 = np.dtype("uint16")
+        return [((TC_ROWS, d), bf16),                     # q tile
+                ((TC_STAGES, TC_ROWS, d), bf16),          # k ring
+                ((TC_STAGES, TC_ROWS, d), bf16),          # v ring
+                ((TC_ALIGN,), np.dtype("uint8"))]         # atom alignment
     f32 = np.dtype("float32")
     row = d if d >= WIDE else d + 1
     return [((BLOCK_K, row), f32),            # k tile
@@ -72,9 +84,10 @@ def flash_attention_bhsd(q, k, v, *, causal=True, window=0, q_offset=0):
             raise ValueError(f"{name} must lie on q's CUDA device, got {t.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dimension")
-        if d >= WIDE and (t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3])):
+        vec = t.dtype == torch.bfloat16 or d >= WIDE
+        if vec and (t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3])):
             raise ValueError(f"{name} needs 16-byte alignment and strides in "
-                             f"multiples of 8 elements at head dim {d}")
+                             f"multiples of 8 elements ({t.dtype}, head dim {d})")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of "
                          f"{list(DTYPE_CODES)} for all three")

@@ -41,7 +41,7 @@ def _in_model_layout(fn, q, k, v, **kw):
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Model layout q: (B,S,KV,G,hd); k/v: (B,S,KV,hd) -> ctx (B,S,KV,G,hd)."""
-    _check_smem(_fa.smem_blocks(q.shape[-1]), "flash attention")
+    _check_smem(_fa.smem_blocks(q.shape[-1], q.dtype), "flash attention")
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if _device_type(q) == "cpu":
         return flash_attention_plain(q, k, v, **kw)
@@ -63,7 +63,7 @@ def paged_attention(q, k_pages, v_pages, tables, positions):
     positions (B,) -> ctx (B,KV,G,hd).  The page table is consumed inside
     the kernel — no gather, no contiguous copy."""
     _, kv, g, hd = q.shape
-    _check_smem(_pa.smem_blocks(g, hd), "paged attention")
+    _check_smem(_pa.smem_blocks(g, hd, q.dtype), "paged attention")
     if _device_type(q) == "cpu":
         return ref_paged_attention(q, k_pages, v_pages, tables, positions)
     out = _pa.paged_attention_decode(q, k_pages, v_pages, tables, positions)

@@ -3,9 +3,14 @@
 Replaces the Pallas TPU kernel ``repro.kernels.paged_attention.
 paged_attention_decode``: single-token GQA attention read straight off the
 paged KV pool, with the per-request page-table row consumed inside the
-kernel (no gather, no contiguous copy).  One CTA per (batch row, kv head)
-walks the row's pages up to its position; see the source for the design and
-its bound.  The plain PyTorch version is ``ref.ref_paged_attention``.
+kernel (no gather, no contiguous copy).  Split-KV in one launch: CTA
+(b, kv head, s) takes tokens s*CHUNK .. s*CHUNK+CHUNK-1 of the row and
+writes a partial (acc, m, l) to scratch; the last CTA of each (b, kv head)
+combines them, known from a per-device int32 counter that it resets.  The
+grid comes from host shapes alone, so ``positions`` is never read on the
+host.  See the source for the design and its bound.  The plain PyTorch
+version is ``ref.ref_paged_attention``; ``ref.ref_paged_attention_split``
+repeats the kernel's per-chunk algebra.
 
 Layout: q (B, KV, G, hd); k/v pools (P, page_tokens, KV, hd);
 tables (B, n_pages_per_req) int32; positions (B,) int32 -> out (B, KV, G, hd).
@@ -19,29 +24,49 @@ import torch
 
 from . import build
 
-TILE = 32                       # tokens staged per tile (csrc: TILE)
+CHUNK = 64                      # tokens per CTA (csrc: CHUNK)
 HEAD_DIMS = (64,)               # head dims the kernel is instantiated for
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# per device: B * KV int32 completion counters, zero between launches (the
+# last CTA of each row resets its own); launches on one stream reuse them
+_counters: dict[torch.device, torch.Tensor] = {}
 
 
-def smem_blocks(group: int, hd: int):
-    """Shared-memory working set per CTA, for ``MemoryPlanner.check_smem``."""
+def smem_blocks(group: int, hd: int, dtype=torch.float32):
+    """Shared-memory working set per CTA, for ``MemoryPlanner.check_smem``
+    (csrc: ``paged_attention_smem_bytes``): the chunk's K and V rows padded
+    by 16 bytes, in the pool's dtype (bf16 counted as its 2-byte storage),
+    then f32 scaled q rows, scores and each row's (m, l)."""
+    store = np.dtype("uint16") if dtype == torch.bfloat16 else np.dtype("float32")
+    row = hd + 16 // store.itemsize
     f32 = np.dtype("float32")
-    return [((group, hd), f32),               # scaled q rows
-            ((group, hd), f32),               # acc
-            ((TILE, hd + 1), f32),            # k tile
-            ((TILE, hd + 1), f32),            # v tile
-            ((group, TILE), f32),             # scores / probs
-            ((3, group), f32)]                # m, l, correction
+    return [((CHUNK, row), store),            # k chunk
+            ((CHUNK, row), store),            # v chunk
+            ((group, hd), f32),               # scaled q rows
+            ((group, CHUNK), f32),            # scores, then probs
+            ((2, group), f32)]                # m, l
+
+
+def n_splits(maxp: int, page_tokens: int) -> int:
+    """CTAs per (batch row, kv head): chunks of CHUNK over the table's reach."""
+    return -(-maxp * page_tokens // CHUNK)
+
+
+def _counters_for(device: torch.device, n: int) -> torch.Tensor:
+    c = _counters.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(n, dtype=torch.int32, device=device)
+        _counters[device] = c
+    return c
 
 
 def _fn():
     lib = build.library("paged_attention")
     fn = lib.paged_attention_decode
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+        fn.argtypes = [_P] * 8 + [_I] * 8 + [_P]
         fn.restype = _I
         lib.paged_attention_error_string.argtypes = [_I]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -67,19 +92,25 @@ def paged_attention_decode(q, k_pages, v_pages, tables, positions):
             raise ValueError(f"{name} must lie on q's CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the pools need 16-byte alignment for the 16-byte copies")
     if q.dtype not in DTYPE_CODES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k_pages.dtype}/{v_pages.dtype}: "
                          f"need one of {list(DTYPE_CODES)} for all three")
     if tables.dtype != torch.int32 or positions.dtype != torch.int32:
         raise ValueError("tables and positions must be int32")
     out = torch.empty_like(q)
+    maxp = tables.shape[1]
+    part = torch.empty((b * kv, n_splits(maxp, pt), g * (hd + 2)),
+                       dtype=torch.float32, device=q.device)
+    counters = _counters_for(q.device, b * kv)
     lib, fn = _fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-                 b, kv, g, hd, p, pt, tables.shape[1], DTYPE_CODES[q.dtype],
-                 stream)
+                 part.data_ptr(), counters.data_ptr(), b, kv, g, hd, p, pt,
+                 maxp, DTYPE_CODES[q.dtype], stream)
     if err:
         raise RuntimeError("paged_attention_decode launch failed: "
                            f"{lib.paged_attention_error_string(err).decode()}")

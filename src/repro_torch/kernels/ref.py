@@ -55,6 +55,36 @@ def ref_paged_attention(q, k_pages, v_pages, tables, positions):
     return torch.einsum("bkgs,bskh->bkgh", p, v).to(q.dtype)
 
 
+def ref_paged_attention_split(q, k_pages, v_pages, tables, positions, chunk):
+    """The split-KV kernel's algebra in plain PyTorch, for the tests: the
+    table's reach cut into chunks of ``chunk`` tokens, a partial (acc, m, l)
+    per chunk with masked tokens at p = 0, a chunk wholly past the position
+    as the empty partial (0, NEG_INF, 0), then the combine
+    ``sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M)`` with M the max over
+    the chunks.  Same arguments as ``ref_paged_attention``."""
+    b, kv, g, hd = q.shape
+    pt = k_pages.shape[1]
+    n_tok = tables.shape[1] * pt
+    n_split = -(-n_tok // chunk)
+    pad = n_split * chunk - n_tok
+    idx_t = tables.long()
+    k = F.pad(k_pages[idx_t].reshape(b, n_tok, kv, hd).float(), (0, 0, 0, 0, 0, pad))
+    v = F.pad(v_pages[idx_t].reshape(b, n_tok, kv, hd).float(), (0, 0, 0, 0, 0, pad))
+    s = torch.einsum("bkgh,bskh->bkgs", q.float(), k) / math.sqrt(hd)
+    valid = (torch.arange(n_split * chunk, device=q.device)[None, :]
+             <= positions.long()[:, None])[:, None, None, :]          # (B,1,1,S)
+    s = torch.where(valid, s, NEG_INF).reshape(b, kv, g, n_split, chunk)
+    valid = valid.reshape(b, 1, 1, n_split, chunk)
+    m = s.amax(-1)                                                   # (B,KV,G,n)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bkgnc,bnckh->bkgnh", p, v.reshape(b, n_split, chunk, kv, hd))
+    m_all = m.amax(-1, keepdim=True)
+    w = torch.exp(m - m_all)
+    out = (acc * w[..., None]).sum(-2) / torch.clamp((l * w).sum(-1), min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
 def ref_ssd(x, dta, b_mat, c_mat, h0=None):
     """Sequential SSD recurrence, the oracle of the chunk scan.  x: (B,S,H,P)
     dt-scaled; dta: (B,S,H) log-decays; b/c: (B,S,G,N).  Returns

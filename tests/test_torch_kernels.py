@@ -5,7 +5,10 @@ the same numpy-seeded inputs.  Tolerance: max-abs 2e-5 in f32 and 2e-2 in
 bf16, the reference's own (tests/test_paged_attention.py).
 
 The CUDA kernels themselves cannot run here (no card, no nvcc): they are
-held against these same plain versions on the card by ``chip_smoke.py``.
+held against these same plain versions on the card by ``chip_smoke.py`` and
+by the tests marked ``cuda`` below, which skip without a card.  The
+split-KV paged kernel's algebra is held here through its plain twin
+``ref.ref_paged_attention_split``.
 """
 import functools
 import math
@@ -188,3 +191,118 @@ def test_smem_budget_guard():
                              torch.zeros(4, 8, 1, 64),
                              torch.zeros(1, 1, dtype=torch.int32),
                              torch.zeros(1, dtype=torch.int32))
+
+
+SPLIT_POSITIONS = [0, 7, 8, 31, 32, 63, 64, 95]
+
+
+@pytest.mark.parametrize("chunk", [8, 32, 64, 128])
+def test_paged_split_algebra_matches_ref_and_pallas(chunk):
+    """The split-KV kernel's per-chunk (acc, m, l) and combine, in plain
+    PyTorch, against the gather-then-softmax version and the Pallas kernel
+    in interpret mode: f32 at 1e-6.  A 96-token table reach in chunks of 8,
+    32, 64 (ragged last chunk) and 128 (one chunk past the reach); positions
+    on and across chunk edges leave trailing chunks empty, and position 0
+    leaves every chunk but the first empty."""
+    case = _paged_case(3, len(SPLIT_POSITIONS), kv=2, g=7, hd=16, pt=8, maxp=12,
+                       positions=SPLIT_POSITIONS)
+    q, kp, vp, tables, positions = (torch.from_numpy(a) for a in case)
+    got = tref.ref_paged_attention_split(q, kp, vp, tables, positions, chunk)
+    want = tref.ref_paged_attention(q, kp, vp, tables, positions)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert float((got - want).abs().max()) < 1e-6
+    pallas = _pallas_paged(*(jnp.asarray(a) for a in case))
+    assert _err(pallas, got) < 1e-6
+
+
+def test_paged_split_empty_chunks_contribute_zero():
+    """Position 0 in chunks of 8: seven empty partials (m = NEG_INF, l = 0)
+    beside one holding a single token, so the output is that token's v row."""
+    case = _paged_case(4, 2, kv=2, g=7, hd=16, pt=8, maxp=8, positions=[0, 0])
+    q, kp, vp, tables, positions = (torch.from_numpy(a) for a in case)
+    got = tref.ref_paged_attention_split(q, kp, vp, tables, positions, 8)
+    v0 = vp[tables[:, 0].long(), 0]                                  # (B,KV,hd)
+    assert torch.equal(got, v0[:, :, None, :].expand_as(got))
+
+
+def test_smem_accounting_by_dtype():
+    """Both attention kernels report their working set per dtype: f32 keeps
+    the CUDA-core designs' tiles, bf16 flash reports the Q tile, the
+    two-stage K/V ring and the atom-alignment slack; paged reports its
+    64-token K/V chunk with 16-byte row padding in the pool's dtype."""
+    from repro_torch.core.planner import MemoryPlanner
+    fp = MemoryPlanner.smem_footprint
+    assert fp(tfa.smem_blocks(64)) == fp(tfa.smem_blocks(64, torch.float32)) == 2 * 32 * 65 * 4
+    assert fp(tfa.smem_blocks(64, torch.bfloat16)) == 5 * 64 * 64 * 2 + 1024
+    assert fp(tfa.smem_blocks(256, torch.bfloat16)) == 5 * 64 * 256 * 2 + 1024
+    assert MemoryPlanner.check_smem(tfa.smem_blocks(256, torch.bfloat16))["fits"]
+    fixed = 4 * (7 * 64 + 7 * 64 + 2 * 7)
+    assert fp(tpa.smem_blocks(7, 64, torch.bfloat16)) == 2 * 64 * 72 * 2 + fixed
+    assert fp(tpa.smem_blocks(7, 64, torch.float32)) == 2 * 64 * 68 * 4 + fixed
+    assert tpa.n_splits(129, 8) == 17 and tpa.n_splits(1, 8) == 1
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: run on the card with "
+                    "`python -m pytest -m cuda tests`")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,kv,sq,window,q_offset", [
+    (64, 14, 2, 37, 0, 0), (64, 14, 2, 200, 0, 0), (64, 14, 2, 300, 100, 0),
+    (64, 14, 2, 40, 0, 77), (256, 16, 1, 37, 2048, 0), (256, 16, 1, 300, 100, 0),
+    (256, 16, 1, 130, 2048, 2100)])
+def test_flash_tensor_core_kernel_matches_plain_version_on_the_card(
+        card, d, h, kv, sq, window, q_offset):
+    """bf16 flash on the tensor cores against the plain version (2e-2):
+    ragged Sq, windows, offsets, through the model layout's strided views."""
+    g = torch.Generator(device="cuda").manual_seed(sq + d)
+    sk = sq + q_offset
+    q = torch.randn(1, sq, kv, h // kv, d, generator=g, device="cuda").bfloat16()
+    k = torch.randn(1, sk, kv, d, generator=g, device="cuda").bfloat16()
+    v = torch.randn(1, sk, kv, d, generator=g, device="cuda").bfloat16()
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    before = tops.flash_attention.launches
+    got = tops.flash_attention(q, k, v, **kw)
+    want = tops.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tops.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_tensor_core_kernel_refuses_unaligned_views_on_the_card(card):
+    """The 16-byte copies need 16-byte aligned tensors and strides in
+    multiples of 8 elements: anything else is refused, never copied."""
+    base = torch.zeros(1, 14, 64, 72, device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, 64, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_bhsd(base[..., 1:65], kv, kv)         # misaligned
+    odd = torch.zeros(1, 14, 64, 68, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfa.flash_attention_bhsd(odd[..., :64], kv, kv)           # stride 68
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 1e-4)])
+@pytest.mark.parametrize("positions", [
+    [0], [64], [0, 1, 63, 64, 65, 127, 128, 700]])
+def test_split_paged_kernel_matches_plain_version_on_the_card(card, dtype, tol, positions):
+    """Split-KV paged decode against the gather-then-softmax version: B=1
+    and 8, position 0, positions on and across the 64-token chunk edges,
+    fragmented non-monotonic tables, and two calls in a row (the last CTA
+    of each row must leave its counter at 0 for the next launch)."""
+    case = _paged_case(11, len(positions), kv=2, g=7, hd=64, pt=8, maxp=96,
+                       positions=positions)
+    q, kp, vp, tables, pos = (torch.from_numpy(a).cuda() for a in case)
+    q, kp, vp = (t.to(TDT[dtype]) for t in (q, kp, vp))
+    want = tref.ref_paged_attention(q, kp, vp, tables, pos)
+    before = tops.paged_attention.launches
+    for _ in range(2):
+        got = tops.paged_attention(q, kp, vp, tables, pos)
+        torch.cuda.synchronize()
+        assert float((got.float() - want.float()).abs().max()) < tol
+    assert tops.paged_attention.launches == before + 2
