@@ -9,19 +9,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   1. require CUDA; print the card's name and power limit;
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` for sm_90a;
   3. hold each kernel against its plain PyTorch version on the card at the
-     serving paths' shapes, and time kernel, plain version, the library call
-     where one exists (SDPA, a yardstick the port never calls) and the bound.
-     Attention: bf16 max-abs 2e-2, the reference's own tolerance (bf16 flash
-     runs on the tensor cores and rounds P to bf16 for P V, where the plain
-     version keeps it in f32); f32 1e-4, because the sum order differs.  SSD: max-abs 1e-4 of max|y| (of max|h|
-     for the state), for bf16 and f32 B/C alike, since both versions compute
-     in f32 from the same converted inputs but sum in other orders and chunk
-     lengths (the kernels scan in chunks of 64, the plain version of 256).
-     RG-LRU: max-abs 1e-5 of max|y|: both sides compute in f32 from the same
-     inputs, the kernel sequentially, the plain version log-depth;
+     serving paths' shapes (paged decode and flash at qwen2-0.5b's head dim
+     64 and phi4-mini-3.8b's 128), and time kernel, plain version, the
+     library call where one exists (SDPA, a yardstick the port never calls)
+     and the bound.  Attention: bf16 max-abs 2e-2, the reference's own
+     tolerance (bf16 flash runs on the tensor cores and rounds P to bf16 for
+     P V, where the plain version keeps it in f32); f32 1e-4, because the
+     sum order differs.  SSD: max-abs 1e-4 of max|y| (of max|h| for the
+     state), for bf16 and f32 B/C alike, since both versions compute to f32
+     accuracy from the same converted inputs (the kernels in split TF32) but
+     sum in other orders and chunk lengths (the kernels scan in chunks of
+     64, the plain version of 256).  RG-LRU: max-abs 1e-5 of max|y|: both
+     sides compute in f32 from the same inputs, the kernel sequentially, the
+     plain version log-depth;
   4. serve full-width qwen2-0.5b (24 layers, bf16, seeded random weights)
      through the port's ``ServeEngine`` with paged decode and flash prefill,
      and check that path against its plain version on a small f32 input;
+     then the same for full-width, full-depth phi4-mini-3.8b (32 layers,
+     head dim 128, 7.7 GB of bf16 weights) on the same trace;
   5. serve full-width mamba2-130m (24 layers, bf16, seeded random weights)
      in gather mode with the SSD kernel in every prefill, then check it
      against its plain path: token streams of a 2-layer f32 model, and the
@@ -62,6 +67,7 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SSD_REL_TOL = 1e-4          # of max|y| / max|h|, both B/C dtypes
 RGLRU_REL_TOL = 1e-5        # of max|y|
 ARCH = "qwen2-0.5b"
+PHI4_ARCH = "phi4-mini-3.8b"
 SSM_ARCH = "mamba2-130m"
 HYBRID_ARCH = "recurrentgemma-9b"
 MAX_BATCH, MAX_LEN, GEN_LEN, N_REQUESTS, SEED = 8, 1024, 32, 12, 0
@@ -107,9 +113,13 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
 
 def bound_ms(n_bytes: float, flops: float, dtype: str):
     """Least time on an H100 SXM: bytes over HBM bandwidth or operations
-    over the dtype's peak rate, whichever is larger."""
-    from repro_torch.core.planner import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32
-    peak = {"bfloat16": PEAK_FLOPS_BF16, "float32": PEAK_FLOPS_F32}[dtype]
+    over the dtype's peak rate, whichever is larger.  ``tf32x3`` is the
+    split-TF32 datapath: three tensor-core passes per product at the TF32
+    rate."""
+    from repro_torch.core.planner import (HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32,
+                                          PEAK_FLOPS_TF32)
+    peak = {"bfloat16": PEAK_FLOPS_BF16, "float32": PEAK_FLOPS_F32,
+            "tf32x3": PEAK_FLOPS_TF32 / 3}[dtype]
     t_bytes = n_bytes / HBM_BW
     t_ops = flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -120,30 +130,33 @@ def check(name, err, dtype):
         raise AssertionError(f"{name}: max_abs_err {err:.3g} > {TOL[dtype]} ({dtype})")
 
 
-def paged_cases(torch, ops, ref, pt: int):
-    """Paged decode at the engine's pool geometry: fragmented non-monotonic
-    page tables, partial last pages, zero-padded table tails; 24 layer pools
-    cycled so every launch reads K/V from HBM, as decode does.  Besides the
-    timed cases, B=1, 3 and 8 at positions on and across the split-KV
-    kernel's 64-token chunk edges, position 0 and the table's last token,
-    each called twice in a row (the completion counters must reset)."""
+def paged_cases(torch, ops, ref, pt: int, kv: int, group: int, hd: int, layers: int,
+                seed: int):
+    """Paged decode at the engine's pool geometry for a model's head layout
+    (``kv`` heads of ``group`` query rows, head dim ``hd``): fragmented
+    non-monotonic page tables, partial last pages, zero-padded table tails;
+    ``layers`` layer pools cycled so every launch reads K/V from HBM, as
+    decode does.  Besides the timed cases, B=1, 3 and 8 at positions on and
+    across the split-KV kernel's 64-token chunk edges, position 0 and the
+    table's last token, each called twice in a row (the completion counters
+    must reset)."""
     F = torch.nn.functional
     maxp = math.ceil(MAX_LEN / pt) + 1
     n_pages = MAX_BATCH * maxp
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    rng = random.Random(SEED + 1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rng = random.Random(seed)
     out, worst = {}, {}
     last = maxp * pt - 1
     edges = ([0], [63, 64, 65], [0, 1, 63, 64, 127, 128, last, 500])
+    tag = f"hd={hd} KV={kv} G={group}"
     for dtype_name, batches in (("bfloat16", (1, 3, 8)), ("float32", (8,))):
         dt = getattr(torch, dtype_name)
-        layers = 24
-        kp = torch.randn(layers, n_pages, pt, 2, 64, generator=g, device="cuda").to(dt)
-        vp = torch.randn(layers, n_pages, pt, 2, 64, generator=g, device="cuda").to(dt)
+        kp = torch.randn(layers, n_pages, pt, kv, hd, generator=g, device="cuda").to(dt)
+        vp = torch.randn(layers, n_pages, pt, kv, hd, generator=g, device="cuda").to(dt)
 
         def case(pos):
             b = len(pos)
-            q = torch.randn(b, 2, 7, 64, generator=g, device="cuda").to(dt)
+            q = torch.randn(b, kv, group, hd, generator=g, device="cuda").to(dt)
             perm = torch.randperm(n_pages, generator=g, device="cuda").int()
             tables = torch.zeros(b, maxp, dtype=torch.int32, device="cuda")
             for i, p in enumerate(pos):
@@ -156,13 +169,14 @@ def paged_cases(torch, ops, ref, pt: int):
                 got = ops.paged_attention(q, kp[0], vp[0], tables, positions)
                 torch.cuda.synchronize()
                 errs.append((got.float() - want.float()).abs().max().item())
-                check(f"paged B={b} {dtype_name} positions {pos}", errs[-1], dtype_name)
+                check(f"paged {tag} B={b} {dtype_name} positions {pos}", errs[-1],
+                      dtype_name)
             worst[dtype_name] = max(worst.get(dtype_name, 0.0), *errs)
             return q, tables, positions, max(errs)
 
         for pos in edges:
             err = case(pos)[-1]
-            print(f"[paged] edge B={len(pos)} {dtype_name} pt={pt} pos={pos} "
+            print(f"[paged] {tag} edge B={len(pos)} {dtype_name} pt={pt} pos={pos} "
                   f"max_abs_err={err:.3g} (two calls in a row)", flush=True)
         for b in batches:
             pos = [rng.randint(100, 631) for _ in range(b)]
@@ -175,21 +189,21 @@ def paged_cases(torch, ops, ref, pt: int):
             k_ms, k_call = time_ms(torch, lambda: cycled(ops.paged_attention))
             p_ms, _ = time_ms(torch, lambda: cycled(ref.ref_paged_attention))
             # yardstick only: SDPA over an already gathered contiguous copy
-            kc = kp[0][tables.long()].reshape(b, -1, 2, 64).transpose(1, 2)
-            vc = vp[0][tables.long()].reshape(b, -1, 2, 64).transpose(1, 2)
+            kc = kp[0][tables.long()].reshape(b, -1, kv, hd).transpose(1, 2)
+            vc = vp[0][tables.long()].reshape(b, -1, kv, hd).transpose(1, 2)
             mask = (torch.arange(kc.shape[2], device="cuda")[None, :]
                     <= positions[:, None])[:, None, None, :]
-            qs = q.reshape(b, 14, 1, 64)
+            qs = q.reshape(b, kv * group, 1, hd)
             s_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qs, kc, vc, attn_mask=mask, enable_gqa=True))
             tok = sum(p + 1 for p in pos)
             isz = q.element_size()
-            n_bytes = (2 * q.numel() * isz + tok * 2 * 2 * 64 * isz
+            n_bytes = (2 * q.numel() * isz + tok * 2 * kv * hd * isz
                        + 4 * sum(p // pt + 1 for p in pos) + 4 * b)
-            bms, by = bound_ms(n_bytes, 4 * 64 * 14 * tok, dtype_name)
+            bms, by = bound_ms(n_bytes, 4 * hd * kv * group * tok, dtype_name)
             out[(dtype_name, b)] = dict(err=err, ms=k_ms, plain_ms=p_ms,
                                         sdpa_ms=s_ms, bound_ms=bms, bound_by=by)
-            print(f"[paged] B={b} {dtype_name} pt={pt} pos={pos} "
+            print(f"[paged] {tag} B={b} {dtype_name} pt={pt} pos={pos} "
                   f"max_abs_err={err:.3g} kernel_ms={k_ms:.4f} "
                   f"wrapper_call_ms={k_call:.4f} "
                   f"plain_ms={p_ms:.4f} sdpa_gathered_ms={s_ms:.4f} "
@@ -314,10 +328,12 @@ def ssd_flops(b, s, h, p, g, n) -> float:
 
 
 def ssd_cases(torch, ops, ssd, ssm, ref):
-    """The SSD kernel against the plain chunked scan at mamba2-130m's widths
-    (H=24, P=64, N=128, G=1): serving prompt lengths with ragged last
-    chunks, one longer prompt and a batch of two; B/C in bf16 (the model's
-    compute dtype) and f32."""
+    """The SSD kernels (three launches a call) against the plain chunked
+    scan at mamba2-130m's widths (H=24, P=64, N=128, G=1): serving prompt
+    lengths with ragged last chunks, one longer prompt and a batch of two;
+    B/C in bf16 (the model's compute dtype) and f32.  The bound is the f32
+    one (the result is f32-accurate); beside it, the bound of the datapath
+    the kernels use, split TF32 (``tf32x3``)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     h, p, n = 24, 64, 128
     out, worst = {}, {}
@@ -354,13 +370,15 @@ def ssd_cases(torch, ops, ssd, ssm, ref):
             n_bytes = (2 * 4 * x.numel() + 4 * dta.numel() + 2 * bm.numel() * bm.element_size()
                        + 4 * hf.numel())
             bms, by = bound_ms(n_bytes, ssd_flops(b, s, h, p, 1, n), "float32")
+            tms, tby = bound_ms(n_bytes, ssd_flops(b, s, h, p, 1, n), "tf32x3")
             out[(dtype_name, b, s)] = dict(err=err_y, err_h=err_h, ms=k_ms, plain_ms=p_ms,
-                                           bound_ms=bms, bound_by=by)
+                                           bound_ms=bms, bound_by=by, tf32x3_bound_ms=tms)
             print(f"[ssd] B={b} S={s} H={h} P={p} N={n} G=1 B/C {dtype_name} "
                   f"max_abs_err y={err_y:.3g} (max|y| {scale_y:.3g}) h={err_h:.3g} "
                   f"(max|h| {scale_h:.3g}) tol={SSD_REL_TOL} of max "
                   f"kernel_ms={k_ms:.4f} wrapper_call_ms={k_call:.4f} "
-                  f"plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by})", flush=True)
+                  f"plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+                  f"tf32x3_bound_ms={tms:.5f} ({tby})", flush=True)
     return out, worst
 
 
@@ -567,12 +585,14 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    smem_src = build.library("ssd_scan").ssd_scan_smem_bytes()
-    smem_py = MemoryPlanner.smem_footprint(ssd.smem_blocks())
-    print(f"[build] ssd_scan dynamic shared memory {smem_src} B per CTA "
-          f"(check_smem working set {smem_py} B)")
-    if smem_src != smem_py:
-        raise AssertionError("ssd_scan.smem_blocks() disagrees with csrc SMEM_BYTES")
+    for i, launch in enumerate(ssd.LAUNCHES):
+        smem_src = build.library("ssd_scan").ssd_scan_smem_bytes(i)
+        smem_py = MemoryPlanner.smem_footprint(ssd.smem_blocks(launch))
+        print(f"[build] ssd_scan launch {i} ({launch}) dynamic shared memory {smem_src} "
+              f"B per CTA (check_smem working set {smem_py} B)")
+        if smem_src != smem_py:
+            raise AssertionError(f"ssd_scan.smem_blocks({launch!r}) disagrees with csrc "
+                                 "ssd_scan_smem_bytes")
     for d, (dt, code) in itertools.product(fa.HEAD_DIMS, fa.DTYPE_CODES.items()):
         smem_src = build.library("flash_attention").flash_attention_smem_bytes(d, code)
         smem_py = MemoryPlanner.smem_footprint(fa.smem_blocks(d, dt))
@@ -583,21 +603,28 @@ def main() -> int:
         if smem_src != smem_py:
             raise AssertionError(f"flash_attention.smem_blocks({d}, {dt}) disagrees "
                                  "with csrc flash_attention_smem_bytes")
-    for dt, code in pa.DTYPE_CODES.items():
-        smem_src = build.library("paged_attention").paged_attention_smem_bytes(7, 64, code)
-        smem_py = MemoryPlanner.smem_footprint(pa.smem_blocks(7, 64, dt))
-        print(f"[build] paged_attention G=7 hd=64 {dt} dynamic shared memory {smem_src} "
-              f"B per CTA (check_smem working set {smem_py} B)")
+    for (grp, hd), (dt, code) in itertools.product(((7, 64), (3, 128)),
+                                                   pa.DTYPE_CODES.items()):
+        smem_src = build.library("paged_attention").paged_attention_smem_bytes(grp, hd, code)
+        smem_py = MemoryPlanner.smem_footprint(pa.smem_blocks(grp, hd, dt))
+        print(f"[build] paged_attention G={grp} hd={hd} {dt} dynamic shared memory "
+              f"{smem_src} B per CTA (check_smem working set {smem_py} B)")
         if smem_src != smem_py:
-            raise AssertionError(f"paged_attention.smem_blocks(7, 64, {dt}) disagrees "
-                                 "with csrc paged_attention_smem_bytes")
+            raise AssertionError(f"paged_attention.smem_blocks({grp}, {hd}, {dt}) "
+                                 "disagrees with csrc paged_attention_smem_bytes")
 
     stamp(t_start, "phase 2")
     # -- 3. kernels against their plain versions -------------------------------------
     cfg = get_config(ARCH)
     trace, live = serve_trace(cfg, torch, N_REQUESTS, SEED)
     pt = choose_page_tokens(cfg, trace).page_tokens
-    paged, paged_worst = paged_cases(torch, ops, ref, pt)
+    cfg_p = get_config(PHI4_ARCH)
+    trace_p, live_p = serve_trace(cfg_p, torch, N_REQUESTS, SEED)
+    pt_p = choose_page_tokens(cfg_p, trace_p).page_tokens
+    # qwen2's decode layout (2 kv heads of 7, hd 64) and phi4's (8 of 3, hd 128)
+    paged, paged_worst = paged_cases(torch, ops, ref, pt, 2, 7, 64, cfg.n_layers, SEED + 1)
+    paged128, paged128_worst = paged_cases(torch, ops, ref, pt_p, 8, 3, 128,
+                                           cfg_p.n_layers, SEED + 8)
     stamp(t_start, "[paged]")
     # qwen2's layout (14 heads over 2, D=64) at the padding ladder's shapes,
     # one sliding window and one offset; recurrentgemma's local attention
@@ -606,6 +633,11 @@ def main() -> int:
         *(("bfloat16", sq, 0, 0) for sq in (8, 37, 512, 1024)),
         ("bfloat16", 512, 128, 0), ("bfloat16", 64, 0, 512), ("float32", 512, 0, 0)],
         SEED + 2)
+    # phi4's layout (24 heads over 8, D=128) at the same shapes, both dtypes
+    flash128, flash128_worst = flash_cases(torch, ops, ref, 24, 8, 128, [
+        *((dt, sq, w, off) for dt in ("bfloat16", "float32")
+          for sq, w, off in ((37, 0, 0), (256, 0, 0), (512, 0, 0), (1024, 0, 0),
+                             (512, 128, 0), (64, 0, 512)))], SEED + 9)
     flash_wide, flash_wide_worst = flash_cases(torch, ops, ref, 16, 1, 256, [
         *((dt, sq, 2048, 0) for dt in ("bfloat16", "float32") for sq in (37, 512, 2600)),
         ("bfloat16", 64, 2048, 2500)], SEED + 6, iters=10)
@@ -626,6 +658,21 @@ def main() -> int:
         "rglru_scan": 0}, card, "qwen2")
     del model, params, eng
     same_streams(torch, cfg.with_overrides(n_layers=2, dtype="float32"),
+                 [(RunOpts(attention_impl="kernel"), "paged"),
+                  (RunOpts(attention_impl="full"), "gather")],
+                 Transformer, ServeEngine, "paged+kernels vs gather+plain")
+    stamp(t_start, "[serve:qwen2]")
+    # -- the phi4 path: full-width phi4-mini-3.8b, head_dim 128, the same trace ------
+    model, params = load_model(torch, Transformer, cfg_p, RunOpts(attention_impl="kernel"),
+                               SEED, "phi4")
+    eng = ServeEngine(model, params, sample_trace=trace_p, max_len=MAX_LEN,
+                      max_batch=MAX_BATCH, attn_mode="paged")
+    phi4 = serve_path(torch, ops, eng, live_p, lambda steps, prefills: {
+        "flash_attention": cfg_p.n_layers * prefills,
+        "paged_attention": cfg_p.n_layers * steps, "ssd_scan": 0,
+        "rglru_scan": 0}, card, "phi4")
+    del model, params, eng
+    same_streams(torch, cfg_p.with_overrides(n_layers=2, dtype="float32"),
                  [(RunOpts(attention_impl="kernel"), "paged"),
                   (RunOpts(attention_impl="full"), "gather")],
                  Transformer, ServeEngine, "paged+kernels vs gather+plain")
@@ -706,7 +753,10 @@ def main() -> int:
     stamp(t_start, "phase 6")
     # -- 7. records ------------------------------------------------------------------------
     pk = paged[("bfloat16", MAX_BATCH)]
+    pk128 = paged128[("bfloat16", MAX_BATCH)]
     fk = flash[("bfloat16", 512, 0, 0)]
+    fk128 = flash128[("bfloat16", 512, 0, 0)]
+    fk128l = flash128[("bfloat16", 1024, 0, 0)]
     fw = flash_wide[("bfloat16", 2600, 2048, 0)]
     sk = ssd_res[("bfloat16", 1, 512)]
     rk = rglru[(1, 512, False)]
@@ -714,18 +764,28 @@ def main() -> int:
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:76",
-         "launches": qwen2["paged_attention"],
-         "max_abs_err": paged_worst["bfloat16"], "ms": pk["ms"],
+         "launches": qwen2["paged_attention"] + phi4["paged_attention"],
+         "max_abs_err": max(paged_worst["bfloat16"], paged128_worst["bfloat16"]),
+         "ms": pk["ms"],
          "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
-         "bound_by": pk["bound_by"], "library_ms": None},
+         "bound_by": pk["bound_by"], "library_ms": None,
+         "d128_ms": pk128["ms"], "d128_plain_ms": pk128["plain_ms"],
+         "d128_bound_ms": pk128["bound_ms"], "d128_library_ms": None},
         {"name": "flash_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73",
-         "launches": qwen2["flash_attention"] + rgemma["flash_attention"],
-         "max_abs_err": max(flash_worst["bfloat16"], flash_wide_worst["bfloat16"]),
+         "launches": (qwen2["flash_attention"] + phi4["flash_attention"]
+                      + rgemma["flash_attention"]),
+         "max_abs_err": max(flash_worst["bfloat16"], flash128_worst["bfloat16"],
+                            flash_wide_worst["bfloat16"]),
          "ms": fk["ms"],
          "plain_ms": fk["plain_ms"], "bound_ms": fk["bound_ms"],
          "bound_by": fk["bound_by"], "library_ms": fk["sdpa_ms"],
+         "d128_sq512_ms": fk128["ms"], "d128_sq512_plain_ms": fk128["plain_ms"],
+         "d128_sq512_bound_ms": fk128["bound_ms"],
+         "d128_sq512_library_ms": fk128["sdpa_ms"],
+         "d128_sq1024_ms": fk128l["ms"], "d128_sq1024_bound_ms": fk128l["bound_ms"],
+         "d128_sq1024_library_ms": fk128l["sdpa_ms"],
          "d256_sq2600_ms": fw["ms"], "d256_sq2600_bound_ms": fw["bound_ms"],
          "d256_sq2600_library_ms": fw["sdpa_ms"]},
         {"name": "ssd_scan_kernel", "route": "cuda",
@@ -734,7 +794,8 @@ def main() -> int:
          "launches": mamba2["ssd_scan"],
          "max_abs_err": ssd_worst["bfloat16"], "ms": sk["ms"],
          "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
-         "bound_by": sk["bound_by"], "library_ms": None},
+         "bound_by": sk["bound_by"], "library_ms": None,
+         "tf32x3_bound_ms": sk["tf32x3_bound_ms"]},
         {"name": "rglru_scan_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:40",

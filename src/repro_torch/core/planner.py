@@ -25,6 +25,7 @@ SMEM_BYTES = 232_448                   # 227 KB of shared memory per block
 HBM_BYTES = 80 * 1000 ** 3             # 80 GB per card
 PEAK_FLOPS_BF16 = 989e12               # dense bf16 tensor-core FLOP/s
 PEAK_FLOPS_F32 = 67e12                 # f32 on the CUDA cores
+PEAK_FLOPS_TF32 = 494.7e12             # dense TF32 tensor-core FLOP/s
 HBM_BW = 3.35e12                       # bytes/s
 
 

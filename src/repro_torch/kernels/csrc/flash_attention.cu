@@ -10,14 +10,15 @@
 // contiguous), so the model's (B, S, H, D) layout needs no transpose copy.
 // Three designs, chosen by dtype and head dim (no fallback between them):
 //
-// bf16, D = 64 and 256: the tensor cores (flash_fwd_tc_kernel).  One CTA is
+// bf16, D = 64, 128 and 256: the tensor cores (flash_fwd_tc_kernel).  One CTA is
 // one warpgroup (128 threads) that owns 64 query rows.  Q (64 x D) sits in
 // shared memory for the CTA's life; K/V tiles of 64 keys arrive through a
 // two-stage ring by 16-byte cp.async copies from the strided views, rows past
 // Sk zero-filled (source size 0).  Every tile is stored in the canonical
 // 128-byte-swizzle layout of wgmma: a 128-byte row holds 64 bf16 of one
 // key (or query), its 16-byte chunk c at c ^ (row % 8), 8 rows to a 1 KB
-// atom; D = 256 keeps four such 64-column blocks one after another.
+// atom; D = 128 and 256 keep two and four such 64-column blocks one after
+// another.
 // S = Q K^T is wgmma m64n64k16 with both operands in shared memory, K-major
 // (D / 16 steps).  The scores are scaled in f32 (scale * log2 e, for exp2),
 // masked by position, and run through the online softmax in f32 (finite
@@ -26,11 +27,13 @@
 // accumulator fragment is already the register-A fragment of the next
 // product, and O += P V is wgmma m64n64k16 with P from registers and V from
 // shared memory as the MN-major B operand (transposed), D / 64 products per 16
-// keys.  O stays in f32 registers: 32 a thread at D = 64, 128 at D = 256.
+// keys.  O stays in f32 registers: 32 a thread at D = 64, 64 at D = 128, 128
+// at D = 256.
 // Query tiles run heaviest first (the causal tail), key tiles wholly in the
 // causal future or before the window are skipped, and only tiles that cross
 // a mask edge pay for masking.  Shared memory: Q, two K and two V tiles of
-// 64 x D bf16 and 1 KB to align the atoms: 41 KB at D = 64, 161 KB at D = 256.
+// 64 x D bf16 and 1 KB to align the atoms: 41 KB at D = 64, 81 KB at D = 128,
+// 161 KB at D = 256.
 //
 // f32, D = 64: flash_fwd_kernel.  The CUDA cores in f32 (wgmma on f32 would
 // be TF32, about 3 digits).  One CTA of 128 threads per (b * H + h, tile of
@@ -41,13 +44,14 @@
 // rows; each thread issues its loads of the next tile before waiting on the
 // current one's readers.
 //
-// f32, D = 256: flash_fwd_wide_kernel.  The D = 64 design would hold qr[256]
-// and acc[128], beyond the 255-register limit.  TPR = 8 threads split a
-// query row instead: thread j of a row owns the float4 columns j, j + 8, ...,
-// so it holds 32 floats of the scaled q row and 32 of the output.  Each
-// key's partial dot products are summed across the 8 threads with three
-// xor-shuffles.  32 rows per CTA of 256 threads; 32-key K/V tiles in dynamic
-// shared memory as unpadded f32 rows (64 KB).
+// f32, D = 128 and 256: flash_fwd_wide_kernel.  The D = 64 design would hold
+// qr[D] and acc[D / 2], 192 registers at D = 128 and beyond the 255-register
+// limit at D = 256.  TPR = 8 threads split a query row instead: thread j of a
+// row owns the float4 columns j, j + 8, ..., so it holds D / 8 floats of the
+// scaled q row and D / 8 of the output.  Each key's partial dot products are
+// summed across the 8 threads with three xor-shuffles.  32 rows per CTA of
+// 256 threads; 32-key K/V tiles in dynamic shared memory as unpadded f32 rows
+// (32 KB at D = 128, 64 KB at D = 256).
 //
 // Bound.  Prefill is compute-bound at the serving lengths: 4 * D FLOPs per
 // valid (query, key) pair per head over the bf16 tensor-core peak (989
@@ -681,8 +685,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // strides: 12 element strides, (batch, head, seq) for q, k, v, out.
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); D: 64 or
-// 256.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); D: 64, 128
+// or 256.  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_bhsd(const void* q, const void* k, const void* v,
                                     void* out, const long long* strides, int B,
                                     int H, int KV, int Sq, int Sk, int D,
@@ -695,12 +699,18 @@ extern "C" int flash_attention_bhsd(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 64)  // qwen2-0.5b's head dim
     return launch_d<float, 64>(q, k, v, out, st, B, H, KV, Sq, Sk, causal,
                                window, q_offset, s);
+  if (dtype == 0 && D == 128)  // phi4-mini-3.8b's head dim
+    return launch_wide<float, 128>(q, k, v, out, st, B, H, KV, Sq, Sk, causal,
+                                   window, q_offset, s);
   if (dtype == 0 && D == 256)  // recurrentgemma-9b's head dim
     return launch_wide<float, 256>(q, k, v, out, st, B, H, KV, Sq, Sk, causal,
                                    window, q_offset, s);
   if (dtype == 1 && D == 64)
     return tc::launch<64>(q, k, v, out, st, B, H, KV, Sq, Sk, causal, window,
                           q_offset, s);
+  if (dtype == 1 && D == 128)
+    return tc::launch<128>(q, k, v, out, st, B, H, KV, Sq, Sk, causal, window,
+                           q_offset, s);
   if (dtype == 1 && D == 256)
     return tc::launch<256>(q, k, v, out, st, B, H, KV, Sq, Sk, causal, window,
                            q_offset, s);
@@ -711,8 +721,10 @@ extern "C" int flash_attention_bhsd(const void* q, const void* k, const void* v,
 // f32 at D = 64, dynamic otherwise), or -1 where none is instantiated.
 extern "C" int flash_attention_smem_bytes(int D, int dtype) {
   if (dtype == 0 && D == 64) return 2 * BK * (64 + 1) * 4;
+  if (dtype == 0 && D == 128) return wide_smem_bytes<128>();
   if (dtype == 0 && D == 256) return wide_smem_bytes<256>();
   if (dtype == 1 && D == 64) return tc::smem_bytes<64>();
+  if (dtype == 1 && D == 128) return tc::smem_bytes<128>();
   if (dtype == 1 && D == 256) return tc::smem_bytes<256>();
   return -1;
 }

@@ -6,7 +6,8 @@
 // t <= positions[b], and token t lives at (tables[b, t / pt], t % pt).
 //
 // Layout: q (B, KV, G, hd); k/v pools (P, pt, KV, hd); tables (B, maxp) int32;
-// positions (B,) int32 -> out (B, KV, G, hd).  f32 or bf16, f32 arithmetic.
+// positions (B,) int32 -> out (B, KV, G, hd).  f32 or bf16, f32 arithmetic;
+// hd = 64 (qwen2-0.5b) or 128 (phi4-mini-3.8b).
 //
 // Design: split-KV in one launch.  The grid is (B, KV, n_split), n_split =
 // ceil(maxp * pt / CHUNK), all from host-known shapes: positions are read
@@ -17,15 +18,19 @@
 // 16-byte cp.async copies (tokens past pos zero-filled), and serves all G
 // query rows of the kv head from them: scores with one thread per (token,
 // row pair), an f32 softmax per row (one warp a row, exp2 with the scale
-// folded in), then P V with one thread per (column, row pair).  It writes its
-// partial (acc, m, l) in f32 to a scratch buffer.  A CTA whose chunk starts
-// past pos writes the empty partial m = NEG_INF, l = 0 and leaves.  Each CTA
+// folded in), then P V with 128 / hd threads per column, each over every
+// (128 / hd)-th row.  It writes its partial (acc, m, l) in f32 to a scratch
+// buffer.  A CTA whose chunk starts past pos writes the empty partial
+// m = NEG_INF, l = 0 and leaves.  Each CTA
 // then bumps an int32 counter of its (b, h); the one that brings it to
 // n_split is the last (the threadfence-reduction pattern), combines the
 // ceil((pos + 1) / CHUNK) partials that hold tokens, out = sum_s acc_s
 // 2^(m_s - M) / sum_s l_s 2^(m_s - M) with M the max over the splits (chunk 0
 // always holds token 0, so M is finite; the empties' weight would be exactly
-// 0), writes out and resets the counter to 0 for the next launch.  NEG_INF
+// 0), writes out and resets the counter to 0 for the next launch.  The
+// counters are state between launches, so launches that may overlap (two
+// streams, two captured graphs) must never share them: the launcher keeps a
+// buffer per stream and gives every captured launch one of its own.  NEG_INF
 // stays finite (-1e30) and l is floored at 1e-30, as in the TPU kernel.
 //
 // Bound.  Decode reads every valid K/V byte once: (pos+1) * 2 * hd * itemsize
@@ -44,7 +49,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int CHUNK = 64;      // tokens per CTA
-constexpr int THREADS = 128;   // two threads per token, two per output column
+constexpr int THREADS = 128;   // two threads per token; 128 / HD per output column
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -108,8 +113,9 @@ __global__ void __launch_bounds__(THREADS) paged_split_kernel(
     const int* __restrict__ positions, T* __restrict__ out,
     float* __restrict__ part, int* __restrict__ counters, int KV, int G, int P,
     int pt, int maxp, int n_split, float scale_log2) {
-  static_assert(HD == 64 && CHUNK == 64 && THREADS == 2 * CHUNK,
-                "thread mapping: tid % 64 is a token or a column");
+  static_assert((HD == 64 || HD == 128) && CHUNK == 64 && THREADS == 2 * CHUNK,
+                "thread mapping: tid % 64 is a token, tid % HD a column");
+  constexpr int TPC = THREADS / HD;       // threads per output column
   constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte copy
   constexpr int RC = HD / VEC;            // copies per row
   constexpr int HDP = row_elems<T, HD>();
@@ -197,22 +203,23 @@ __global__ void __launch_bounds__(THREADS) paged_split_kernel(
     }
     __syncthreads();
 
-    // acc = P V: thread -> column d, rows g0, g0 + 2, ...
-    const int d = tid & (HD - 1);
-    for (int gb = 0; gb < G; gb += 8) {
+    // acc = P V: thread -> column d, rows gd, gd + TPC, ... (four per pass)
+    const int d = tid % HD;
+    const int gd = tid / HD;
+    for (int gb = 0; gb < G; gb += 4 * TPC) {
       float a[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 8
       for (int t = 0; t < CHUNK; ++t) {
         const float vf = to_f32(v_s[t * HDP + d]);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          const int g = gb + g0 + 2 * u;
+          const int g = gb + gd + TPC * u;
           if (g < G) a[u] = fmaf(p_s[g * CHUNK + t], vf, a[u]);
         }
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int g = gb + g0 + 2 * u;
+        const int g = gb + gd + TPC * u;
         if (g < G) mine[g * HD + d] = a[u];
       }
     }
@@ -285,8 +292,9 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 
 // part: n_split * B * KV * G * (hd + 2) floats of scratch, n_split =
 // ceil(maxp * pt / 64); counters: B * KV int32, all 0 before the launch and
-// left at 0 after it.  dtype: 0 = float32, 1 = bfloat16; hd must be 64.
-// Returns the cudaError_t of the launch.
+// left at 0 after it, owned by this launch's stream (or captured graph) alone.
+// dtype: 0 = float32, 1 = bfloat16; hd: 64 or 128.  Returns the cudaError_t of
+// the launch.
 extern "C" int paged_attention_decode(const void* q, const void* k_pages,
                                       const void* v_pages, const void* tables,
                                       const void* positions, void* out,
@@ -294,25 +302,25 @@ extern "C" int paged_attention_decode(const void* q, const void* k_pages,
                                       int G, int hd, int P, int pt, int maxp,
                                       int dtype, void* stream) {
   if (B == 0) return 0;
-  // qwen2-0.5b's head dim; instantiate other widths here
-  if (hd != 64 || maxp <= 0 || pt <= 0) return (int)cudaErrorInvalidValue;
+  if (maxp <= 0 || pt <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, 64>(q, k_pages, v_pages, tables, positions, out, part,
-                             counters, B, KV, G, P, pt, maxp, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, 64>(q, k_pages, v_pages, tables, positions,
-                                     out, part, counters, B, KV, G, P, pt,
-                                     maxp, s);
+#define PAGED_LAUNCH(T, D) \
+  launch<T, D>(q, k_pages, v_pages, tables, positions, out, part, counters, B, KV, G, P, pt, maxp, s)
+  if (dtype == 0 && hd == 64) return PAGED_LAUNCH(float, 64);   // qwen2-0.5b
+  if (dtype == 1 && hd == 64) return PAGED_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == 0 && hd == 128) return PAGED_LAUNCH(float, 128);  // phi4-mini-3.8b
+  if (dtype == 1 && hd == 128) return PAGED_LAUNCH(__nv_bfloat16, 128);
+#undef PAGED_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory per CTA for G query rows per kv head, or -1 where
 // no instance exists.
 extern "C" int paged_attention_smem_bytes(int G, int hd, int dtype) {
-  if (hd != 64) return -1;
-  if (dtype == 0) return (int)smem_bytes<float, 64>(G);
-  if (dtype == 1) return (int)smem_bytes<__nv_bfloat16, 64>(G);
+  if (dtype == 0 && hd == 64) return (int)smem_bytes<float, 64>(G);
+  if (dtype == 1 && hd == 64) return (int)smem_bytes<__nv_bfloat16, 64>(G);
+  if (dtype == 0 && hd == 128) return (int)smem_bytes<float, 128>(G);
+  if (dtype == 1 && hd == 128) return (int)smem_bytes<__nv_bfloat16, 128>(G);
   return -1;
 }
 

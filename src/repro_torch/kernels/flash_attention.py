@@ -8,14 +8,14 @@ window skipped.  The launcher dispatches on dtype, with no fallback between
 designs: bf16 runs on the tensor cores (wgmma; one warpgroup per 64 query
 rows, 64-key K/V tiles through a two-stage cp.async ring in shared memory,
 P rounded to bf16 for the P·V product), f32 on the CUDA cores (the D=64
-and the wide D=256 designs, f32 throughout); see the source for the
-designs and their bound.  The plain PyTorch version is
+design, and the wide one at D=128 and D=256, f32 throughout); see the source
+for the designs and their bound.  The plain PyTorch version is
 ``ref.ref_attention_bhsd``.
 
 Layout: q (B, H, Sq, D); k/v (B, KV, Sk, D) -> out (B, H, Sq, D).  Any
 strides are taken as long as the last dimension is contiguous (for bf16
-and for D=256 also multiples of 8 elements on 16-byte aligned tensors, for
-the 16-byte copies), so the model's (B, S, H, D) tensors are passed as
+and for the wide f32 design also multiples of 8 elements on 16-byte aligned
+tensors, for the 16-byte copies), so the model's (B, S, H, D) tensors are passed as
 transposed views, not copies.
 """
 from __future__ import annotations
@@ -31,8 +31,8 @@ BLOCK_K = 32                    # f32 designs: keys per tile (csrc: BK, W_BK)
 TC_ROWS = 64                    # bf16 design: query rows and keys per tile
 TC_STAGES = 2                   # bf16 design: K/V tiles in flight
 TC_ALIGN = 1024                 # bf16 design: slack to align the swizzle atoms
-HEAD_DIMS = (64, 256)           # head dims the kernels are instantiated for
-WIDE = 256                      # f32 head dims from here run the wide design
+HEAD_DIMS = (64, 128, 256)      # head dims the kernels are instantiated for
+WIDE = 128                      # f32 head dims from here run the wide design
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -78,9 +78,11 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=128):
 
     The dt scaling and ``dta = dt * A`` happen before the scan and the D
     skip after it, as in the reference's wrapper.  ``chunk`` is the plain
-    version's chunk length; the kernel scans in chunks of its own
-    (``ssd_scan.CHUNK``), which changes the result only by rounding."""
-    _check_smem(_ssd.smem_blocks(), "ssd scan")
+    version's chunk length; the kernels scan in chunks of their own
+    (``ssd_scan.CHUNK``), which changes the result only by rounding.  One
+    call is three launches and counts one in ``ssd_scan.launches``."""
+    for launch in _ssd.LAUNCHES:
+        _check_smem(_ssd.smem_blocks(launch), f"ssd scan ({launch})")
     if _device_type(x) == "cpu":
         return ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk)
     return ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, scan=_ssd_kernel)

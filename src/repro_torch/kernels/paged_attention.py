@@ -6,11 +6,15 @@ paged KV pool, with the per-request page-table row consumed inside the
 kernel (no gather, no contiguous copy).  Split-KV in one launch: CTA
 (b, kv head, s) takes tokens s*CHUNK .. s*CHUNK+CHUNK-1 of the row and
 writes a partial (acc, m, l) to scratch; the last CTA of each (b, kv head)
-combines them, known from a per-device int32 counter that it resets.  The
-grid comes from host shapes alone, so ``positions`` is never read on the
-host.  See the source for the design and its bound.  The plain PyTorch
-version is ``ref.ref_paged_attention``; ``ref.ref_paged_attention_split``
-repeats the kernel's per-chunk algebra.
+combines them, known from an int32 completion counter that it resets.  The
+counters carry state from one launch to the next, so no two launches that
+may overlap share them: eager launches use one buffer per (device, stream),
+and a launch captured into a CUDA graph gets a buffer of its own, zeroed
+inside the graph and kept alive with it.  The grid comes from host shapes
+alone, so ``positions`` is never read on the host.  See the source for the
+design and its bound.  The plain PyTorch version is
+``ref.ref_paged_attention``; ``ref.ref_paged_attention_split`` repeats the
+kernel's per-chunk algebra.
 
 Layout: q (B, KV, G, hd); k/v pools (P, page_tokens, KV, hd);
 tables (B, n_pages_per_req) int32; positions (B,) int32 -> out (B, KV, G, hd).
@@ -25,13 +29,17 @@ import torch
 from . import build
 
 CHUNK = 64                      # tokens per CTA (csrc: CHUNK)
-HEAD_DIMS = (64,)               # head dims the kernel is instantiated for
+HEAD_DIMS = (64, 128)           # head dims the kernel is instantiated for
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# per device: B * KV int32 completion counters, zero between launches (the
-# last CTA of each row resets its own); launches on one stream reuse them
-_counters: dict[torch.device, torch.Tensor] = {}
+# per (device, stream): B * KV int32 completion counters, zero between
+# launches (the last CTA of each row resets its own).  Launches on one stream
+# run in order, so they may share a buffer; launches on two streams may not.
+_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
+# one buffer per captured launch, held for the life of the process and so of
+# every graph that replays it: graphs replayed on two streams never share one
+_graph_counters: list[torch.Tensor] = []
 
 
 def smem_blocks(group: int, hd: int, dtype=torch.float32):
@@ -55,10 +63,19 @@ def n_splits(maxp: int, page_tokens: int) -> int:
 
 
 def _counters_for(device: torch.device, n: int) -> torch.Tensor:
-    c = _counters.get(device)
+    """Completion counters for a launch of ``n`` (row, kv head) pairs on the
+    current stream of ``device``.  While that stream is being captured into
+    a CUDA graph the launch gets a buffer of its own: ``torch.zeros`` is
+    captured too, so every replay starts from zeros."""
+    if torch.cuda.is_current_stream_capturing():
+        c = torch.zeros(n, dtype=torch.int32, device=device)
+        _graph_counters.append(c)
+        return c
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    c = _counters.get(key)
     if c is None or c.numel() < n:
         c = torch.zeros(n, dtype=torch.int32, device=device)
-        _counters[device] = c
+        _counters[key] = c
     return c
 
 
@@ -103,9 +120,9 @@ def paged_attention_decode(q, k_pages, v_pages, tables, positions):
     maxp = tables.shape[1]
     part = torch.empty((b * kv, n_splits(maxp, pt), g * (hd + 2)),
                        dtype=torch.float32, device=q.device)
-    counters = _counters_for(q.device, b * kv)
     lib, fn = _fn()
     with torch.cuda.device(q.device):
+        counters = _counters_for(q.device, b * kv)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  tables.data_ptr(), positions.data_ptr(), out.data_ptr(),

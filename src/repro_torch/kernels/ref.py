@@ -157,6 +157,57 @@ def ssd_chunk_scan(x, dta, b_mat, c_mat, *, chunk=256, h0=None):
     return y, hst
 
 
+def ssd_chunk_scan_split(x, dta, b_mat, c_mat, *, chunk=64, h0=None):
+    """The SSD kernels' decomposition in plain PyTorch, for the tests; same
+    arguments and result as ``ssd_chunk_scan``.  Four steps, as the three
+    launches take them:
+
+    1. per (row, chunk): ``cum`` of dta inside the chunk, and ``C B^T``
+       once per group;
+    2. per (row, chunk, head), every chunk at once: the chunk's own state
+       from zero, ``s_c = sum_j exp(cum_last - cum_j) x_j B_j^T``;
+    3. per (row, head), over the chunks in order from ``h0``:
+       ``h_c = exp(cum_last,c) h_{c-1} + s_c``;
+    4. per (row, chunk, head), every chunk at once:
+       ``y = (C B^T o L) x + exp(cum) C h_{c-1}``, L masked before the
+       exponential.
+
+    A ragged tail is padded with zero x / dta / B / C."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    x = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(bsz, nc, chunk, h, p)
+    dta = F.pad(dta.float(), (0, 0, 0, pad)).reshape(bsz, nc, chunk, h)
+    bc = F.pad(b_mat.float(), (0, 0, 0, 0, 0, pad)).reshape(bsz, nc, chunk, g, n)
+    cc = F.pad(c_mat.float(), (0, 0, 0, 0, 0, pad)).reshape(bsz, nc, chunk, g, n)
+    head_group = torch.arange(h, device=x.device) // (h // g)
+    # 1.
+    cum = dta.cumsum(dim=2)                                         # (B,nc,Q,H)
+    cb = torch.einsum("bcign,bcjgn->bcgij", cc, bc)                 # (B,nc,G,Q,Q)
+    # 2.
+    last = cum[:, :, -1]                                            # (B,nc,H)
+    w = (last[:, :, None] - cum).exp()
+    states = torch.einsum("bcjhp,bcjhn->bchpn", x * w[..., None],
+                          bc[:, :, :, head_group])                  # (B,nc,H,P,N)
+    # 3.
+    hst = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+           if h0 is None else h0.float())
+    h_in = []
+    for ci in range(nc):
+        h_in.append(hst)
+        hst = last[:, ci].exp()[..., None, None] * hst + states[:, ci]
+    h_in = torch.stack(h_in, dim=1)                                 # (B,nc,H,P,N)
+    # 4.
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    li = cum.permute(0, 1, 3, 2)[..., :, None] - cum.permute(0, 1, 3, 2)[..., None, :]
+    l_mat = torch.where(causal, li, -math.inf).exp()                # (B,nc,H,Q,Q)
+    y = torch.einsum("bchij,bcjhp->bcihp", cb[:, :, head_group] * l_mat, x)
+    y = y + cum.exp()[..., None] * torch.einsum(
+        "bcihn,bchpn->bcihp", cc[:, :, :, head_group], h_in)
+    return y.reshape(bsz, nc * chunk, h, p)[:, :s], hst
+
+
 def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=256, h0=None,
                 scan=ssd_chunk_scan):
     """SSD over a full sequence (port of ``repro.models.ssm.ssd_chunked``).

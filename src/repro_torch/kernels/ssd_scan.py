@@ -1,12 +1,14 @@
-"""Mamba2 SSD chunk scan — the CUDA kernel in ``csrc/ssd_scan.cu``.
+"""Mamba2 SSD chunk scan — the CUDA kernels in ``csrc/ssd_scan.cu``.
 
 Replaces the Pallas TPU kernel ``repro.kernels.ssd_scan.ssd_scan_kernel``:
 per chunk, the decay-masked intra-chunk ``C B^T`` term, the incoming
-state's term and the (H, P, N) f32 state recurrence.  One CTA per (batch
-row, head, slice of PB head-dim rows) loops over the chunks, carrying its
-slice of the state in shared memory; see the source for the design and its
-bound.  The plain PyTorch version is ``ref.ssd_chunk_scan`` (the core of
-``ref.ssd_chunked``); the oracle is ``ref.ref_ssd``.
+state's term and the (H, P, N) f32 state recurrence.  Three launches per
+call, chunk-parallel on the tensor cores (split TF32, f32 accuracy): every
+chunk's own state and each chunk's ``C B^T`` once per group, then the short
+recurrence over the chunks, then every chunk's outputs; see the source for
+the design and its bound.  The plain PyTorch version is ``ref.ssd_chunk_scan``
+(the core of ``ref.ssd_chunked``); ``ref.ssd_chunk_scan_split`` repeats the
+kernels' decomposition; the oracle is ``ref.ref_ssd``.
 
 Layout: x (B, S, H, P) f32, already scaled by dt; dta (B, S, H) f32
 log-decays; b/c (B, S, G, N) f32 or bf16 -> y (B, S, H, P) f32 (no D skip),
@@ -21,32 +23,35 @@ import torch
 
 from . import build
 
-CHUNK = 64                      # tokens per chunk inside the kernel (csrc: Q)
-ROWS = 16                       # head-dim rows of the state per CTA (csrc: PB)
+CHUNK = 64                      # tokens per chunk inside the kernels (csrc: Q)
+HEAD_DIM = 64                   # head dim P (csrc: P)
 STATE = 128                     # state size N (csrc: N)
-SHAPES = ((64, STATE, 1),)      # (P, N, G) the kernel is instantiated for
+SHAPES = ((HEAD_DIM, STATE, 1),)  # (P, N, G) the kernels are instantiated for
+LAUNCHES = ("chunk", "pass", "output")  # in order, csrc: ssd_scan_smem_bytes(i)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def smem_blocks():
-    """Shared-memory working set per CTA, for ``MemoryPlanner.check_smem``
-    (csrc: SMEM_BYTES)."""
+def smem_blocks(launch: str):
+    """Shared-memory working set per CTA of one of the ``LAUNCHES``, for
+    ``MemoryPlanner.check_smem`` (csrc: CHUNK_SMEM, none, OUT_SMEM)."""
     f32 = np.dtype("float32")
-    return [((CHUNK, STATE + 4), f32),        # C chunk, padded rows
-            ((CHUNK, STATE + 4), f32),        # B chunk
-            ((CHUNK, ROWS), f32),             # x slice
-            ((CHUNK, CHUNK + 1), f32),        # masked, decayed scores
-            ((ROWS, STATE + 4), f32),         # the carried state slice
-            ((4 * CHUNK + 4,), f32)]          # dta, cum, exp(cum), decay out
+    return {"chunk": [((CHUNK, STATE + 8), f32),          # B rows
+                      ((CHUNK, STATE + 8), f32)],         # C rows, or x rows and decays
+            "pass": [],                                   # registers only
+            "output": [((CHUNK, STATE + 4), f32),         # C rows
+                       ((HEAD_DIM, STATE + 4), f32),      # the incoming state h[p][n]
+                       ((CHUNK, HEAD_DIM + 8), f32),      # x rows
+                       ((CHUNK, CHUNK + 4), f32),         # masked, decayed C B^T
+                       ((CHUNK,), f32)]}[launch]          # cum
 
 
 def _fn():
     lib = build.library("ssd_scan")
     fn = lib.ssd_scan
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 7 + [_P]
+        fn.argtypes = [_P] * 9 + [_I] * 7 + [_P]
         fn.restype = _I
         lib.ssd_scan_error_string.argtypes = [_I]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -54,8 +59,8 @@ def _fn():
 
 
 def ssd_scan_kernel(x, dta, b_mat, c_mat):
-    """Launch the kernel on CUDA tensors; returns new (y, h_final) tensors.
-    Raises ``ValueError`` on inputs the kernel does not take."""
+    """Launch the three kernels on CUDA tensors; returns new (y, h_final)
+    tensors.  Raises ``ValueError`` on inputs the kernels do not take."""
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     if (p, n, g) not in SHAPES:
@@ -79,11 +84,17 @@ def ssd_scan_kernel(x, dta, b_mat, c_mat):
                          f"{list(DTYPE_CODES)} for both")
     y = torch.empty_like(x)
     h_fin = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    nc = -(-s // CHUNK)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    states = torch.empty((bsz, nc, h, p, n), **f32)     # s_c, then h entering c
+    cb = torch.empty((bsz, nc, g, CHUNK, CHUNK), **f32)
+    cum = torch.empty((bsz, nc, h, CHUNK), **f32)
     lib, fn = _fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), dta.data_ptr(), b_mat.data_ptr(),
-                 c_mat.data_ptr(), y.data_ptr(), h_fin.data_ptr(), bsz, s, h,
+                 c_mat.data_ptr(), y.data_ptr(), h_fin.data_ptr(),
+                 states.data_ptr(), cb.data_ptr(), cum.data_ptr(), bsz, s, h,
                  g, p, n, DTYPE_CODES[b_mat.dtype], stream)
     if err:
         raise RuntimeError("ssd_scan launch failed: "

@@ -2,6 +2,7 @@
 window of engine steps with every request already decoding.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --preset full
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch phi4-mini-3.8b --preset full
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mamba2-130m
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch recurrentgemma-9b
 

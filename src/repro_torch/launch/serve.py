@@ -13,6 +13,7 @@ models only.  Weights are drawn and cast one leaf at a time
 exist in f32 all at once.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --preset full --attn paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b --preset full --attn paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --preset full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --preset full
 

@@ -84,6 +84,13 @@ def test_paged_plain_matches_pallas_and_ref(b, dtype):
     _check_paged(_paged_case(17 * b, b, kv=2, g=7, hd=16, pt=8, maxp=3), dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_paged_plain_matches_pallas_and_ref_at_head_dim_128(b, dtype):
+    """phi4-mini-3.8b's head dim (128) and grouping (G=3)."""
+    _check_paged(_paged_case(29 * b, b, kv=2, g=3, hd=128, pt=8, maxp=3), dtype)
+
+
 def test_paged_partial_and_boundary_positions():
     """First token, one full page, first token of the next page, full table."""
     pt, maxp = 4, 5
@@ -98,6 +105,9 @@ FLASH_CASES = [
     (1, 37, 2, 7, 16, True, 0, "float32"),
     (2, 64, 2, 7, 32, True, 0, "bfloat16"),
     (1, 48, 2, 7, 16, True, 16, "float32"),
+    # phi4-mini-3.8b's head dim and grouping
+    (1, 40, 2, 3, 128, True, 0, "float32"),
+    (1, 33, 1, 3, 128, True, 16, "bfloat16"),
 ]
 
 
@@ -215,6 +225,19 @@ def test_paged_split_algebra_matches_ref_and_pallas(chunk):
     assert _err(pallas, got) < 1e-6
 
 
+def test_paged_split_algebra_at_head_dim_128():
+    """The split algebra at phi4-mini-3.8b's head dim and grouping, chunks
+    of 64 as in the kernel, against the Pallas kernel (interpret mode) and
+    the gather-then-softmax version: f32 at 1e-6."""
+    case = _paged_case(5, len(SPLIT_POSITIONS), kv=2, g=3, hd=128, pt=8, maxp=12,
+                       positions=SPLIT_POSITIONS)
+    q, kp, vp, tables, positions = (torch.from_numpy(a) for a in case)
+    got = tref.ref_paged_attention_split(q, kp, vp, tables, positions, tpa.CHUNK)
+    want = tref.ref_paged_attention(q, kp, vp, tables, positions)
+    assert float((got - want).abs().max()) < 1e-6
+    assert _err(_pallas_paged(*(jnp.asarray(a) for a in case)), got) < 1e-6
+
+
 def test_paged_split_empty_chunks_contribute_zero():
     """Position 0 in chunks of 8: seven empty partials (m = NEG_INF, l = 0)
     beside one holding a single token, so the output is that token's v row."""
@@ -240,6 +263,21 @@ def test_smem_accounting_by_dtype():
     assert fp(tpa.smem_blocks(7, 64, torch.bfloat16)) == 2 * 64 * 72 * 2 + fixed
     assert fp(tpa.smem_blocks(7, 64, torch.float32)) == 2 * 64 * 68 * 4 + fixed
     assert tpa.n_splits(129, 8) == 17 and tpa.n_splits(1, 8) == 1
+
+
+def test_smem_accounting_at_head_dim_128():
+    """phi4-mini-3.8b's instances: bf16 flash keeps the tensor-core design's
+    Q tile and two-stage K/V ring (two 64-column swizzle blocks wide), f32
+    flash runs the wide design with unpadded rows, and paged decode at G=3
+    stages 128-column rows padded by 16 bytes."""
+    from repro_torch.core.planner import MemoryPlanner
+    fp = MemoryPlanner.smem_footprint
+    assert 128 in tfa.HEAD_DIMS and 128 in tpa.HEAD_DIMS
+    assert fp(tfa.smem_blocks(128, torch.bfloat16)) == 5 * 64 * 128 * 2 + 1024 == 82944
+    assert fp(tfa.smem_blocks(128, torch.float32)) == 2 * 32 * 128 * 4
+    fixed = 4 * (3 * 128 + 3 * 64 + 2 * 3)
+    assert fp(tpa.smem_blocks(3, 128, torch.bfloat16)) == 2 * 64 * 136 * 2 + fixed == 37144
+    assert fp(tpa.smem_blocks(3, 128, torch.float32)) == 2 * 64 * 132 * 4 + fixed == 69912
 
 
 @pytest.fixture
@@ -306,3 +344,122 @@ def test_split_paged_kernel_matches_plain_version_on_the_card(card, dtype, tol, 
         torch.cuda.synchronize()
         assert float((got.float() - want.float()).abs().max()) < tol
     assert tops.paged_attention.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 1e-4)])
+@pytest.mark.parametrize("sq,window,q_offset", [
+    (37, 0, 0), (300, 0, 0), (300, 100, 0), (40, 0, 77)])
+def test_flash_kernels_at_head_dim_128_match_plain_version_on_the_card(
+        card, dtype, tol, sq, window, q_offset):
+    """phi4-mini-3.8b's layout (24 heads over 8, D=128): bf16 on the tensor
+    cores, f32 on the wide CUDA-core design, through the model layout's
+    strided views."""
+    g = torch.Generator(device="cuda").manual_seed(sq + q_offset)
+    sk = sq + q_offset
+    q = torch.randn(1, sq, 8, 3, 128, generator=g, device="cuda").to(TDT[dtype])
+    k = torch.randn(1, sk, 8, 128, generator=g, device="cuda").to(TDT[dtype])
+    v = torch.randn(1, sk, 8, 128, generator=g, device="cuda").to(TDT[dtype])
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    before = tops.flash_attention.launches
+    got = tops.flash_attention(q, k, v, **kw)
+    want = tops.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tops.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 1e-4)])
+@pytest.mark.parametrize("positions", [[0], [0, 1, 63, 64, 65, 127, 128, 700]])
+def test_split_paged_kernel_at_head_dim_128_matches_plain_version_on_the_card(
+        card, dtype, tol, positions):
+    """phi4-mini-3.8b's decode shape (8 kv heads, G=3, hd=128) at B=1 and 8,
+    chunk edges and position 0, two calls in a row."""
+    case = _paged_case(13, len(positions), kv=8, g=3, hd=128, pt=8, maxp=96,
+                       positions=positions)
+    q, kp, vp, tables, pos = (torch.from_numpy(a).cuda() for a in case)
+    q, kp, vp = (t.to(TDT[dtype]) for t in (q, kp, vp))
+    want = tref.ref_paged_attention(q, kp, vp, tables, pos)
+    for _ in range(2):
+        got = tops.paged_attention(q, kp, vp, tables, pos)
+        torch.cuda.synchronize()
+        assert float((got.float() - want.float()).abs().max()) < tol
+
+
+def _two_paged_inputs(dtype):
+    """Two decode batches of one shape (so of one counter count) with other
+    contents, long enough that each launch spreads over many chunks."""
+    out = []
+    for seed in (21, 22):
+        case = _paged_case(seed, 8, kv=2, g=7, hd=64, pt=8, maxp=128,
+                           positions=[1023, 1000, 990, 700, 900, 1010, 800, 1020])
+        q, kp, vp, tables, pos = (torch.from_numpy(a).cuda() for a in case)
+        q, kp, vp = (t.to(TDT[dtype]) for t in (q, kp, vp))
+        out.append(((q, kp, vp, tables, pos),
+                    tref.ref_paged_attention(q, kp, vp, tables, pos)))
+    return out
+
+
+@pytest.mark.cuda
+def test_split_paged_kernel_on_two_streams_at_once_on_the_card(card):
+    """Two streams each launch the split kernel on other inputs, queued
+    behind a GPU sleep so that both launches are in flight together: each
+    stream's launches have completion counters of their own, so each
+    result equals its plain version."""
+    cases = _two_paged_inputs("bfloat16")
+    tops.paged_attention(*cases[0][0])                 # build, counters of this stream
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        outs = []
+        for s, (args, _) in zip(streams, cases):
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(20_000_000)           # ~10 ms: both queues fill first
+                outs.append([tops.paged_attention(*args) for _ in range(4)])
+        torch.cuda.synchronize()
+        for (_, want), got in zip(cases, outs):
+            for o in got:
+                assert float((o.float() - want.float()).abs().max()) < 2e-2
+    device = cases[0][0][0].device
+    assert {(device, s.cuda_stream) for s in streams} <= set(tpa._counters)
+
+
+@pytest.mark.cuda
+def test_split_paged_kernel_in_two_cuda_graphs_on_the_card(card):
+    """Two CUDA graphs, each capturing one launch of the split kernel on
+    other inputs, replayed back to back and then at once on two streams:
+    each captured launch has counters of its own, zeroed inside its graph,
+    so every replay equals its plain version."""
+    cases = _two_paged_inputs("float32")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                       # build and warm up off capture
+        for args, _ in cases:
+            tops.paged_attention(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = [], []
+    held = len(tpa._graph_counters)
+    for args, _ in cases:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(tops.paged_attention(*args))
+        graphs.append(graph)
+    assert len(tpa._graph_counters) == held + 2
+    for _ in range(3):
+        for graph in graphs:
+            graph.replay()
+        torch.cuda.synchronize()
+        for (_, want), got in zip(cases, outs):
+            assert float((got - want).abs().max()) < 1e-4
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        for s, graph in zip(streams, graphs):
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(20_000_000)
+                graph.replay()
+        torch.cuda.synchronize()
+        for (_, want), got in zip(cases, outs):
+            assert float((got - want).abs().max()) < 1e-4

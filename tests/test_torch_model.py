@@ -246,3 +246,88 @@ def test_unported_patterns_are_refused(arch):
         cfg = cfg.with_overrides(block_pattern=("rec", "local", "rec"))
     with pytest.raises(ValueError, match="the port runs"):
         TTransformer(cfg, device="cpu")
+
+
+# --------------------------------------------------------------------------
+# phi4-mini-3.8b's attention shape: head_dim 128, G = 3
+# --------------------------------------------------------------------------
+
+# f32 logits at max-abs 1e-5 (|logits| ~1-2; observed ~1e-6), on weights
+# whose attention scores are O(1) (``torch_port_utils._contraction_scaled_qk``)
+PHI4_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def phi4_pair():
+    return models("float32", arch="phi4-mini-3.8b")
+
+
+def test_phi4_prefill_and_forward_match_reference(phi4_pair):
+    """Prefill with ``true_len`` (reference: Pallas flash at head_dim 128 in
+    interpret mode; port: the flash wrapper's plain version) and the full
+    forward, on phi4-mini-3.8b's head layout at a small width."""
+    jm, jp, tm, tp = phi4_pair
+    assert tm.cfg.resolved_head_dim == 128 and tm.cfg.n_heads // tm.cfg.n_kv_heads == 3
+    toks = np.stack([prompt(jm.cfg, 31, 16), prompt(jm.cfg, 32, 16)])
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks),
+                             "true_len": jnp.asarray(11, jnp.int32)}, max_len=24)
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks), "true_len": 11},
+                        max_len=24)
+    assert max_err(jl, tl) < PHI4_TOL
+    assert tuple(tc["k"].shape) == jc["pattern"]["0"]["k"].shape
+    assert max_err(jm.forward(jp, jnp.asarray(toks)),
+                   tm.forward(tp, torch.from_numpy(toks))) < PHI4_TOL
+
+
+def test_phi4_paged_decode_steps_match_reference(phi4_pair):
+    """Paged decode at head_dim 128 (reference: Pallas paged kernel in
+    interpret mode; port: the paged wrapper's plain version) on fragmented
+    page tables, per-row clocks crossing page boundaries."""
+    jm, jp, tm, tp = phi4_pair
+    jc, tc = _staggered(jm, jp, tm, tp)
+    pt, maxp = 4, 5
+    tables = np.random.default_rng(7).permutation(3 * maxp).astype(np.int32).reshape(3, maxp)
+    kp = _to_pages(jc["pattern"]["0"]["k"], 16, pt, tables)
+    vp = _to_pages(jc["pattern"]["0"]["v"], 16, pt, tables)
+    jcache = {"pos": jc["pos"], "block_tables": jnp.asarray(tables),
+              "pattern": {"0": {"k_pages": jnp.asarray(kp), "v_pages": jnp.asarray(vp)}}}
+    tcache = {"pos": tc["pos"].clone(), "block_tables": torch.from_numpy(tables),
+              "k_pages": torch.from_numpy(kp.copy()), "v_pages": torch.from_numpy(vp.copy())}
+    tok = np.array([8, 6, 4], np.int32)
+    for _ in range(5):
+        jl, jcache = jm.decode_step(jp, jcache, jnp.asarray(tok))
+        tl, tcache = tm.decode_step(tp, tcache, torch.from_numpy(tok))
+        assert max_err(jl, tl) < PHI4_TOL
+        tok = np.array(jnp.argmax(jl, -1), np.int32)
+        assert tok.tolist() == tl.argmax(-1).tolist()
+
+
+def test_admitted_configs_have_kernels_at_their_shapes():
+    """Every registered config the model admits has its shapes among the
+    instantiations of each kernel its serving path launches, with a working
+    set that fits: flash prefill and paged decode for the dense decoders,
+    flash for the hybrid's local layers, the SSD scan for mamba2.  A config
+    admitted without them would build and then fail on the card, as
+    phi4-mini-3.8b did at head_dim 128."""
+    from repro_torch.configs import get_config, list_configs
+    from repro_torch.core.planner import MemoryPlanner
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import paged_attention as tpa
+    from repro_torch.kernels import ssd_scan as tssd
+    from repro_torch.models.transformer import _unsupported
+    fits = lambda blocks: MemoryPlanner.check_smem(blocks)["fits"]
+    admitted = [n for n in list_configs() if not _unsupported(get_config(n))]
+    assert {"qwen2-0.5b", "phi4-mini-3.8b", "mamba2-130m", "recurrentgemma-9b"} <= set(admitted)
+    for name in admitted:
+        cfg = get_config(name)
+        kinds = set(cfg.block_pattern) | set(cfg.tail_pattern)
+        hd, group = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+        if kinds & {"attn", "local"}:
+            assert hd in tfa.HEAD_DIMS, (name, hd)
+            assert all(fits(tfa.smem_blocks(hd, dt)) for dt in tfa.DTYPE_CODES), name
+        if "attn" in kinds:
+            assert hd in tpa.HEAD_DIMS, (name, hd)
+            assert all(fits(tpa.smem_blocks(group, hd, dt)) for dt in tpa.DTYPE_CODES), name
+        if "mamba2" in kinds:
+            assert (cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups) in tssd.SHAPES, name
+            assert all(fits(tssd.smem_blocks(launch)) for launch in tssd.LAUNCHES), name

@@ -267,3 +267,33 @@ def test_recurrentgemma_cli_on_cpu(capsys):
                         "--steps", "2"])
     assert ("[profile] recurrentgemma-9b-tiny batch=2 prompt=8 attn=gather"
             in capsys.readouterr().out)
+
+
+# --------------------------------------------------------------------------
+# phi4-mini-3.8b's attention shape: head_dim 128, G = 3
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def phi4_pair():
+    return models("float32", arch="phi4-mini-3.8b")
+
+
+def test_phi4_engine_matches_reference_paged_and_gather(phi4_pair):
+    """The engine at phi4-mini-3.8b's head layout against the reference's in
+    paged mode (reference: Pallas paged decode and flash prefill at head_dim
+    128 in interpret mode; port: the wrappers' plain versions), staggered
+    admissions over the prefill ladder; then the port's gather mode decodes
+    the same greedy token streams."""
+    _, _, tm, tp = phi4_pair
+    shapes = [(1, 5, 6, 6, 0), (2, 11, 6, 7, 1), (3, 17, 6, 5, 2), (4, 9, 6, 8, 4),
+              (5, 14, 6, 6, 5)]
+    jeng, js, teng, ts = _run_both(phi4_pair, shapes, max_len=48, max_batch=4,
+                                   page_tokens=8)
+    assert ts["n_completed"] == len(shapes) and ts["max_concurrent"] >= 2
+    _assert_same(jeng, js, teng, ts)
+    _, tt, _, tl = _workload(tm.cfg, shapes)
+    gather = ServeEngine(tm, tp, sample_trace=tt, max_len=48, max_batch=4,
+                         page_tokens=8, attn_mode="gather")
+    gather.run(tl)
+    assert gather.completed == teng.completed

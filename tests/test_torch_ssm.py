@@ -21,6 +21,7 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import ssd_scan as jssd_kernel
 from repro.models import RunOpts as JRunOpts
 from repro.models import Transformer as JTransformer
 from repro.models import ssm as jssm
@@ -42,6 +43,9 @@ REL_CHUNKING = 1e-4  # another chunk length
 J_SSD_CHUNKED = jax.jit(jssm.ssd_chunked, static_argnames=("chunk",))
 J_SSD_SCAN = jax.jit(jops.ssd_scan, static_argnames=("chunk", "interpret"))
 J_REF_SSD = jax.jit(jref.ref_ssd)
+J_SSD_KERNEL = jax.jit(jssd_kernel.ssd_scan_kernel, static_argnames=("chunk", "interpret"))
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 J_SSD_DECODE = jax.jit(jssm.ssd_decode)
 J_PREFILL = jax.jit(jssm.mamba2_block_prefill, static_argnums=(2, 3),
                     static_argnames=("chunk",))
@@ -160,6 +164,44 @@ def test_ref_ssd_matches_reference_oracle_and_chunk_scan(case):
     assert rel_err(jy, cy) < REL_CHUNKING and rel_err(jh, ch) < REL_CHUNKING
 
 
+# (B, S, H, P, G, N): ragged tails over several chunks, S < chunk, S = 1, G > 1
+SPLIT_CASES = [(2, 37, 4, 8, 1, 16), (1, 5, 4, 8, 1, 16), (1, 1, 2, 8, 1, 16),
+               (2, 29, 4, 8, 2, 16), (1, 150, 6, 16, 3, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [8, 16, 64])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_split_scan_matches_reference_oracle_and_kernel(case, chunk, dtype):
+    """The CUDA kernels' decomposition (chunk states, C B^T once per group,
+    the pass over the chunks, the outputs; ``ref.ssd_chunk_scan_split``)
+    against the reference's sequential oracle ``ref_ssd`` and its Pallas
+    kernel in interpret mode (chunk 16), B/C in f32 and in bf16 (rounded
+    once, the same on both sides): 1e-4 of the scale, another chunking."""
+    x, dt, a_log, b, c, _ = ssd_inputs(*case, seed=8)
+    dta = (dt * -np.exp(a_log)).astype(np.float32)
+    xdt = (x * dt[..., None]).astype(np.float32)
+    jb, jc = (jnp.asarray(m).astype(JDT[dtype]) for m in (b, c))
+    tb, tc = (torch.from_numpy(m).to(TDT[dtype]) for m in (b, c))
+    y, h = tref.ssd_chunk_scan_split(*_t(xdt, dta), tb, tc, chunk=chunk)
+    assert y.dtype == h.dtype == torch.float32 and tuple(y.shape) == x.shape
+    jy, jh = J_REF_SSD(*_j(xdt, dta), jb, jc)
+    assert rel_err(jy, y) < REL_CHUNKING and rel_err(jh, h) < REL_CHUNKING
+    ky, kh = J_SSD_KERNEL(*_j(xdt, dta), jb, jc, chunk=16, interpret=True)
+    assert rel_err(ky, y) < REL_CHUNKING and rel_err(kh, h) < REL_CHUNKING
+
+
+def test_split_scan_carries_an_initial_state():
+    """Step 3 starts from ``h0``: against the oracle from the same state."""
+    x, dt, a_log, b, c, _ = ssd_inputs(2, 21, 4, 8, 2, 16, seed=9)
+    h0 = np.random.default_rng(9).standard_normal((2, 4, 8, 16)).astype(np.float32)
+    dta = (dt * -np.exp(a_log)).astype(np.float32)
+    xdt = (x * dt[..., None]).astype(np.float32)
+    jy, jh = J_REF_SSD(*_j(xdt, dta, b, c), h0=jnp.asarray(h0))
+    y, h = tref.ssd_chunk_scan_split(*_t(xdt, dta, b, c), chunk=8, h0=torch.from_numpy(h0))
+    assert rel_err(jy, y) < REL_CHUNKING and rel_err(jh, h) < REL_CHUNKING
+
+
 @pytest.mark.parametrize("chunk", [4, 16, 64, 256])
 def test_chunk_length_changes_only_rounding(chunk):
     """The algorithm is exact for any chunking, which lets the CUDA kernel
@@ -210,12 +252,17 @@ def test_decode_continues_the_chunked_scan():
 
 
 def test_smem_working_set_fits_and_matches_the_source():
-    check = MemoryPlanner.check_smem(tssd.smem_blocks())
-    assert check["fits"]
-    # csrc/ssd_scan.cu SMEM_BYTES: (2 Q (N+4) + Q PB + Q (Q+1) + PB (N+4) + 4Q + 4) floats
-    q, pb, n = tssd.CHUNK, tssd.ROWS, tssd.STATE
-    assert check["bytes"] == 4 * (2 * q * (n + 4) + q * pb + q * (q + 1)
-                                  + pb * (n + 4) + 4 * q + 4) == 97808
+    """Each of the three launches' working sets fits and equals the
+    source's: csrc/ssd_scan.cu CHUNK_SMEM = 2 Q (N+8) floats (B rows; C
+    rows, or x rows and decays), none for the pass, OUT_SMEM = (Q (N+4) +
+    P (N+4) + Q (P+8) + Q (Q+4) + Q) floats."""
+    q, p, n = tssd.CHUNK, tssd.HEAD_DIM, tssd.STATE
+    want = {"chunk": 4 * 2 * q * (n + 8), "pass": 0,
+            "output": 4 * (q * (n + 4) + p * (n + 4) + q * (p + 8) + q * (q + 4) + q)}
+    assert want == {"chunk": 69632, "pass": 0, "output": 103680}
+    for launch in tssd.LAUNCHES:
+        check = MemoryPlanner.check_smem(tssd.smem_blocks(launch))
+        assert check["fits"] and check["bytes"] == want[launch], launch
 
 
 def test_launcher_refuses_what_the_kernel_does_not_take():
@@ -249,6 +296,30 @@ def test_ssd_kernel_matches_plain_version_on_the_card(cuda_device):
         assert tops.ssd_scan.launches == before + 1
         assert rel_err(wy.cpu().numpy(), y.cpu()) < REL_CHUNKING
         assert rel_err(wh.cpu().numpy(), h.cpu()) < REL_CHUNKING
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,s", [(1, 37), (1, 512), (1, 1024), (2, 1024)])
+def test_ssd_kernels_match_split_and_plain_versions_on_the_card(cuda_device, bsz, s,
+                                                                dtype):
+    """The three launches against the plain chunked scan (chunk 256: another
+    chunking, 1e-4 of the scale) and against their own decomposition in
+    plain PyTorch (chunk 64: another sum order only, 2e-5), at mamba2-130m's
+    widths: a ragged short prompt, serving lengths and a batch of two."""
+    x, dt, a_log, b, c, _ = ssd_inputs(bsz, s, 24, 64, 1, 128, seed=s + bsz)
+    dta = (dt * -np.exp(a_log)).astype(np.float32)
+    xdt = (x * dt[..., None]).astype(np.float32)
+    xdt, dta, b, c = (t.to(cuda_device) for t in _t(xdt, dta, b, c))
+    b, c = b.to(dtype), c.to(dtype)
+    y, h = tssd.ssd_scan_kernel(xdt, dta, b, c)
+    py, ph = tref.ssd_chunk_scan(xdt, dta, b, c, chunk=256)
+    sy, sh = tref.ssd_chunk_scan_split(xdt, dta, b, c, chunk=tssd.CHUNK)
+    torch.cuda.synchronize()
+    assert rel_err(py.cpu().numpy(), y.cpu()) < REL_CHUNKING
+    assert rel_err(ph.cpu().numpy(), h.cpu()) < REL_CHUNKING
+    assert rel_err(sy.cpu().numpy(), y.cpu()) < REL
+    assert rel_err(sh.cpu().numpy(), h.cpu()) < REL
 
 
 # --------------------------------------------------------------------------

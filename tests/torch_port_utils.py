@@ -19,10 +19,17 @@ SMALL = dict(n_layers=2, d_model=64, n_heads=14, n_kv_heads=2, head_dim=16,
              d_ff=128, vocab_size=512)
 
 
-def small_cfgs(dtype: str = "float32"):
-    """(reference config, port config) — equal dataclasses, one per package."""
-    return (jget_config("qwen2-0.5b").with_overrides(dtype=dtype, **SMALL),
-            tget_config("qwen2-0.5b").with_overrides(dtype=dtype, **SMALL))
+# phi4-mini-3.8b's head dim (128) and grouping (G = 3) at a small width
+PHI4_SMALL = dict(n_layers=2, d_model=384, n_heads=3, n_kv_heads=1, d_ff=512,
+                  vocab_size=512)
+
+
+def small_cfgs(dtype: str = "float32", arch: str = "qwen2-0.5b"):
+    """(reference config, port config) — equal dataclasses, one per package:
+    qwen2-0.5b at ``SMALL`` or phi4-mini-3.8b at ``PHI4_SMALL``."""
+    over = PHI4_SMALL if arch == "phi4-mini-3.8b" else SMALL
+    return (jget_config(arch).with_overrides(dtype=dtype, **over),
+            tget_config(arch).with_overrides(dtype=dtype, **over))
 
 
 def ref_params(cfg, seed: int = 0):
@@ -40,13 +47,30 @@ def ref_params(cfg, seed: int = 0):
     return jax.tree.map(jnp.asarray, np_tree), np_tree
 
 
+def _contraction_scaled_qk(cfg, np_tree):
+    """wq and wk redrawn to std 1/sqrt(d_model), the fan-in of their
+    contraction.  The reference's init takes the heads axis of a (D, H, hd)
+    projection as its fan-in: at 3 heads over 1 that makes q and k ~10-20 an
+    element and the scores ~200, a near one-hot softmax whose near ties
+    amplify f32 rounding ~1000x (a float64 run of the port moves such decode
+    logits by 1e-4).  Both packages get the same redrawn leaves."""
+    rng = np.random.default_rng(cfg.d_model)
+    for name in ("wq", "wk"):
+        leaf = np_tree["pattern"]["0"]["attn"][name]
+        np_tree["pattern"]["0"]["attn"][name] = (
+            rng.standard_normal(leaf.shape) / np.sqrt(cfg.d_model)).astype(np.float32)
+    return jax.tree.map(jnp.asarray, np_tree), np_tree
+
+
 def models(dtype: str = "float32", *, seed: int = 0, jax_impl: str = "pallas",
-           port_impl: str = "kernel"):
+           port_impl: str = "kernel", arch: str = "qwen2-0.5b"):
     """(jax model, jax params, port model, port params) on the same weights.
     ``jax_impl="pallas"`` runs the reference's flash kernel in interpret mode
     (tests/conftest.py sets it), the counterpart of the port's kernel path."""
-    jcfg, tcfg = small_cfgs(dtype)
+    jcfg, tcfg = small_cfgs(dtype, arch)
     jparams, np_tree = ref_params(jcfg, seed)
+    if arch == "phi4-mini-3.8b":
+        jparams, np_tree = _contraction_scaled_qk(jcfg, np_tree)
     jm = JTransformer(jcfg, JRunOpts(attention_impl=jax_impl))
     tm = TTransformer(tcfg, TRunOpts(attention_impl=port_impl), device="cpu")
     return jm, jparams, tm, tm.load(params_from_jax(np_tree))
