@@ -20,8 +20,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      accuracy from the same converted inputs (the kernels in split TF32) but
      sum in other orders and chunk lengths (the kernels scan in chunks of
      64, the plain version of 256).  RG-LRU: max-abs 1e-5 of max|y|: both
-     sides compute in f32 from the same inputs, the kernel sequentially, the
-     plain version log-depth;
+     sides compute in f32 from the same inputs, the kernel in segments of
+     its own (held also against ``ref_rglru_segmented``, its order in plain
+     PyTorch), the plain version log-depth;
   4. serve full-width qwen2-0.5b (24 layers, bf16, seeded random weights)
      through the port's ``ServeEngine`` with paged decode and flash prefill,
      and check that path against its plain version on a small f32 input;
@@ -57,6 +58,7 @@ import itertools
 import json
 import math
 import random
+import re
 import subprocess
 import sys
 import time
@@ -265,12 +267,28 @@ def flash_cases(torch, ops, ref, h: int, kv: int, d: int, cases, seed: int,
     return out, worst
 
 
-def rglru_cases(torch, ops, rg, ref):
+def ptxas_summary(log: str) -> str:
+    """Registers and spills of the (one) kernel in a source's ``-Xptxas=-v``
+    output."""
+    regs = re.search(r"Used (\d+) registers", log)
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    if regs is None or spill is None:
+        return "registers=not reported"
+    return (f"registers={regs.group(1)} spill_stores={spill.group(1)}B "
+            f"spill_loads={spill.group(2)}B")
+
+
+def rglru_cases(torch, ops, rg, ref, build_info: str):
     """The RG-LRU kernel against its plain version at recurrentgemma-9b's
     width (L=4096): a short prompt, a serving prompt, one past the window
-    and a batch of two, with and without h0.  a and b are made as the
-    model's gates make them (a = exp(-8 softplus(1) r), b = sqrt(1 - a^2) i x),
-    so y stays O(1)."""
+    and a batch of two, with and without h0; beside it, against
+    ``ref_rglru_segmented`` (the kernel's own order, on the card).  a and b
+    are made as the model's gates make them (a = exp(-8 softplus(1) r),
+    b = sqrt(1 - a^2) i x), so y stays O(1).  ``build_info`` (registers and
+    spills) is printed beside each time, and so is a yardstick of the
+    card's streaming rate for the same bytes: ``torch.add(a, b, out=y)``
+    reads a and b and writes y once, 12 B a channel-step, as the scan
+    does (it computes another function, so it is no ``library_ms``)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     lru = 4096
     out, worst = {}, 0.0
@@ -285,30 +303,39 @@ def rglru_cases(torch, ops, rg, ref):
             h = h0 if with_h0 else None
             y = ops.rglru_scan(a, bb, h)
             want = ref.ref_rglru(a, bb, h)
+            seg = ref.ref_rglru_segmented(a, bb, h, seg=rg.SEG)
             torch.cuda.synchronize()
             err = (y - want).abs().max().item()
+            err_seg = (y - seg).abs().max().item()
             scale = max(1.0, want.abs().max().item())
-            if not (math.isfinite(err) and err <= RGLRU_REL_TOL * scale):
-                raise AssertionError(f"rglru B={b} S={s} h0={with_h0}: max_abs_err "
-                                     f"{err:.3g} > {RGLRU_REL_TOL} of max|y| {scale:.3g}")
+            for what, e in (("plain", err), ("segmented", err_seg)):
+                if not (math.isfinite(e) and e <= RGLRU_REL_TOL * scale):
+                    raise AssertionError(
+                        f"rglru B={b} S={s} h0={with_h0}: max_abs_err against {what} "
+                        f"{e:.3g} > {RGLRU_REL_TOL} of max|y| {scale:.3g}")
             worst = max(worst, err)
             k_ms, k_call = time_ms(torch, lambda: rg.rglru_scan_kernel(a, bb, h))
             p_ms, _ = time_ms(torch, lambda: ref.ref_rglru(a, bb, h), iters=5)
+            out_buf = torch.empty_like(a)
+            add_ms, _ = time_ms(torch, lambda: torch.add(a, bb, out=out_buf))
             n_bytes = 3 * 4 * a.numel() + (4 * h.numel() if with_h0 else 0)
             bms, by = bound_ms(n_bytes, 2 * a.numel(), "float32")
             out[(b, s, with_h0)] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                                         bound_by=by)
             print(f"[rglru] B={b} S={s} L={lru} h0={with_h0} max_abs_err={err:.3g} "
-                  f"(max|y| {scale:.3g}) tol={RGLRU_REL_TOL} of max "
+                  f"(max|y| {scale:.3g}; against segmented {err_seg:.3g}) "
+                  f"tol={RGLRU_REL_TOL} of max "
                   f"kernel_ms={k_ms:.4f} wrapper_call_ms={k_call:.4f} "
-                  f"plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by})", flush=True)
+                  f"plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+                  f"share_of_bound={bms / k_ms:.3f} same_bytes_add_ms={add_ms:.4f} "
+                  f"{build_info}", flush=True)
             if (b, s, with_h0) == (1, 2600, False):
                 # how much of the scan the forward check's yardstick reorders,
                 # beside how much the kernel does
                 def changed(other):
                     return ((other != want).float().mean().item(),
                             (other.bfloat16() != want.bfloat16()).float().mean().item())
-                for name, other in (("kernel", y),
+                for name, other in (("kernel", y), ("plain segmented", seg),
                                     *((f"plain block {k}", ref.ref_rglru(a, bb, block=k))
                                       for k in (1, 4, 64))):
                     f32, bf16 = changed(other)
@@ -603,6 +630,13 @@ def main() -> int:
         if smem_src != smem_py:
             raise AssertionError(f"flash_attention.smem_blocks({d}, {dt}) disagrees "
                                  "with csrc flash_attention_smem_bytes")
+    smem_src = build.library("rglru_scan").rglru_scan_smem_bytes()
+    smem_py = MemoryPlanner.smem_footprint(rg.smem_blocks())
+    print(f"[build] rglru_scan static shared memory {smem_src} B per CTA (check_smem "
+          f"working set {smem_py} B)")
+    if smem_src != smem_py:
+        raise AssertionError("rglru_scan.smem_blocks() disagrees with csrc "
+                             "rglru_scan_smem_bytes")
     for (grp, hd), (dt, code) in itertools.product(((7, 64), (3, 128)),
                                                    pa.DTYPE_CODES.items()):
         smem_src = build.library("paged_attention").paged_attention_smem_bytes(grp, hd, code)
@@ -644,7 +678,8 @@ def main() -> int:
     stamp(t_start, "[flash]")
     ssd_res, ssd_worst = ssd_cases(torch, ops, ssd, ssm, ref)
     stamp(t_start, "[ssd]")
-    rglru, rglru_worst = rglru_cases(torch, ops, rg, ref)
+    rglru, rglru_worst = rglru_cases(torch, ops, rg, ref,
+                                     ptxas_summary(build.BUILD_LOG.get("rglru_scan", "")))
 
     stamp(t_start, "phase 3")
     # -- 4. the qwen2 path: full-width qwen2-0.5b, paged decode, flash prefill -------
@@ -729,7 +764,7 @@ def main() -> int:
     # and the tail (every kind of layer, the window acting) and the full
     # depth is read only.  The yardstick re-blocks the plain scan by 1 step,
     # which changes about as large a share of its f32 outputs as the
-    # kernel's sequential order does (the [rglru] calibration line prints
+    # kernel's segmented order does (the [rglru] calibration line prints
     # both); the gates make a ~ e^-5, so only the last few steps carry and
     # coarser blocks leave most sums in the same order.
     tokens = torch.randint(0, cfg_r.vocab_size, (1, 2600), device="cuda",
@@ -760,6 +795,7 @@ def main() -> int:
     fw = flash_wide[("bfloat16", 2600, 2048, 0)]
     sk = ssd_res[("bfloat16", 1, 512)]
     rk = rglru[(1, 512, False)]
+    rk_long = rglru[(1, 2600, False)]
     kernels = [
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -802,7 +838,8 @@ def main() -> int:
          "launches": rgemma["rglru_scan"],
          "max_abs_err": rglru_worst, "ms": rk["ms"],
          "plain_ms": rk["plain_ms"], "bound_ms": rk["bound_ms"],
-         "bound_by": rk["bound_by"], "library_ms": None},
+         "bound_by": rk["bound_by"], "library_ms": None,
+         "s2600_ms": rk_long["ms"], "s2600_bound_ms": rk_long["bound_ms"]},
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -98,9 +98,11 @@ def _ssd_kernel(xdt, dta, b_mat, c_mat, *, chunk, h0):
 def rglru_scan(a, b, h0=None, *, block=256):
     """``h_t = a_t h_{t-1} + b_t`` over a, b (B,S,L) with optional h0 (B,L)
     -> y (B,S,L) f32.  ``block`` is the plain version's block length; the
-    kernel walks the whole sequence, which changes the result only by
-    rounding.  The kernel needs no shared memory, so there is nothing to
-    check against the budget."""
+    kernel splits S into segments of its own (``rglru_scan.SEG`` steps, one
+    per warp), folds their aggregates in order and re-walks each from its
+    carry (``ref.ref_rglru_segmented``), which changes the result only by
+    rounding."""
+    _check_smem(_rg.smem_blocks(), "rglru scan")
     if _device_type(a) == "cpu":
         return ref_rglru(a, b, h0, block=block)
     out = _rg.rglru_scan_kernel(a.contiguous(), b.contiguous(),

@@ -271,3 +271,39 @@ def ref_rglru(a, b, h0=None, *, block=256):
         h_in = torch.cat([torch.zeros_like(carry[:, :1]), carry[:, :-1]], 1)
         y = torch.addcmul(y, prod, h_in[:, :, None])
     return y.reshape(bsz, n * q, l)[:, :s]
+
+
+def ref_rglru_segmented(a, b, h0=None, *, seg):
+    """The RG-LRU kernel's sum order in plain PyTorch (tests and
+    ``chip_smoke.py`` only; the main path never runs it): S is cut into
+    segments of ``seg`` steps, the last padded with the identity (a = 1,
+    b = 0).  Phase 1 folds every segment from a zero state into its
+    aggregate (P = prod a, Y = the segment's last h); phase 2 folds the
+    aggregates in order onto the carry (h0 or 0), each segment taking the
+    carry before its own fold as its incoming state; phase 3 re-walks every
+    segment from that state.  The kernel groups its segments into
+    super-chunks of one segment per warp, and every warp folds the
+    super-chunk's aggregates onto its carry in the same order, so the
+    grouping changes no operation and needs no parameter here.
+    (B,S,L) with S >= 1 -> y (B,S,L) f32."""
+    a, b = a.float(), b.float()
+    bsz, s, l = a.shape
+    n = -(-s // seg)
+    pad = n * seg - s
+    a = F.pad(a, (0, 0, 0, pad), value=1.0).reshape(bsz, n, seg, l)
+    b = F.pad(b, (0, 0, 0, pad)).reshape(bsz, n, seg, l)
+    prod, agg = a[:, :, 0], b[:, :, 0]
+    for u in range(1, seg):
+        agg = torch.addcmul(b[:, :, u], a[:, :, u], agg)
+        prod = prod * a[:, :, u]
+    carry = a.new_zeros(bsz, l) if h0 is None else h0.float()
+    h_in = []
+    for k in range(n):
+        h_in.append(carry)
+        carry = torch.addcmul(agg[:, k], prod[:, k], carry)
+    h = torch.stack(h_in, 1)                                    # (B,n,L)
+    y = torch.empty_like(a)
+    for u in range(seg):
+        h = torch.addcmul(b[:, :, u], a[:, :, u], h)
+        y[:, :, u] = h
+    return y.reshape(bsz, n * seg, l)[:, :s]

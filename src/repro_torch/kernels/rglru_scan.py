@@ -2,9 +2,14 @@
 
 Replaces the Pallas TPU kernel ``repro.kernels.rglru_scan.rglru_scan_kernel``:
 ``h_t = a_t h_{t-1} + b_t`` over (B, S, L) f32, with an optional ``h0``
-folded in as ``a_0 h0``.  One thread per (row, channel) walks S with h in a
-register and its next loads in flight; see the source for the design and its
-bound.  The plain PyTorch version is ``ref.ref_rglru``.
+folded in as ``a_0 h0``.  A CTA of ``WARPS`` warps owns one row and 32
+channels and splits S across its warps: in each super-chunk of
+``WARPS * SEG`` steps every warp folds its ``SEG`` steps into an aggregate,
+the aggregates are folded onto the CTA's carry in shared memory, and every
+warp re-walks its steps from its true incoming state (one pass, no global
+scratch); see the source for the design and its bound.  The plain PyTorch
+version is ``ref.ref_rglru``; ``ref.ref_rglru_segmented`` repeats the
+kernel's sum order.
 
 Layout: a, b (B, S, L) f32 contiguous; h0 (B, L) f32 -> y (B, S, L) f32.
 """
@@ -12,12 +17,22 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import build
 
+WARPS = 16      # csrc WARPS: segments per super-chunk
+SEG = 16        # csrc SEG: steps per segment
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def smem_blocks():
+    """Shared-memory working set per CTA, for ``MemoryPlanner.check_smem``
+    (csrc ``rglru_scan_smem_bytes``): each warp's (P, Y) aggregate per
+    lane, double-buffered by super-chunk parity."""
+    return [((2, WARPS, 32, 2), np.dtype("float32"))]
 
 
 def _fn():

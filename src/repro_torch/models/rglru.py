@@ -11,8 +11,9 @@ The residual block is: linear -> causal conv -> RG-LRU on one branch,
 linear -> tanh-GeLU gate on the other, multiplied and projected out.  The
 scan runs through ``kernels.ops.rglru_scan`` (the CUDA kernel for CUDA
 tensors) with ``use_kernel``, else through its plain version
-``kernels.ref.ref_rglru``; both are log-depth or sequential forms of the
-same recurrence and agree to rounding.
+``kernels.ref.ref_rglru``; the kernel's segmented walk and the plain
+version's log-depth blocks are two orders of the same recurrence and agree
+to rounding.
 
 Parameters are the reference's layouts.  ``w_branch``/``w_gate``/``w_out``
 arrive in the compute dtype; ``w_conv``/``b_conv`` and the gate leaves

@@ -7,10 +7,14 @@ kernel in interpret mode (tests/conftest.py sets it).
 Tolerances, in f32: max-abs error at most 1e-5 of max|y|.  Both sides
 compute the same recurrence in f32, in other orders (the reference
 sequentially or by XLA's associative scan, the port by a Hillis-Steele scan
-in blocks); observed errors are ~1e-7 of the scale.  The GeGLU check uses
+in blocks, or in the CUDA kernel's segmented order); observed errors are
+~1e-7 of the scale.  The GeGLU check uses
 the same tolerance and shows it is tight enough to tell the tanh gelu the
 reference uses from PyTorch's default erf gelu.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +28,7 @@ from repro.kernels import ref as jref
 from repro.models import layers as jlayers
 from repro.models import rglru as jrglru
 from repro_torch.configs import get_config as tget_config
+from repro_torch.core.planner import MemoryPlanner
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rglru_scan as trg
@@ -115,11 +120,51 @@ def test_ops_rglru_scan_matches_reference_kernel(case):
 
 @pytest.mark.parametrize("block", [1, 4, 64, 256, 0])
 def test_block_length_changes_only_rounding(block):
-    """The scan is exact for any blocking, which lets the CUDA kernel walk
-    the whole sequence whatever block the plain version is given."""
+    """The scan is exact for any blocking, which lets the CUDA kernel scan
+    in segments of its own whatever block the plain version is given."""
     a, b, h0 = scan_inputs(2, 150, 16, seed=3)
     want = tref.ref_rglru(*_t(a, b, h0), block=0)
     assert rel_err(want.numpy(), tref.ref_rglru(*_t(a, b, h0), block=block)) < REL
+
+
+# (B, S, L, h0, seg) for the kernel's segmented order: S = 1, S < one
+# segment, one short of / at / one past a super-chunk of WARPS * SEG steps,
+# S = 301 (ragged in segments and super-chunks), B = 2; and a small segment
+# so that short S crosses many segments
+SUPER = trg.WARPS * trg.SEG
+SEGMENTED_CASES = [(1, 1, 40, True, trg.SEG), (1, 1, 40, False, trg.SEG),
+                   (2, 19, 40, True, trg.SEG), (1, SUPER - 1, 40, False, trg.SEG),
+                   (2, SUPER, 40, True, trg.SEG), (1, SUPER + 1, 40, True, trg.SEG),
+                   (2, SUPER + 1, 40, False, trg.SEG), (2, 301, 40, True, trg.SEG),
+                   (2, 301, 40, False, trg.SEG), (2, 37, 16, True, 4)]
+
+
+@pytest.mark.parametrize("case", SEGMENTED_CASES, ids=str)
+def test_segmented_rendition_matches_reference(case):
+    """``ref.ref_rglru_segmented`` (the CUDA kernel's order: segment
+    aggregates, the carry fold, the re-walk) against the reference's
+    sequential oracle and its Pallas kernel in interpret mode."""
+    bsz, s, lru, with_h0, seg = case
+    a, b, h0 = scan_inputs(bsz, s, lru, seed=s + 11)
+    h0 = h0 if with_h0 else None
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    got = tref.ref_rglru_segmented(*_t(a, b), None if h0 is None else torch.from_numpy(h0),
+                                   seg=seg)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (bsz, s, lru)
+    assert rel_err(J_REF_RGLRU(jnp.asarray(a), jnp.asarray(b), jh0), got) < REL
+    assert rel_err(J_RGLRU_SCAN(jnp.asarray(a), jnp.asarray(b), jh0, block=256,
+                                interpret=True), got) < REL
+
+
+def test_smem_working_set_fits_and_matches_the_source():
+    """The launcher's constants are the source's (csrc/rglru_scan.cu WARPS
+    and SEG), and its shared-memory working set, (P, Y) per (parity, warp,
+    lane), fits and equals SMEM_BYTES = 2 WARPS 32 2 floats."""
+    src = (Path(trg.__file__).parent / "csrc" / "rglru_scan.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (WARPS|SEG) = (\d+);", src))
+    assert {k: int(v) for k, v in consts.items()} == {"WARPS": trg.WARPS, "SEG": trg.SEG}
+    check = MemoryPlanner.check_smem(trg.smem_blocks())
+    assert check["fits"] and check["bytes"] == 2 * trg.WARPS * 32 * 2 * 4 == 8192
 
 
 def test_launcher_refuses_what_the_kernel_does_not_take():
@@ -135,19 +180,31 @@ def test_launcher_refuses_what_the_kernel_does_not_take():
         tops.rglru_scan(a.to("meta"), b.to("meta"))
 
 
+# (B, S, L) at the kernel's edges: recurrentgemma-9b's width at S = 1, a
+# short prompt, one super-chunk exactly, a length ragged in segments and
+# super-chunks (B = 2), the longest serving prompt; and an L that is no
+# multiple of the CTA's 32 channels
+CARD_CASES = [(2, 301, 4096), (1, 1, 4096), (1, 37, 4096), (1, SUPER, 4096),
+              (1, 2600, 4096), (2, 301, 4004), (1, SUPER + 1, 4004)]
+
+
 @pytest.mark.cuda
-def test_rglru_kernel_matches_plain_version_on_the_card(cuda_device):
-    """Run on the card by ``python -m pytest -m cuda tests``: the kernel
-    against its plain version at recurrentgemma-9b's width, a length that
-    is no multiple of the kernel's register group, with and without h0."""
-    a, b, h0 = (t.to(cuda_device) for t in _t(*scan_inputs(2, 301, 4096, seed=7)))
+@pytest.mark.parametrize("case", CARD_CASES, ids=str)
+def test_rglru_kernel_matches_plain_version_on_the_card(cuda_device, case):
+    """Run on the card by ``python -m pytest -m cuda tests``: one launch
+    of the kernel against its plain version and its segmented rendition,
+    with and without h0."""
+    bsz, s, lru = case
+    a, b, h0 = (t.to(cuda_device) for t in _t(*scan_inputs(bsz, s, lru, seed=7)))
     for h in (None, h0):
         before = tops.rglru_scan.launches
         y = tops.rglru_scan(a, b, h)
-        want = tref.ref_rglru(a, b, h)
         torch.cuda.synchronize()
         assert tops.rglru_scan.launches == before + 1
-        assert rel_err(want.cpu().numpy(), y.cpu()) < REL
+        assert tuple(y.shape) == (bsz, s, lru)
+        assert rel_err(tref.ref_rglru(a, b, h).cpu().numpy(), y.cpu()) < REL
+        assert rel_err(tref.ref_rglru_segmented(a, b, h, seg=trg.SEG).cpu().numpy(),
+                       y.cpu()) < REL
 
 
 # --------------------------------------------------------------------------
