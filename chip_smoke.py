@@ -44,10 +44,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      moves them (at full depth the random-weight stack is chaotic enough
      that the yardstick itself moves most argmaxes: that reading is
      printed, not held);
-  7. print the kernels JSON line, the card line, and the result line.
+  7. train full-width, full-depth qwen2-0.5b (24 layers, bf16 compute over
+     f32 masters, B=8 x S=512, the synthetic pipeline from seed 0) through
+     the paper's loop: a ``make_fx`` profile of the grad step on fake
+     tensors (blocks, bytes, the liveness lower bound, the best-fit and
+     pool-allocator peaks), the closed-loop remat plan and the largest batch
+     that fits 80 GB without remat, then 5 AdamW steps each under no remat,
+     full remat and the planned policy from the same initial state, with
+     step ms and measured against planned peak memory.  It fails unless the
+     no-remat losses are finite, the loss on step 1's batch has fallen
+     after the 5 steps (the batch is evaluated again after training: each
+     step draws a fresh batch, and at full depth and these learning rates
+     the step losses of fresh batches move less than the batches differ,
+     so their trend is printed, not held), the other two policies' losses
+     match them within 1e-3 relative at every step, and their grad norms
+     at every step and parameters after the 5 steps within 1e-5 relative
+     (L2 over every leaf), no kernel launches,
+     and an f32 2-layer cut of the same width gives the same loss on the
+     card as on the CPU (1e-5 relative) and gradients no further from a
+     float64 CPU run than twice the CPU's own f32 gradients (relative L2
+     over every leaf), TF32 off;
+  8. print the kernels JSON line, the card line, and the result line.
 
-Each serving path runs with every launch counter set to 0 just before it
-and read just after it, and each path's models are freed before the next.
+Each serving path, and the training phase, runs with every launch counter
+set to 0 just before it and read just after it, and each path's models are
+freed before the next.
 
 Imports nothing of JAX.  Stdout's last line is the result JSON.
 """
@@ -74,6 +95,15 @@ SSM_ARCH = "mamba2-130m"
 HYBRID_ARCH = "recurrentgemma-9b"
 MAX_BATCH, MAX_LEN, GEN_LEN, N_REQUESTS, SEED = 8, 1024, 32, 12, 0
 HYBRID_MAX_LEN = 4096       # room for the 2100-3000-token prompts
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
+# the reference's own plan_remat_policy / plan_with_remat parameters; a
+# smaller max_evict than the default 256 bounds the search's time (each
+# trial repacks ~4400 blocks by best fit)
+TRAIN_PLAN = dict(target_ratio=0.5, max_rounds=3, max_evict=32)
+TRAIN_LOSS_TOL = 1e-3       # full / planned against no remat, relative
+TRAIN_STATE_TOL = 1e-5      # their per-step grad norms and final parameters, relative
+CUT_LOSS_TOL = 1e-5         # f32 cut, card against CPU, relative
+CUT_GRAD_YARDSTICK = 2.0    # card's gradient distance from float64, over the CPU's
 
 
 def card_line() -> str:
@@ -573,6 +603,181 @@ def first_groups(cfg, params, groups: int):
             {**params, "layers": params["layers"][:n] + params["layers"][-tail:]})
 
 
+def train_phase(torch, ops, card: str) -> dict:
+    """The training path on full-width, full-depth qwen2-0.5b: profile,
+    plan, train under three policies, check.  Returns the kernel launches
+    counted during the phase (all must be 0)."""
+    import statistics
+
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import MemoryPlanner
+    from repro_torch.core.planner import HBM_BYTES
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.models import RunOpts, Transformer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import train_lib
+
+    free_cuda(torch)
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    opts = RunOpts(attention_impl="full", use_kernels=False)
+    model = Transformer(cfg, opts)
+    bsds = {"tokens": ((TRAIN_BATCH, TRAIN_SEQ + 1), torch.int32)}
+    planner = MemoryPlanner()
+    tag = f"[train:qwen2] B={TRAIN_BATCH} S={TRAIN_SEQ} {cfg.n_layers} layers"
+
+    # -- 1. profile: make_fx of grad(loss) on fake tensors --------------------------------
+    t0 = time.perf_counter()
+    prof = train_lib.profile_step(model, bsds)
+    rep = planner.report(prof)
+    print(f"{tag} profile blocks={prof.n} n_eqns={prof.meta['n_eqns']} "
+          f"total={prof.total_bytes / 1e9:.3f}GB retained={prof.retained_bytes / 1e9:.3f}GB "
+          f"lower_bound={prof.liveness_lower_bound() / 1e9:.3f}GB "
+          f"bestfit_peak={rep.plan.peak / 1e9:.3f}GB "
+          f"pool_peak={rep.baselines['pool_peak'] / 1e9:.3f}GB "
+          f"saving_vs_pool={rep.baselines['saving_vs_pool']:.4f} "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # -- 2. plan: the closed remat loop, and the largest batch without remat -------------
+    t0 = time.perf_counter()
+    policy, ev = train_lib.plan_remat_policy(model, bsds, profile=prof, **TRAIN_PLAN)
+    s = ev.summary()
+    print(f"{tag} plan {TRAIN_PLAN}: {policy.describe()} evictions={s['n_evicted']} "
+          f"peak {s['baseline_peak'] / 1e9:.3f} -> {s['peak'] / 1e9:.3f}GB (verified "
+          f"{ev.meta['verified']}, target {ev.target_peak / 1e9:.3f}GB, reached_target "
+          f"{ev.reached_target}) rounds={ev.meta['rounds']} "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    max_b = planner.max_feasible_batch_planned(
+        lambda b: train_lib.profile_step(model, {"tokens": ((b, TRAIN_SEQ + 1), torch.int32)}),
+        HBM_BYTES, hi=256)
+    print(f"{tag} max_feasible_batch_planned (no remat, {HBM_BYTES / 1e9:.0f}GB, "
+          f"batches 1-256) = {max_b} in {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    full_peak = planner.plan(train_lib.profile_step(model, bsds, True)).peak
+    print(f"{tag} full remat profile: bestfit_peak={full_peak / 1e9:.3f}GB "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+    planned_peak = {"none": rep.plan.peak, "full": full_peak, "planned": ev.peak}
+
+    # -- 3. train: 5 steps per policy from the same initial state and batches -------------
+    acfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=0))
+    batches = [{"tokens": torch.from_numpy(pipe.batch_at(i)["tokens"]).cuda()}
+               for i in range(TRAIN_STEPS)]
+    losses, gnorms, finals = {}, {}, {}
+    for name, remat in (("none", False), ("full", True), ("planned", policy)):
+        free_cuda(torch)
+        state = train_lib.init_state(model, torch.Generator(device="cuda").manual_seed(SEED),
+                                     acfg)
+        step, _ = train_lib.build_train_step(model, None, acfg,
+                                             train_lib.TrainOpts(remat=remat))
+        ls, gn, ms, mem = [], [], [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            mem.append(torch.cuda.max_memory_allocated() - before)
+            ls.append(float(m["loss"]))
+            gn.append(float(m["grad_norm"]))
+        losses[name], gnorms[name] = ls, gn
+        finals[name] = tree_leaves(state["params"])
+        if name == "none":
+            with torch.no_grad():
+                held = float(model.loss_fn(state["params"], batches[0], remat=False)[0])
+            print(f"{tag} remat=none step-1 batch loss {ls[0]:.5f} before training, "
+                  f"{held:.5f} after {TRAIN_STEPS} steps; step losses fall from step 1 "
+                  f"to {TRAIN_STEPS}: {ls[-1] < ls[0]}", flush=True)
+        peak = max(mem)
+        print(f"{tag} remat={name} losses={[round(x, 5) for x in ls]} "
+              f"grad_norms={[round(x, 6) for x in gn]} "
+              f"step_ms={[round(x, 1) for x in ms]} median_step_ms={statistics.median(ms):.1f} "
+              f"measured_peak={peak / 1e9:.3f}GB planned_peak={planned_peak[name] / 1e9:.3f}GB "
+              f"measured/planned={peak / planned_peak[name]:.3f} | {card}", flush=True)
+        del state, step
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+
+    def state_err(name):
+        """(max relative grad-norm difference over the steps, relative L2
+        and max abs difference of the parameters after them), against no
+        remat"""
+        g = max(abs(x - y) / abs(y) for x, y in zip(gnorms[name], gnorms["none"]))
+        d2 = w2 = dmax = 0.0
+        with torch.no_grad():
+            for a, b in zip(finals[name], finals["none"]):
+                d = a.double() - b.double()
+                d2 += float((d * d).sum())
+                w2 += float(b.double().square().sum())
+                dmax = max(dmax, float(d.abs().max()))
+        return g, math.sqrt(d2 / w2), dmax
+    state_errs = {name: state_err(name) for name in ("full", "planned")}
+    for name, (g, p, dmax) in state_errs.items():
+        print(f"{tag} remat={name} against none: grad norms' max rel diff {g:.3g}; parameters after {TRAIN_STEPS} steps rel L2 {p:.3g} "
+              f"max_abs {dmax:.3g} (tol {TRAIN_STATE_TOL} relative)", flush=True)
+    del finals
+
+    # -- 4. check ----------------------------------------------------------------------------
+    base = losses["none"]
+    if not (all(math.isfinite(x) for x in base) and math.isfinite(held)
+            and held < base[0]):
+        raise AssertionError(f"train: no-remat losses {base} not finite, or the step-1 "
+                             f"batch's loss did not fall ({base[0]} -> {held})")
+    for name in ("full", "planned"):
+        for i, (x, y) in enumerate(zip(losses[name], base)):
+            if not abs(x - y) <= TRAIN_LOSS_TOL * abs(y):
+                raise AssertionError(f"train: {name} loss at step {i + 1} {x} against "
+                                     f"no remat {y}, over {TRAIN_LOSS_TOL} relative")
+        g, p, _ = state_errs[name]
+        if not (g <= TRAIN_STATE_TOL and p <= TRAIN_STATE_TOL):
+            raise AssertionError(f"train: {name}'s grad norms ({g:.3g}) or parameters after "
+                                 f"{TRAIN_STEPS} steps ({p:.3g}) differ from no remat's "
+                                 f"by over {TRAIN_STATE_TOL} relative")
+    if any(launches.values()):
+        raise AssertionError(f"train: kernels launched during training: {launches}")
+    del model, batches
+    free_cuda(torch)
+    # the f32 cut on the card and on the CPU, each held to a float64 CPU run of
+    # the same step: f32 rounding alone moves this random-weight step's
+    # gradients by ~1e-3 (scores of the reference's init are large), so the
+    # card must be at most twice as far from float64 as the CPU is
+    cut = cfg.with_overrides(n_layers=2, dtype="float32")
+    cut_tokens = torch.from_numpy(pipe.batch_at(0)["tokens"][:2, :65].copy())
+    init = Transformer(cut, opts, device="cpu").init(torch.Generator().manual_seed(SEED + 11))
+    out = {}
+    for label, dev, dt in (("float64", "cpu", torch.float64), ("cpu", "cpu", torch.float32),
+                           ("card", "cuda", torch.float32)):
+        m = Transformer(cut.with_overrides(dtype=str(dt).removeprefix("torch.")), opts,
+                        device=dev)
+        params = tree_map(lambda t: t.to(dev, dt).requires_grad_(), init)
+        loss, _ = m.loss_fn(params, {"tokens": cut_tokens.to(dev)}, remat=False)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out[label] = (float(loss.detach()),
+                      torch.cat([g.detach().double().cpu().flatten() for g in grads]))
+
+    def grad_err(a, b):
+        return float((out[a][1] - out[b][1]).norm() / out[b][1].norm())
+    loss_err = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    err_card, err_cpu = grad_err("card", "float64"), grad_err("cpu", "float64")
+    print(f"[check] {ARCH} f32 2-layer full-width train step (2 x 64 tokens, TF32 off): "
+          f"loss card {out['card'][0]:.6f} CPU {out['cpu'][0]:.6f} rel_err={loss_err:.3g} "
+          f"(tol {CUT_LOSS_TOL}); gradients' rel L2 distance from float64: card "
+          f"{err_card:.3g}, CPU {err_cpu:.3g} (tol {CUT_GRAD_YARDSTICK}x the CPU's), card "
+          f"against CPU {grad_err('card', 'cpu'):.3g}", flush=True)
+    if not (loss_err <= CUT_LOSS_TOL and err_card <= CUT_GRAD_YARDSTICK * err_cpu):
+        raise AssertionError("train: the f32 cut's loss or gradients on the card are "
+                             "further from the CPU's / float64's than allowed")
+    print(f"{tag} launches during training {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -786,7 +991,10 @@ def main() -> int:
                  max_len=HYBRID_MAX_LEN, long_rids=(2,))
 
     stamp(t_start, "phase 6")
-    # -- 7. records ------------------------------------------------------------------------
+    # -- 7. the training path: full-width, full-depth qwen2-0.5b -------------------------
+    train = train_phase(torch, ops, card)
+    stamp(t_start, "phase 7")
+    # -- 8. records ------------------------------------------------------------------------
     pk = paged[("bfloat16", MAX_BATCH)]
     pk128 = paged128[("bfloat16", MAX_BATCH)]
     fk = flash[("bfloat16", 512, 0, 0)]
@@ -801,6 +1009,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:76",
          "launches": qwen2["paged_attention"] + phi4["paged_attention"],
+         "train_launches": train["paged_attention"],
          "max_abs_err": max(paged_worst["bfloat16"], paged128_worst["bfloat16"]),
          "ms": pk["ms"],
          "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
@@ -812,6 +1021,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:73",
          "launches": (qwen2["flash_attention"] + phi4["flash_attention"]
                       + rgemma["flash_attention"]),
+         "train_launches": train["flash_attention"],
          "max_abs_err": max(flash_worst["bfloat16"], flash128_worst["bfloat16"],
                             flash_wide_worst["bfloat16"]),
          "ms": fk["ms"],
@@ -827,7 +1037,7 @@ def main() -> int:
         {"name": "ssd_scan_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:64",
-         "launches": mamba2["ssd_scan"],
+         "launches": mamba2["ssd_scan"], "train_launches": train["ssd_scan"],
          "max_abs_err": ssd_worst["bfloat16"], "ms": sk["ms"],
          "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
          "bound_by": sk["bound_by"], "library_ms": None,
@@ -835,7 +1045,7 @@ def main() -> int:
         {"name": "rglru_scan_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:40",
-         "launches": rgemma["rglru_scan"],
+         "launches": rgemma["rglru_scan"], "train_launches": train["rglru_scan"],
          "max_abs_err": rglru_worst, "ms": rk["ms"],
          "plain_ms": rk["plain_ms"], "bound_ms": rk["bound_ms"],
          "bound_by": rk["bound_by"], "library_ms": None,

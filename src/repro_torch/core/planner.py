@@ -1,11 +1,13 @@
 """MemoryPlanner — the paper's workflow as a framework service.
 
-profile (recorded events or request traces) -> DSA solve (best-fit) ->
-validated AllocationPlan, plus the planning services built on top of it:
-shared-memory budget checks for the CUDA kernels, HBM feasibility / maximum
-mini-batch search, and side-by-side comparison against the pool/naive
-baselines.  Trimmed copy of ``repro.core.planner``: the jaxpr profile
-source, reordering, exact/MILP solvers and remat planning are not ported.
+profile (``make_fx`` liveness, recorded events or request traces) -> DSA
+solve (best-fit) -> validated AllocationPlan, plus the planning services
+built on top of it: shared-memory budget checks for the CUDA kernels, HBM
+feasibility / maximum mini-batch search (with or without remat), eviction
+planning (``plan_with_remat``), and side-by-side comparison against the
+pool/naive baselines.  Port of ``repro.core.planner`` with H100 budgets;
+``plan_reordered`` and ``plan_shared`` wait for ``core/reorder`` and
+``core/unified``, and the exact/MILP solvers are not ported.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 from .bestfit import best_fit
 from .dsa import AllocationPlan, plan_quality, validate_plan
 from .events import MemoryProfile
+from .liveness import profile_fn
 from .pool import NaiveAllocator, PoolAllocator, replay
 
 # NVIDIA H100 SXM5 budgets (nvidia-smi names the card "NVIDIA H100 80GB HBM3";
@@ -54,6 +57,10 @@ class MemoryPlanner:
         plan = self.solver(profile)
         validate_plan(profile, plan)
         return plan
+
+    def plan_fn(self, fn: Callable, *args) -> PlanReport:
+        """Profile a function via ``make_fx`` liveness, solve, compare."""
+        return self.report(profile_fn(fn, *args))
 
     def report(self, profile: MemoryProfile) -> PlanReport:
         plan = self.plan(profile)
@@ -103,3 +110,72 @@ class MemoryPlanner:
             else:
                 hi = mid - 1
         return lo
+
+    # -- remat-aware planning (repro_torch.remat) ----------------------------------
+    def plan_with_remat(self, profile: MemoryProfile, *,
+                        target_peak: int | None = None,
+                        target_ratio: float | None = None,
+                        max_evict: int = 256,
+                        candidate_filter=None,
+                        price_mode: str = "auto",
+                        groups=None):
+        """Evict activations (recompute/offload) until the packed peak meets
+        the target; returns the ``repro_torch.remat.EvictionPlan``.
+
+        ``target_peak`` is a packing-peak target (excludes
+        ``profile.retained_bytes``); with neither target the search buys
+        every peak reduction it can find.  ``groups`` restricts candidates
+        to the given pattern groups (``remat.policy.pattern_group``).
+        """
+        from ..remat import plan_evictions
+        return plan_evictions(profile, target_peak=target_peak,
+                              target_ratio=target_ratio, max_evict=max_evict,
+                              candidate_filter=candidate_filter,
+                              price_mode=price_mode, solver=self.solver,
+                              groups=groups)
+
+    def max_feasible_batch_planned(self,
+                                   profile_at_batch: Callable[[int], MemoryProfile],
+                                   hbm_budget: int = HBM_BYTES,
+                                   lo: int = 1, hi: int = 65536, *,
+                                   remat=None) -> int:
+        """Remat-aware ``max_feasible_batch`` over actual profiles.
+
+        ``profile_at_batch(b)`` profiles the training step at mini-batch
+        ``b``.  Without ``remat`` the planned peak must fit the budget as-is;
+        with ``remat`` truthy, the eviction search is allowed to shrink each
+        probe's packing toward the remaining budget first — the paper's
+        "larger mini-batch" benefit with the planner in the loop.  A compiled
+        ``RematPolicy`` (mode "policy") constrains the search to blocks its
+        recompute/offload sets can actually evict; ``True`` / mode "full"
+        searches unconstrained.
+        """
+        use_remat = bool(remat) and getattr(remat, "mode", "x") != "none"
+        cand_filter = None
+        if use_remat:
+            from ..remat.policy import _prim_of_tag
+            if getattr(remat, "mode", None) == "policy":
+                allowed = remat.recompute_prims | remat.offload_prims
+
+                def cand_filter(c):
+                    return _prim_of_tag(c.tag) in allowed
+            else:
+                # full remat: exclude blocks no checkpoint policy can address;
+                # untagged profiles (synthetic / recorded traces) carry no
+                # provenance and stay eligible.
+                def cand_filter(c):
+                    return c.tag == "" or _prim_of_tag(c.tag) is not None
+
+        def bytes_at(b: int) -> int:
+            prof = profile_at_batch(b)
+            if use_remat:
+                if prof.retained_bytes > hbm_budget:
+                    return prof.retained_bytes   # infeasible whatever we evict
+                target = hbm_budget - prof.retained_bytes
+                peak = self.plan_with_remat(prof, target_peak=target,
+                                            candidate_filter=cand_filter).peak
+            else:
+                peak = self.plan(prof).peak
+            return peak + prof.retained_bytes
+
+        return self.max_feasible_batch(bytes_at, hbm_budget, lo, hi)

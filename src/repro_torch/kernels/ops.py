@@ -4,11 +4,16 @@ Each wrapper checks its CTA's shared-memory working set against the Hopper
 per-block budget with the paper's planner, then dispatches on the tensors'
 device: CPU tensors go to the plain PyTorch version in ``ref``, CUDA tensors
 to the CUDA kernel, and any other device raises.  There is no fallback from
-the kernel to the plain version.  ``<wrapper>.launches`` counts kernel
+the kernel to the plain version.  No kernel has a backward, so a wrapper
+refuses (``ValueError``) a tensor that requires grad while grad mode is on,
+on every device: its output would come back detached and the gradient would
+be lost without an error.  ``<wrapper>.launches`` counts kernel
 launches (plain-version calls do not count), so a run can show that its main
 path went through the kernels.
 """
 from __future__ import annotations
+
+import torch
 
 from ..core.planner import MemoryPlanner
 from . import flash_attention as _fa
@@ -22,6 +27,14 @@ def _check_smem(blocks, what: str) -> None:
     check = MemoryPlanner.check_smem(blocks)
     if not check["fits"]:
         raise ValueError(f"{what} working set exceeds shared memory: {check}")
+
+
+def _refuse_autograd(what: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise ValueError(f"{what}: the kernel has no backward and an input requires "
+                         "grad; call it under torch.no_grad() or train with "
+                         "RunOpts(attention_impl='full', use_kernels=False)")
 
 
 def _device_type(t) -> str:
@@ -41,6 +54,7 @@ def _in_model_layout(fn, q, k, v, **kw):
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Model layout q: (B,S,KV,G,hd); k/v: (B,S,KV,hd) -> ctx (B,S,KV,G,hd)."""
+    _refuse_autograd("flash_attention", q, k, v)
     _check_smem(_fa.smem_blocks(q.shape[-1], q.dtype), "flash attention")
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if _device_type(q) == "cpu":
@@ -62,6 +76,7 @@ def paged_attention(q, k_pages, v_pages, tables, positions):
     """Decode layout q: (B,KV,G,hd); pools (P,pt,KV,hd); tables (B,maxp);
     positions (B,) -> ctx (B,KV,G,hd).  The page table is consumed inside
     the kernel — no gather, no contiguous copy."""
+    _refuse_autograd("paged_attention", q, k_pages, v_pages)
     _, kv, g, hd = q.shape
     _check_smem(_pa.smem_blocks(g, hd, q.dtype), "paged attention")
     if _device_type(q) == "cpu":
@@ -81,6 +96,7 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=128):
     version's chunk length; the kernels scan in chunks of their own
     (``ssd_scan.CHUNK``), which changes the result only by rounding.  One
     call is three launches and counts one in ``ssd_scan.launches``."""
+    _refuse_autograd("ssd_scan", x, dt, a_log, b_mat, c_mat, d_skip)
     for launch in _ssd.LAUNCHES:
         _check_smem(_ssd.smem_blocks(launch), f"ssd scan ({launch})")
     if _device_type(x) == "cpu":
@@ -102,6 +118,7 @@ def rglru_scan(a, b, h0=None, *, block=256):
     per warp), folds their aggregates in order and re-walks each from its
     carry (``ref.ref_rglru_segmented``), which changes the result only by
     rounding."""
+    _refuse_autograd("rglru_scan", a, b, h0)
     _check_smem(_rg.smem_blocks(), "rglru scan")
     if _device_type(a) == "cpu":
         return ref_rglru(a, b, h0, block=block)

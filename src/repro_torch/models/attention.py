@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops as kops
+from .layers import upcast
 
 NEG_INF = -1e30
 
@@ -53,13 +54,15 @@ def attend_full(q, k, v, *, causal=True, window=0, q_offset=0):
     scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * scale
     q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
     k_pos = torch.arange(k.shape[1], device=q.device)
+    # out of place: a selective checkpoint caches ``ok`` and refuses a
+    # cached tensor that was later written
     ok = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool, device=q.device)
     if causal:
-        ok &= k_pos[None, :] <= q_pos[:, None]
+        ok = ok & (k_pos[None, :] <= q_pos[:, None])
     if window:
-        ok &= k_pos[None, :] > (q_pos[:, None] - window)
+        ok = ok & (k_pos[None, :] > (q_pos[:, None] - window))
     bias = torch.where(ok, 0.0, NEG_INF)
-    probs = torch.softmax(scores.float() + bias, dim=-1).to(q.dtype)
+    probs = torch.softmax(upcast(scores) + bias, dim=-1).to(q.dtype)
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
 
 

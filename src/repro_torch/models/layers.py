@@ -13,13 +13,19 @@ import torch
 import torch.nn.functional as F
 
 
+def upcast(x):
+    """``x`` in f32, the reference's accumulation dtype; f64 stays f64 (the
+    float64 yardstick runs)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     """``x * rsqrt(mean(x^2) + eps) * (1 + scale)``, computed in f32."""
     dt = x.dtype
-    xf = x.float()
+    xf = upcast(x)
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(dt)
+    return (y * (1.0 + upcast(scale))).to(dt)
 
 
 def rope_angles(positions, head_dim: int, theta: float):

@@ -68,3 +68,13 @@ def init_params(schema: Schema, generator: torch.Generator,
         return out if isinstance(s, dict) else [out[i] for i in range(len(s))]
 
     return rec(schema)
+
+
+def abstract_params(schema: Schema, device, dtype: torch.dtype = torch.float32):
+    """Uninitialised parameters of the schema's shapes: made under a
+    ``FakeTensorMode`` they are fake tensors that hold no memory."""
+    def rec(s: Schema):
+        out = {k: (torch.empty(v.shape, dtype=dtype, device=device)
+                   if isinstance(v, P) else rec(v)) for k, v in _children(s)}
+        return out if isinstance(s, dict) else [out[i] for i in range(len(s))]
+    return rec(schema)

@@ -4,6 +4,8 @@ attention-free SSD stack, and ``("rec", "rec", "local")`` with a tail, the
 Griffin hybrid of RG-LRU blocks and local attention).
 
 Entry points, with the reference's contracts:
+  * ``loss_fn(params, batch)``        — training forward (+ CE loss) over f32
+                                        master parameters (dense pattern)
   * ``prefill(params, batch)``        — inference forward, builds the cache
   * ``decode_step(params, cache, t)`` — one-token step over the contiguous
                                         cache or, when the cache carries
@@ -32,6 +34,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..runtime.device import resolve_device
@@ -39,10 +43,11 @@ from ..runtime.serve_lib import layer_kinds
 from . import attention as attn
 from . import rglru as rglru_lib
 from . import ssm as ssm_lib
-from .layers import apply_rope, embed_lookup, mlp, rms_norm, rope_angles
-from .schema import P, Schema, init_params
+from .layers import apply_rope, embed_lookup, mlp, rms_norm, rope_angles, upcast
+from .schema import P, Schema, abstract_params, init_params
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}    # float64: a yardstick for f32 runs
 # leaves the reference reads in f32 (``astype(float32)``) or casts at each
 # use to another dtype than the compute dtype: kept f32 at load
 F32_LEAVES = frozenset({"scale", "norm_scale", "dt_bias", "a_log", "d_skip",
@@ -57,6 +62,8 @@ class RunOpts:
     use_kernels: bool = True          # SSD / RG-LRU scans through the CUDA kernels
     ssd_chunk: int = 256              # chunk length of the plain SSD path
     rglru_block: int = 256            # block length of the plain RG-LRU scan
+    loss_impl: str = "full"           # full | chunked (training CE)
+    loss_chunk: int = 512             # sequence chunk of the chunked CE
 
 
 def _attn_schema(cfg) -> Schema:
@@ -193,6 +200,13 @@ class Transformer:
         """f32 master parameters drawn from ``generator`` (on its device)."""
         return init_params(self.schema(), generator, dtype=torch.float32)
 
+    def abstract(self, mode):
+        """f32 master parameters as fake tensors of ``mode`` (a
+        ``FakeTensorMode``) on this model's device: shapes without memory,
+        for profiling a full-width step."""
+        with mode:
+            return abstract_params(self.schema(), self.device, torch.float32)
+
     def init_loaded(self, generator: torch.Generator):
         """``load(init(generator))`` — the same draws, so the same numbers —
         made one leaf at a time: each f32 master is cast as soon as it is
@@ -250,6 +264,103 @@ class Transformer:
 
     def logits(self, params, x):
         return x @ params.get("lm_head", params["embed"]).t()
+
+    # ---- training -----------------------------------------------------------------
+    def _train_layer(self, x, p, cos, sin):
+        """One dense block over f32 master leaves, cast to the compute dtype
+        here, inside the layer's checkpointed region: the casts are saved
+        or recomputed with the layer, and gradients reach the f32 masters
+        through them, as through the reference's per-use ``cdt``."""
+        p = self.load(p)
+        q, k, v = self._attn_qkv(x, p, (cos, sin))
+        ctx = attn.attend(q, k, v, impl=self.opts.attention_impl, causal=True)
+        return self._finish_block(x, ctx, p)
+
+    def _train_logits(self, params, x):
+        table = params.get("lm_head", params["embed"])
+        return x.to(self.compute_dtype) @ table.to(self.compute_dtype).t()
+
+    def _pad_bias(self, device):
+        cfg = self.cfg
+        if cfg.padded_vocab == cfg.vocab_size:
+            return None
+        return torch.where(torch.arange(cfg.padded_vocab, device=device) < cfg.vocab_size,
+                           0.0, -1e30)
+
+    def _nll_sum(self, logits, targets, mask):
+        """Masked sum of ``lse - gold`` (the reference's form), as
+        ``-log_softmax[gold]``: ``logsumexp``'s backward is one C++ function
+        that holds three logits-sized f32 temporaries at once, two more
+        than the op-level profile (which frees each after its last use)
+        can see; ``log_softmax``'s backward is one op."""
+        lf = upcast(logits)
+        bias = self._pad_bias(lf.device)
+        if bias is not None:
+            lf = lf + bias
+        logp = torch.log_softmax(lf, dim=-1)
+        return -(logp.gather(-1, targets[..., None].long())[..., 0] * mask).sum()
+
+    def _ce(self, logits, targets, mask):
+        """Mean next-token NLL over the mask; padded-vocab logits get -1e30."""
+        return self._nll_sum(logits, targets, mask) / mask.sum().clamp(min=1.0)
+
+    def _chunk_nll(self, params, xc, tc, mc):
+        return self._nll_sum(self._train_logits(params, xc), tc, mc)
+
+    def _loss_from_h(self, params, x, targets, mask):
+        opts = self.opts
+        if opts.loss_impl == "full":
+            return self._ce(self._train_logits(params, x), targets, mask)
+        if opts.loss_impl != "chunked":
+            raise ValueError(f"unknown loss_impl {opts.loss_impl!r}")
+        # sequence chunks, each checkpointed (the reference's @jax.checkpoint
+        # in its scan), so no chunk's logits outlive its own backward
+        c = opts.loss_chunk
+        pad = (-x.shape[1]) % c
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            targets = F.pad(targets, (0, pad))
+            mask = F.pad(mask, (0, pad))
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, x.shape[1], c):
+            tot = tot + checkpoint(self._chunk_nll, params, x[:, i:i + c],
+                                   targets[:, i:i + c], mask[:, i:i + c],
+                                   use_reentrant=False)
+        return tot / mask.sum().clamp(min=1.0)
+
+    def loss_fn(self, params, batch, *, remat=True):
+        """batch: {"tokens": (B, S+1) int32[, "mask": (B, S+1)]} over f32
+        master ``params`` (``init`` or ``params_from_jax``, not ``load``'s
+        cast copies) -> (loss, {"ce", "aux"}).
+
+        ``remat`` is the legacy bool or a ``repro_torch.remat.RematPolicy``:
+        each layer (the reference's pattern group) runs under
+        ``RematPolicy.coerce(remat).wrap``.  No kernel has a backward, in
+        either package, so RunOpts naming a kernel path raise ``ValueError``;
+        the mamba2 and hybrid patterns are not ported to training yet."""
+        from ..remat.policy import RematPolicy
+        if self.kind != "attn":
+            raise NotImplementedError(
+                f"loss_fn: training the {self.kind} pattern is not ported yet "
+                "(ROADMAP queue 1, item 9)")
+        if self.opts.attention_impl == "kernel" or self.opts.use_kernels:
+            raise ValueError("loss_fn: the CUDA kernels have no backward; train with "
+                             "RunOpts(attention_impl='full', use_kernels=False)")
+        cdt = self.compute_dtype
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        mask = batch.get("mask")
+        mask = (torch.ones(targets.shape, dtype=torch.float32, device=tokens.device)
+                if mask is None else mask[:, 1:].float())
+        x = embed_lookup(params["embed"], inputs).to(cdt)
+        cos, sin = self._rope(torch.arange(inputs.shape[1], device=tokens.device)[None, :])
+        layer = RematPolicy.coerce(remat).wrap(self._train_layer)
+        for p in params["layers"]:
+            x = layer(x, p, cos, sin)
+        x = rms_norm(x, params["final_norm"]["scale"])
+        ce = self._loss_from_h(params, x, targets, mask)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ---- serving: caches -----------------------------------------------------------
     def _local_len(self, max_len: int) -> int:

@@ -169,6 +169,57 @@ def test_wrappers_raise_off_cpu_and_cuda():
         tops.flash_attention(x, kv, kv)
 
 
+def _wrapper_calls():
+    """(name, call(requires_grad)) for each kernel wrapper at a small shape;
+    the flag marks the first tensor input as requiring grad."""
+    def flash(rg):
+        q = torch.zeros(1, 8, 2, 7, 16, requires_grad=rg)
+        return tops.flash_attention(q, torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2, 16))
+
+    def paged(rg):
+        q, kp, vp, tables, positions = (torch.from_numpy(a) for a in
+                                        _paged_case(1, 2, kv=2, g=7, hd=16, pt=8, maxp=2))
+        return tops.paged_attention(q.requires_grad_(rg), kp, vp, tables, positions)
+
+    def ssd(rg):
+        x = torch.zeros(1, 8, 2, 4, requires_grad=rg)
+        return tops.ssd_scan(x, torch.ones(1, 8, 2), torch.zeros(2),
+                             torch.zeros(1, 8, 1, 4), torch.zeros(1, 8, 1, 4),
+                             torch.zeros(2), chunk=4)
+
+    def rglru(rg):
+        a = torch.full((1, 8, 4), 0.5, requires_grad=rg)
+        return tops.rglru_scan(a, torch.ones(1, 8, 4))
+
+    return [("flash_attention", flash), ("paged_attention", paged),
+            ("ssd_scan", ssd), ("rglru_scan", rglru)]
+
+
+@pytest.mark.parametrize("name,call", _wrapper_calls(), ids=lambda v: v if isinstance(v, str) else "")
+def test_wrappers_refuse_inputs_that_require_grad(name, call):
+    """No kernel has a backward: with grad mode on, an input that requires
+    grad is refused before dispatch (its output would come back detached).
+    Under no_grad, or without requires_grad, the same call runs."""
+    with pytest.raises(ValueError, match="no backward"):
+        call(True)
+    call(False)
+    with torch.no_grad():
+        call(True)
+
+
+def test_loss_fn_refuses_kernel_run_opts():
+    """Training rejects RunOpts naming a kernel path, for the same reason."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import RunOpts, Transformer
+    cfg = get_config("qwen2-0.5b").smoke()
+    tokens = {"tokens": torch.zeros(1, 9, dtype=torch.int32)}
+    for opts in (RunOpts(), RunOpts(attention_impl="kernel", use_kernels=False),
+                 RunOpts(attention_impl="full", use_kernels=True)):
+        model = Transformer(cfg, opts, device="cpu")
+        with pytest.raises(ValueError, match="no backward"):
+            model.loss_fn(model.init(torch.Generator().manual_seed(0)), tokens)
+
+
 def test_kernel_launchers_reject_cpu_tensors():
     """The CUDA launchers validate before building anything: CPU tensors are
     refused with a ValueError, never run through a plain version."""
