@@ -26,8 +26,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   4. serve full-width qwen2-0.5b (24 layers, bf16, seeded random weights)
      through the port's ``ServeEngine`` with paged decode and flash prefill,
      and check that path against its plain version on a small f32 input;
-     then the same for full-width, full-depth phi4-mini-3.8b (32 layers,
-     head dim 128, 7.7 GB of bf16 weights) on the same trace;
+     then ``[serve:churn]``: the same model on a trace profiled at 8
+     generated tokens whose live requests ask 32-48, so the pool runs out,
+     requests are preempted and the pool is replanned, with graphs against
+     eager and at ``replan_interval`` None and 4; then the same serving path
+     for full-width, full-depth phi4-mini-3.8b (32 layers, head dim 128,
+     7.7 GB of bf16 weights) on the first trace;
   5. serve full-width mamba2-130m (24 layers, bf16, seeded random weights)
      in gather mode with the SSD kernel in every prefill, then check it
      against its plain path: token streams of a 2-layer f32 model, and the
@@ -66,8 +70,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      over every leaf), TF32 off;
   8. print the kernels JSON line, the card line, and the result line.
 
-Each serving path, and the training phase, runs with every launch counter
-set to 0 just before it and read just after it, and each path's models are
+Every serving path runs twice on the same trace and weights, first with the
+runner's steps eager (``graphs=False``), then replaying one CUDA graph per
+batch bucket, the engine's default on the card: a ``[graph:<model>]`` line
+prints both runs' decode step ms, tokens/s, prefill ms, graph pool bytes
+and compile counts, and the run fails unless every request's token stream
+is the same in both.  The f32 ``[check]`` runs of token streams also hold
+graphs against eager.  Each run of a path, and the training phase, runs
+with every launch counter set to 0 just before it and read just after it
+(a captured launch counts once per replay), and each path's models are
 freed before the next.
 
 Imports nothing of JAX.  Stdout's last line is the result JSON.
@@ -94,6 +105,7 @@ PHI4_ARCH = "phi4-mini-3.8b"
 SSM_ARCH = "mamba2-130m"
 HYBRID_ARCH = "recurrentgemma-9b"
 MAX_BATCH, MAX_LEN, GEN_LEN, N_REQUESTS, SEED = 8, 1024, 32, 12, 0
+CHURN_PROFILED_GEN = 8      # the churn trace's profile; live requests ask 32-48
 HYBRID_MAX_LEN = 4096       # room for the 2100-3000-token prompts
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
 # the reference's own plan_remat_policy / plan_with_remat parameters; a
@@ -466,17 +478,26 @@ def stamp(t_start: float, what: str) -> None:
 
 def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
     """Drive one serving path through ``eng`` with every launch counter set
-    to 0 just before and read just after; check completions, tokens and
-    that the launches equal ``expected(decode_steps, prefills)`` for every
-    kernel wrapper.  Returns the launches."""
+    to 0 just before and read just after; check completions, tokens, that
+    the launches equal ``expected(decode_steps, prefills)`` for every
+    kernel wrapper, and with graphs that warmup captured one graph per
+    bucket and the run captured none.  Returns the launches and the run's
+    numbers (``ms``: decode step and prefill, ``completed``: the token
+    streams)."""
+    from repro_torch.kernels import paged_attention as pa
     t0 = time.perf_counter()
     eng.warmup()
+    runner = eng.runner
+    warm = runner.n_compiles
     kv = eng.kv.stats()
-    print(f"[serve:{tag}] warmup buckets={list(eng.runner.buckets)} in "
-          f"{time.perf_counter() - t0:.1f}s; planned pool "
+    print(f"[serve:{tag}] warmup buckets={list(runner.buckets)} graphs={runner.graphs} "
+          f"compiles={warm} in {time.perf_counter() - t0:.1f}s; planned pool "
           f"page_tokens={kv['page_tokens']} page_bytes={kv['page_bytes']} "
           f"n_pages={kv['n_pages']} pool={kv['pool_bytes'] / 1e6:.2f}MB "
           f"(planned peak {kv['planned_peak'] / 1e6:.2f}MB)", flush=True)
+    if warm != len(runner.buckets):
+        raise AssertionError(f"{tag}: warmup made {warm} compiles for "
+                             f"{len(runner.buckets)} buckets")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -497,11 +518,17 @@ def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
     if launches != want or n_steps == 0 or n_prefills == 0:
         raise AssertionError(f"{tag}: launches {launches}, expected {want} for "
                              f"{n_steps} decode steps and {n_prefills} prefills")
-    print(f"[serve:{tag}] steps={n_steps} "
-          f"step_ms={1e3 * eng.decode_time_s / eng.decode_steps:.2f} "
-          f"prefills={n_prefills} "
-          f"prefill_ms={1e3 * eng.prefill_time_s / eng.prefill_calls:.2f} "
+    if runner.n_compiles != warm:
+        raise AssertionError(f"{tag}: {runner.n_compiles - warm} captures during the run")
+    stats = runner.stats()
+    step_ms = 1e3 * eng.decode_time_s / eng.decode_steps
+    prefill_ms = 1e3 * eng.prefill_time_s / eng.prefill_calls
+    print(f"[serve:{tag}] steps={n_steps} step_ms={step_ms:.2f} "
+          f"prefills={n_prefills} prefill_ms={prefill_ms:.2f} "
           f"prefill_shapes={eng.prefill_compiles} launches={launches} "
+          f"graphs={stats['graphs']} compiles={stats['n_compiles']} "
+          f"graph_pool={stats['graph_pool_bytes'] / 1e6:.2f}MB "
+          f"captured_paged_counters={len(pa._graph_counters)} "
           f"peak_mem={torch.cuda.max_memory_allocated() / 1e9:.2f}GB | {card}")
     print(f"[serve:{tag}] completed {summary['n_completed']}/{summary['n_requests']} "
           f"requests, {summary['tokens']} tokens in {summary['wall_s']:.1f}s "
@@ -509,7 +536,46 @@ def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
           f"max_concurrent={summary['max_concurrent']}, "
           f"preemptions={summary['n_preemptions']}, reopts={summary['kv_n_reopt']} "
           f"| {card}", flush=True)
-    return launches
+    return dict(launches=launches, step_ms=step_ms, prefill_ms=prefill_ms,
+                tokens_per_s=summary["tokens_per_s"], pool_bytes=stats["graph_pool_bytes"],
+                n_compiles=stats["n_compiles"], completed=dict(eng.completed),
+                summary=summary)
+
+
+def first_divergence(want: dict, got: dict):
+    """(rid, step) of the first token where two runs' streams differ, or None."""
+    for rid in sorted(want):
+        a, b = want[rid], got.get(rid, [])
+        for i in range(max(len(a), len(b))):
+            if i >= len(a) or i >= len(b) or a[i] != b[i]:
+                return rid, i
+    return None
+
+
+def graph_ab(torch, ops, make_engine, live, expected, card, tag: str) -> dict:
+    """The same path run eagerly (``graphs=False``), then with one CUDA
+    graph per bucket, on the same trace and weights: print both runs'
+    decode step ms, tokens/s, prefill ms, graph pool bytes and compile
+    count, and fail unless every request's token stream is the same.
+    Returns the graph run (``serve_path``'s dict)."""
+    eager = serve_path(torch, ops, make_engine(graphs=False), live, expected, card,
+                       f"{tag}:eager")
+    free_cuda(torch)
+    graph = serve_path(torch, ops, make_engine(graphs=None), live, expected, card, tag)
+    where = first_divergence(eager["completed"], graph["completed"])
+
+    def side(r):
+        return (f"step_ms={r['step_ms']:.3f} tok/s={r['tokens_per_s']:.1f} "
+                f"prefill_ms={r['prefill_ms']:.2f} graph_pool={r['pool_bytes']} "
+                f"n_compiles={r['n_compiles']}")
+    print(f"[graph:{tag}] eager {side(eager)} | graphs {side(graph)} | decode step "
+          f"{eager['step_ms'] / graph['step_ms']:.2f}x; token streams identical: "
+          f"{where is None} | {card}", flush=True)
+    if where is not None:
+        rid, i = where
+        raise AssertionError(f"graph:{tag}: rid {rid} diverges at token {i}: eager "
+                             f"{eager['completed'][rid]} graphs {graph['completed'].get(rid)}")
+    return graph
 
 
 def free_cuda(torch) -> None:
@@ -536,25 +602,79 @@ def load_model(torch, Transformer, cfg, opts, seed: int, tag: str):
 def same_streams(torch, small, variants, Transformer, ServeEngine, what: str, *,
                  max_len: int = MAX_LEN, long_rids=()) -> None:
     """A shallow full-width f32 model serves identical greedy token streams
-    through each ``(RunOpts, attn_mode)`` variant: the kernels' path and
-    the plain path, on the same weights."""
+    through each ``(RunOpts, attn_mode)`` variant with CUDA graphs (the
+    kernels' path and the plain path, on the same weights), and through the
+    first variant again eagerly (``graphs=False``)."""
     trace_s, live_s = serve_trace(small, torch, 4, SEED + 3, long_rids)
     streams = []
     params = None
-    for opts, mode in variants:
+    for opts, mode, graphs in [*((o, m, None) for o, m in variants), (*variants[0], False)]:
         m = Transformer(small, opts)
         if params is None:
             params = m.init_loaded(torch.Generator(device="cuda").manual_seed(SEED + 3))
         e = ServeEngine(m, params, sample_trace=trace_s, max_len=max_len, max_batch=4,
-                        attn_mode=mode)
+                        attn_mode=mode, graphs=graphs)
         e.run(live_s)
         streams.append(e.completed)
-    same = sum(streams[0][r] == streams[1][r] for r in streams[1])
+    same = [sum(streams[0][r] == other[r] for r in other) for other in streams[1:]]
     print(f"[check] {small.name} f32 {small.n_layers}-layer full-width: {what} token "
-          f"streams identical for {same}/{len(live_s)} requests (prompts "
-          f"{[r.prompt_len for r in trace_s]})")
-    if same != len(live_s):
+          f"streams identical for {same[0]}/{len(live_s)} requests, graphs vs eager "
+          f"for {same[1]}/{len(live_s)} (prompts {[r.prompt_len for r in trace_s]})")
+    if same != [len(live_s)] * 2:
         raise AssertionError(f"token streams differ: {streams}")
+
+
+def churn_phase(torch, ops, cfg, model, params, card) -> dict:
+    """``[serve:churn]``: full-width qwen2-0.5b in paged mode at max_batch 8
+    on a trace of short prompts (16-64 tokens, so generated tokens weigh in
+    the pages) profiled at CHURN_PROFILED_GEN generated tokens while the
+    live requests ask for 32-48: the planned pool runs out, so requests are
+    preempted and restarted (slots and page-table rows reused under the
+    captured graphs) and the pool is replanned (§4.3).  Graphs against
+    eager through ``graph_ab`` (launches held to the formula in both); then
+    the graphed engine at ``replan_interval`` None and 4 on the same trace.
+    Returns the graph run."""
+    from repro_torch.runtime.serve_lib import Request
+    from repro_torch.serving import GenRequest, ServeEngine
+    rng = random.Random(SEED + 12)
+    g = torch.Generator().manual_seed(SEED + 12)
+    trace, live, t = [], [], 0
+    for i in range(N_REQUESTS):
+        t += rng.randint(0, 3)
+        n_prompt = rng.randint(16, 64)
+        trace.append(Request(rid=i + 1, prompt_len=n_prompt, gen_len=CHURN_PROFILED_GEN,
+                             arrival=t))
+        live.append(GenRequest(rid=i + 1, prompt=torch.randint(
+            0, cfg.vocab_size, (n_prompt,), generator=g, dtype=torch.int32),
+            gen_len=rng.randint(32, 48), arrival=t))
+
+    def make(graphs=None, replan_interval=64):
+        return ServeEngine(model, params, sample_trace=trace, max_len=MAX_LEN,
+                           max_batch=MAX_BATCH, attn_mode="paged", graphs=graphs,
+                           replan_interval=replan_interval)
+    run = graph_ab(torch, ops, make, live, lambda steps, prefills: {
+        "flash_attention": cfg.n_layers * prefills,
+        "paged_attention": cfg.n_layers * steps, "ssd_scan": 0,
+        "rglru_scan": 0}, card, "churn")
+    s = run["summary"]
+    if not (s["n_preemptions"] >= 1 and s["kv_n_reopt"] >= 1):
+        raise AssertionError(f"churn: preemptions {s['n_preemptions']}, replans "
+                             f"{s['kv_n_reopt']}: the trace did not churn")
+    reopt = {}
+    for interval in (None, 4):
+        free_cuda(torch)
+        eng = make(replan_interval=interval)
+        eng.warmup()
+        summ = eng.run(live)
+        kv = eng.kv.stats()
+        reopt[interval] = (summ["kv_n_reopt"], summ["n_preemptions"], kv["replan_causes"])
+        if summ["n_completed"] != len(live):
+            raise AssertionError(f"churn replan_interval={interval}: completed "
+                                 f"{summ['n_completed']}/{len(live)}")
+    print(f"[serve:churn] replans (n_reopt, preemptions, causes) at replan_interval "
+          f"None: {reopt[None]}; 4: {reopt[4]}; 64: ({s['kv_n_reopt']}, "
+          f"{s['n_preemptions']})", flush=True)
+    return run
 
 
 def check_forward(torch, cfg, Transformer, params, tokens, kernel, plain, yardstick,
@@ -890,13 +1010,15 @@ def main() -> int:
     # -- 4. the qwen2 path: full-width qwen2-0.5b, paged decode, flash prefill -------
     model, params = load_model(torch, Transformer, cfg, RunOpts(attention_impl="kernel"),
                                SEED, "qwen2")
-    eng = ServeEngine(model, params, sample_trace=trace, max_len=MAX_LEN,
-                      max_batch=MAX_BATCH, attn_mode="paged")
-    qwen2 = serve_path(torch, ops, eng, live, lambda steps, prefills: {
+    qwen2 = graph_ab(torch, ops, lambda graphs: ServeEngine(
+        model, params, sample_trace=trace, max_len=MAX_LEN, max_batch=MAX_BATCH,
+        attn_mode="paged", graphs=graphs), live, lambda steps, prefills: {
         "flash_attention": cfg.n_layers * prefills,
         "paged_attention": cfg.n_layers * steps, "ssd_scan": 0,
-        "rglru_scan": 0}, card, "qwen2")
-    del model, params, eng
+        "rglru_scan": 0}, card, "qwen2")["launches"]
+    stamp(t_start, "[graph:qwen2]")
+    churn = churn_phase(torch, ops, cfg, model, params, card)
+    del model, params
     same_streams(torch, cfg.with_overrides(n_layers=2, dtype="float32"),
                  [(RunOpts(attention_impl="kernel"), "paged"),
                   (RunOpts(attention_impl="full"), "gather")],
@@ -905,13 +1027,13 @@ def main() -> int:
     # -- the phi4 path: full-width phi4-mini-3.8b, head_dim 128, the same trace ------
     model, params = load_model(torch, Transformer, cfg_p, RunOpts(attention_impl="kernel"),
                                SEED, "phi4")
-    eng = ServeEngine(model, params, sample_trace=trace_p, max_len=MAX_LEN,
-                      max_batch=MAX_BATCH, attn_mode="paged")
-    phi4 = serve_path(torch, ops, eng, live_p, lambda steps, prefills: {
+    phi4 = graph_ab(torch, ops, lambda graphs: ServeEngine(
+        model, params, sample_trace=trace_p, max_len=MAX_LEN, max_batch=MAX_BATCH,
+        attn_mode="paged", graphs=graphs), live_p, lambda steps, prefills: {
         "flash_attention": cfg_p.n_layers * prefills,
         "paged_attention": cfg_p.n_layers * steps, "ssd_scan": 0,
-        "rglru_scan": 0}, card, "phi4")
-    del model, params, eng
+        "rglru_scan": 0}, card, "phi4")["launches"]
+    del model, params
     same_streams(torch, cfg_p.with_overrides(n_layers=2, dtype="float32"),
                  [(RunOpts(attention_impl="kernel"), "paged"),
                   (RunOpts(attention_impl="full"), "gather")],
@@ -923,12 +1045,13 @@ def main() -> int:
     trace_m, live_m = serve_trace(cfg_m, torch, N_REQUESTS, SEED)
     model, params = load_model(torch, Transformer, cfg_m, RunOpts(use_kernels=True),
                                SEED, "mamba2")
-    eng = ServeEngine(model, params, sample_trace=trace_m, max_len=MAX_LEN,
-                      max_batch=MAX_BATCH, attn_mode="gather")
-    mamba2 = serve_path(torch, ops, eng, live_m, lambda steps, prefills: {
+    mamba2 = graph_ab(torch, ops, lambda graphs: ServeEngine(
+        model, params, sample_trace=trace_m, max_len=MAX_LEN, max_batch=MAX_BATCH,
+        attn_mode="gather", graphs=graphs), live_m, lambda steps, prefills: {
         "flash_attention": 0, "paged_attention": 0,
-        "ssd_scan": cfg_m.n_layers * prefills, "rglru_scan": 0}, card, "mamba2")
-    del model, params, eng
+        "ssd_scan": cfg_m.n_layers * prefills, "rglru_scan": 0}, card,
+        "mamba2")["launches"]
+    del model, params
     stamp(t_start, "[serve:mamba2]")
     same_streams(torch, cfg_m.with_overrides(n_layers=2, dtype="float32"),
                  [(RunOpts(use_kernels=True), "gather"),
@@ -956,12 +1079,11 @@ def main() -> int:
     kinds = layer_kinds(cfg_r)
     n_rec, n_local = kinds.count("rec"), kinds.count("local")
     model, params = load_model(torch, Transformer, cfg_r, RunOpts(), SEED, "rgemma")
-    eng = ServeEngine(model, params, sample_trace=trace_r, max_len=HYBRID_MAX_LEN,
-                      max_batch=MAX_BATCH, attn_mode="gather")
-    rgemma = serve_path(torch, ops, eng, live_r, lambda steps, prefills: {
+    rgemma = graph_ab(torch, ops, lambda graphs: ServeEngine(
+        model, params, sample_trace=trace_r, max_len=HYBRID_MAX_LEN, max_batch=MAX_BATCH,
+        attn_mode="gather", graphs=graphs), live_r, lambda steps, prefills: {
         "flash_attention": n_local * prefills, "paged_attention": 0,
-        "ssd_scan": 0, "rglru_scan": n_rec * prefills}, card, "rgemma")
-    del eng
+        "ssd_scan": 0, "rglru_scan": n_rec * prefills}, card, "rgemma")["launches"]
     stamp(t_start, "[serve:rgemma]")
     free_cuda(torch)
     # the random-weight stack is chaotic: rounding flips grow with depth until
@@ -1009,6 +1131,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:76",
          "launches": qwen2["paged_attention"] + phi4["paged_attention"],
+         "churn_launches": churn["launches"]["paged_attention"],
          "train_launches": train["paged_attention"],
          "max_abs_err": max(paged_worst["bfloat16"], paged128_worst["bfloat16"]),
          "ms": pk["ms"],
@@ -1021,6 +1144,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:73",
          "launches": (qwen2["flash_attention"] + phi4["flash_attention"]
                       + rgemma["flash_attention"]),
+         "churn_launches": churn["launches"]["flash_attention"],
          "train_launches": train["flash_attention"],
          "max_abs_err": max(flash_worst["bfloat16"], flash128_worst["bfloat16"],
                             flash_wide_worst["bfloat16"]),

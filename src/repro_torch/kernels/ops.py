@@ -9,7 +9,8 @@ refuses (``ValueError``) a tensor that requires grad while grad mode is on,
 on every device: its output would come back detached and the gradient would
 be lost without an error.  ``<wrapper>.launches`` counts kernel
 launches (plain-version calls do not count), so a run can show that its main
-path went through the kernels.
+path went through the kernels; a launch captured into a CUDA graph counts
+once per replay (``CapturedLaunches``).
 """
 from __future__ import annotations
 
@@ -138,3 +139,27 @@ WRAPPERS = (flash_attention, paged_attention, ssd_scan, rglru_scan)
 def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+
+
+class CapturedLaunches:
+    """Launch accounting for one CUDA graph.  A wrapper counts in Python, so
+    a replayed graph would count nothing, and its capture, which runs
+    nothing, would count once.  Around the capture (``with
+    CapturedLaunches() as rec:``) this takes each wrapper's count before
+    and after, keeps the difference as the graph's launches (``counts``) and
+    puts the counters back; ``replayed()`` then adds them once per
+    replay."""
+
+    def __enter__(self):
+        self._before = [fn.launches for fn in WRAPPERS]
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.counts = {}
+        for fn, before in zip(WRAPPERS, self._before):
+            self.counts[fn.__name__] = fn.launches - before
+            fn.launches = before
+
+    def replayed(self) -> None:
+        for fn in WRAPPERS:
+            fn.launches += self.counts[fn.__name__]

@@ -9,10 +9,15 @@ window of engine steps with every request already decoding.
 Attention models decode off the paged pool (``attn_mode="paged"``); models
 with recurrent state decode in gather mode, the only mode they support.
 
-Prints the host time per step, the device time the profiler attributes to
-kernels per step, their ratio (the device's busy share), and the kernels
-with the most device time.  Runs on the card; ``--device cpu`` runs the
-plain versions and shows host time only.
+The engine is profiled as built: on the card its runner replays one CUDA
+graph per bucket.  Prints the host time per step, the device time the
+profiler attributes to kernels per step, their ratio (the device's busy
+share), and the kernels with the most device time.  With graphs it then
+runs a second, unprofiled window of as many steps and times each replay
+with CUDA events: replay device ms per step against the host ms of the
+same steps is a busy share that does not rest on the profiler seeing
+kernels inside graphs.  Runs on the card; ``--device cpu`` runs the plain
+versions eagerly and shows host time only.
 """
 from __future__ import annotations
 
@@ -82,12 +87,27 @@ def main(argv=None) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.steps
     print(f"[profile] {cfg.name} batch={args.batch} prompt={args.prompt_len} "
-          f"attn={eng.attn_mode} steps={args.steps} on {model.device}: "
-          f"host step_ms={wall_ms:.3f} "
+          f"attn={eng.attn_mode} graphs={eng.graphs} steps={args.steps} on "
+          f"{model.device}: host step_ms={wall_ms:.3f} "
           f"device_ms_per_step={dev_ms:.3f} busy_share={dev_ms / wall_ms:.3f}")
     for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
         print(f"[profile]   {_device_us(e) / 1e3 / args.steps:8.4f} ms/step "
               f"x{e.count // args.steps:<4d} {e.key[:90]}")
+    if eng.graphs:
+        eng.runner.replay_events = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+        ev = eng.runner.replay_events
+        eng.runner.replay_events = None
+        rep_ms = sum(a.elapsed_time(b) for a, b in ev) / args.steps
+        print(f"[profile] unprofiled window, CUDA events around the {len(ev)} "
+              f"graph replays: host step_ms={wall_ms:.3f} "
+              f"replay_device_ms_per_step={rep_ms:.3f} "
+              f"busy_share={rep_ms / wall_ms:.3f}")
 
 
 if __name__ == "__main__":

@@ -17,7 +17,11 @@ exist in f32 all at once.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --preset full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --preset full
 
-Runs on the card; ``--device cpu`` runs the plain PyTorch versions instead.
+Decode runs through the bucketed ``DecodeRunner``, one CUDA graph per
+bucket on the card; ``--no-runner`` decodes every slot each step through
+the full-batch "slab" step (one graph per batch shape on the card).
+Runs on the card; ``--device cpu`` runs the plain PyTorch versions instead,
+eagerly.
 ``--share-hbm``, ``--trace`` and the ``--slo-*`` reports of the reference
 driver are not ported yet.
 """
@@ -87,6 +91,10 @@ def main(argv=None) -> None:
                     help="page size in tokens (default: profile-guided)")
     ap.add_argument("--policy", choices=["fcfs", "priority"], default="fcfs")
     ap.add_argument("--prefill-chunk", type=int, default=512)
+    ap.add_argument("--runner", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="decode via the bucketed DecodeRunner (--no-runner: "
+                         "the full-batch slab decode step)")
     ap.add_argument("--attn", choices=["gather", "paged"], default="gather",
                     help="decode KV layout: 'gather' copies each slot's "
                          "contiguous cache rows through the runner; 'paged' "
@@ -118,12 +126,14 @@ def main(argv=None) -> None:
     eng = ServeEngine(model, params, sample_trace=trace, max_len=args.max_len,
                       max_batch=args.max_batch, page_tokens=args.page_tokens,
                       policy=args.policy, prefill_chunk=args.prefill_chunk,
-                      accounting_cfg=full_cfg, attn_mode=args.attn)
-    t0 = time.perf_counter()
-    eng.warmup()
-    print(f"[runner] buckets={list(eng.runner.buckets)} warmed "
-          f"{eng.runner.n_compiles} buckets in {time.perf_counter() - t0:.1f}s "
-          f"on {model.device}")
+                      accounting_cfg=full_cfg, use_runner=args.runner,
+                      attn_mode=args.attn)
+    if args.runner:
+        t0 = time.perf_counter()
+        eng.warmup()
+        print(f"[runner] buckets={list(eng.runner.buckets)} "
+              f"graphs={eng.graphs} warmed {eng.runner.n_compiles} "
+              f"compiles in {time.perf_counter() - t0:.1f}s on {model.device}")
     kv = eng.kv.stats()
     print(f"[paged pool] page_tokens={kv['page_tokens']} "
           f"n_pages={kv['n_pages']} pool={kv['pool_bytes'] / 1e6:.2f}MB "
@@ -141,9 +151,11 @@ def main(argv=None) -> None:
             for r in trace]
     summary = eng.run(live)
     if eng.decode_steps:
-        print(f"[decode:runner] steps={eng.decode_steps} "
+        mode, compiles = (("runner", eng.runner.n_compiles) if args.runner
+                          else ("slab", eng.decode_compiles))
+        print(f"[decode:{mode}] steps={eng.decode_steps} "
               f"step_ms={1e3 * eng.decode_time_s / eng.decode_steps:.2f} "
-              f"compiles={eng.runner.n_compiles} "
+              f"graphs={eng.graphs} compiles={compiles} "
               f"prefill_compiles={eng.prefill_compiles} "
               f"prefill_ms={1e3 * eng.prefill_time_s / max(1, eng.prefill_calls):.2f}")
     ttft = summary["ttft_steps_mean"]

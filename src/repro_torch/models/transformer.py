@@ -183,6 +183,13 @@ class Transformer:
         self.opts = opts
         self.device = resolve_device(device)
         self.compute_dtype = DTYPES[cfg.dtype]
+        # gemma-style embed scaling by bf16(sqrt(d)), the reference's
+        # numerics; made once on the device, since a host-built tensor
+        # cannot be copied in while a CUDA graph is being captured
+        self._embed_scale = (torch.tensor(math.sqrt(cfg.d_model),
+                                          dtype=self.compute_dtype,
+                                          device=self.device)
+                             if cfg.family == "hybrid" else None)
 
     # ---- schema / params ------------------------------------------------------
     def schema(self) -> Schema:
@@ -257,9 +264,8 @@ class Transformer:
 
     def _embed_in(self, params, tokens):
         x = embed_lookup(params["embed"], tokens)
-        if self.cfg.family == "hybrid":             # gemma-style embed scaling
-            x = x * torch.tensor(math.sqrt(self.cfg.d_model),
-                                 dtype=self.compute_dtype, device=x.device)
+        if self._embed_scale is not None:
+            x = x * self._embed_scale
         return x
 
     def logits(self, params, x):
@@ -342,7 +348,7 @@ class Transformer:
         if self.kind != "attn":
             raise NotImplementedError(
                 f"loss_fn: training the {self.kind} pattern is not ported yet "
-                "(ROADMAP queue 1, item 9)")
+                "(ROADMAP queue 1, item 8)")
         if self.opts.attention_impl == "kernel" or self.opts.use_kernels:
             raise ValueError("loss_fn: the CUDA kernels have no backward; train with "
                              "RunOpts(attention_impl='full', use_kernels=False)")

@@ -1,22 +1,124 @@
-"""Serving runtime: the DSA-planned KV arena and request traces.
+"""Serving runtime: the prefill/decode step factories, the DSA-planned KV arena
+and request traces.
 
 This is where the paper's technique is a first-class serving feature: request
 cache slabs are rectangles (size = cache bytes at final length, lifetime =
 [admit, finish)), planned with the best-fit heuristic, with §4.3
 reoptimization when a request outgrows its profiled length.  Port of
-``repro.runtime.serve_lib``; the jitted step builders have no counterpart
-here because PyTorch runs the model's prefill/decode calls eagerly.
+``repro.runtime.serve_lib``.  The reference jits both steps; here the
+decode step is captured into one CUDA graph per batch shape on the card
+(``runtime.graphs``) and runs eagerly on the CPU, and prefill runs eagerly
+everywhere.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
+
+import torch
 
 from ..configs.base import ModelConfig
 from ..core import ArenaAllocator, Block, MemoryProfile, PoolAllocator, align, best_fit
+from .graphs import StepGraph, use_graphs
 
 # Bytes per element of each config dtype (``jnp.dtype(cfg.dtype).itemsize``
 # in the reference).
 DTYPE_ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode steps
+# ---------------------------------------------------------------------------
+
+
+def _refuse_mesh(mesh, what: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what}(mesh=...): sharding is not ported yet (ROADMAP queue 1, "
+            "item 10: runtime/{mesh_ctx,sharding_rules})")
+
+
+def build_prefill_step(model, mesh, batch_sds: Optional[dict] = None,
+                       max_len: Optional[int] = None, trace_hook=None):
+    """``prefill(params, batch)`` -> ``model.prefill(params, batch,
+    max_len=max_len)``, eager.  ``trace_hook(batch)`` fires once per new
+    (prompt length, has ``true_len``) signature: the reference's jit traces
+    once per such signature, and the hook counts those traces.
+    ``batch_sds`` only shards the reference's step; ``mesh`` must be None."""
+    _refuse_mesh(mesh, "build_prefill_step")
+    del batch_sds
+    seen: set = set()
+
+    def prefill(params, batch):
+        sig = (int(batch["tokens"].shape[1]), "true_len" in batch)
+        if sig not in seen:
+            seen.add(sig)
+            if trace_hook is not None:
+                trace_hook(batch)
+        return model.prefill(params, batch, max_len=max_len)
+    return prefill
+
+
+def build_decode_step(model, mesh, batch: Optional[int] = None,
+                      max_len: Optional[int] = None, donate: bool = True,
+                      shard_cache_len: bool = False, trace_hook=None,
+                      graphs: Optional[bool] = None):
+    """``decode(params, cache, tokens)`` -> ``(logits, cache)``: the "slab"
+    step, every row of the batch cache advanced by one token, the cache
+    (``pos`` included) updated in place and returned.
+
+    ``graphs`` (default: on when the model lies on a CUDA device) captures
+    the step into one CUDA graph per batch shape, bound to the ``params``
+    and ``cache`` it was captured with; another cache captures again.
+    Before a shape's first capture the step runs once eagerly on a zeroed
+    copy of the cache, to pay first-call costs outside the capture.  The
+    graph returns its static logits, overwritten by the next call.
+    ``tokens`` are copied into the graph's own input buffer, so any (B,)
+    tensor may be passed.  ``trace_hook(tokens)`` fires once per capture
+    (the reference: once per trace); eagerly, once per batch shape.
+
+    ``donate`` is implied (the cache is updated in place); ``batch``,
+    ``max_len`` and ``shard_cache_len`` only shard the reference's step and
+    ``mesh`` must be None."""
+    _refuse_mesh(mesh, "build_decode_step")
+    del batch, max_len, donate, shard_cache_len
+    graphs = use_graphs(graphs, model.device)
+    seen: set = set()
+    captured: dict[int, StepGraph] = {}
+    pool = torch.cuda.graph_pool_handle() if graphs else None
+
+    @torch.no_grad()
+    def step(params, cache, tokens):
+        logits, new = model.decode_step(params, cache, tokens)
+        for name, leaf in new.items():
+            if leaf is not cache[name]:
+                cache[name].copy_(leaf)
+        return logits
+
+    def decode(params, cache, tokens):
+        b = int(tokens.shape[0])
+        if not graphs:
+            if b not in seen:
+                seen.add(b)
+                if trace_hook is not None:
+                    trace_hook(tokens)
+            return step(params, cache, tokens), cache
+        g = captured.get(b)
+        if g is None or not g.binds(params, list(cache.values())):
+            if b not in seen:
+                seen.add(b)
+                step(params, {k: torch.zeros_like(v) for k, v in cache.items()},
+                     torch.zeros_like(tokens))
+            captured.pop(b, None)
+            static = torch.zeros_like(tokens)
+            g = captured[b] = StepGraph(lambda: (step(params, cache, static), static),
+                                        params=params, tensors=list(cache.values()),
+                                        pool=pool)
+            if trace_hook is not None:
+                trace_hook(tokens)
+        g.out[1].copy_(tokens)
+        return g.replay()[0], cache
+    return decode
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:

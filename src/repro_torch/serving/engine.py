@@ -9,7 +9,9 @@ under serving churn).
 
 ``cache["pos"]`` is a per-slot position vector, so every row attends and
 writes at its own offset no matter when it was admitted.  Decode runs
-through the bucketed ``DecodeRunner``; prompts of pure-attention models are
+through the bucketed ``DecodeRunner`` (one CUDA graph per bucket on the
+card) or, with ``use_runner=False``, through the full-batch "slab" step of
+``serve_lib.build_decode_step``; prompts of pure-attention models are
 padded to a power-of-two ladder before prefill (a recurrent state would
 integrate the pad tokens, so mamba2 and recurrentgemma prompts go in
 unpadded).  ``attn_mode="paged"`` decodes straight off per-layer page pools
@@ -30,16 +32,15 @@ from ..configs.base import ModelConfig
 from ..models.transformer import Transformer
 from ..obs.metrics import get_registry
 from ..obs.trace import get_tracer
-from ..runtime.serve_lib import Request
+from ..runtime.graphs import use_graphs
+from ..runtime.serve_lib import Request, build_decode_step, build_prefill_step
+from . import pages as pages_lib
 from .metrics import ServeMetrics
 from .pages import PagePoolExhausted, PagedKVCache
 from .runner import DecodeRunner
 from .scheduler import GenRequest, RequestState, ScheduledRequest, Scheduler
 
 PREFILL_BUCKET_MIN = 8          # floor of the power-of-two prompt ladder
-# close a §4.3 epoch every this many steps even under sustained load (an
-# engine that never goes idle would otherwise starve decode-outrun replans)
-REPLAN_INTERVAL = 64
 
 
 class ServeEngine:
@@ -49,33 +50,79 @@ class ServeEngine:
                  sample_trace: Sequence[Request], max_len: int,
                  max_batch: int = 8, page_tokens: Optional[int] = None,
                  policy: str = "fcfs", prefill_chunk: int = 512,
+                 hbm_budget: Optional[int] = None, reserve_pages: int = 0,
                  accounting_cfg: Optional[ModelConfig] = None,
-                 attn_mode: str = "gather"):
+                 mesh=None, shared=None,
+                 metrics: Optional[ServeMetrics] = None,
+                 use_runner: bool = True,
+                 attn_mode: str = "gather",
+                 replan_interval: Optional[int] = 64,
+                 graphs: Optional[bool] = None):
         """``model`` fixes the device (the card unless it was built with
         ``device="cpu"``); ``params`` are ``model.load``-ed parameters.
 
         ``accounting_cfg`` lets the page pool account at full-size arch
         scale while a reduced model executes (the launch-driver pattern).
+        ``hbm_budget`` caps admission at the largest concurrency whose
+        planned pool fits it; ``reserve_pages`` pads the pool.
+
+        ``use_runner=False`` decodes every slot each step through the
+        full-batch "slab" step (the reference's baseline).
 
         ``attn_mode="paged"`` executes decode straight off per-layer page
         pools: the PagedKVCache's exec page tables address the pools inside
         the attention kernel, so no contiguous per-request KV copy ever
-        materializes."""
+        materializes.  It needs the runner and a pure-attention model.
+
+        ``replan_interval``: close a §4.3 epoch every this many steps even
+        under sustained load (None: only when fully idle).
+
+        ``graphs`` (the port's counterpart of the reference runner's
+        ``donate``): decode through CUDA graphs; None means on when the
+        model lies on a CUDA device, False runs the same steps eagerly.
+
+        ``mesh`` and ``shared`` are the reference's sharding and
+        ``SharedArena`` options, not ported yet: anything but None raises."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServeEngine(mesh=...): sharding is not ported yet (ROADMAP "
+                "queue 1, item 10)")
+        if shared is not None:
+            raise NotImplementedError(
+                "ServeEngine(shared=...): core/unified's SharedArena is not "
+                "ported yet (ROADMAP queue 1, item 3)")
         self.model = model
         self.params = params
         self.device = model.device
         self.max_len = max_len
         self.max_batch = max_batch
         acct = accounting_cfg or model.cfg
-        self.kv = PagedKVCache(acct, sample_trace, page_tokens=page_tokens)
+        self.kv = PagedKVCache(acct, sample_trace, page_tokens=page_tokens,
+                               reserve_pages=reserve_pages)
+        cap = None
+        if hbm_budget is not None:
+            cap = pages_lib.max_concurrency(acct, sample_trace,
+                                            self.kv.page_tokens, hbm_budget,
+                                            hi=max_batch)
         self.sched = Scheduler(self.kv, max_batch=max_batch, policy=policy,
-                               prefill_chunk=prefill_chunk)
-        self.metrics = ServeMetrics()
-        self.runner = DecodeRunner(model, max_batch=max_batch)
-        self._prefill_shapes: set = set()
+                               max_concurrency=cap, prefill_chunk=prefill_chunk)
+        self.metrics = metrics if metrics is not None else ServeMetrics()
+        self.graphs = use_graphs(graphs, model.device)
+        self.prefill = build_prefill_step(model, None,
+                                          trace_hook=self._on_prefill_trace)
+        self.runner = self.decode = None
+        if use_runner:
+            self.runner = DecodeRunner(model, max_batch=max_batch,
+                                       graphs=self.graphs)
+        else:
+            self.decode = build_decode_step(model, None, donate=False,
+                                            trace_hook=self._on_decode_trace,
+                                            graphs=self.graphs)
+        self.replan_interval = replan_interval
         self.prefill_compiles = 0
         self.prefill_calls = 0
         self.prefill_time_s = 0.0
+        self.decode_compiles = 0
         self.decode_steps = 0
         self.decode_time_s = 0.0
         cfg = model.cfg
@@ -84,6 +131,11 @@ class ServeEngine:
             raise ValueError(f"unknown attn_mode {attn_mode!r}")
         self.attn_mode = attn_mode
         if attn_mode == "paged":
+            if not use_runner:
+                raise ValueError(
+                    "attn_mode='paged' requires use_runner=True: the "
+                    "full-batch decode advances every slot, so stale rows "
+                    "would scatter their KV into page 0")
             if not self._pad_prefill:
                 raise ValueError(
                     "attn_mode='paged' needs a pure-attention decoder "
@@ -104,23 +156,25 @@ class ServeEngine:
         self.step_count = 0
         self.completed: dict[int, list[int]] = {}
 
-    # -- prefill shape accounting (the reference's trace-time hook) ---------------
-    def _prefill(self, batch) -> tuple:
-        """Run the model's prefill; count each new padded prompt shape once
-        (the reference counts jit retraces, one per shape signature)."""
-        sig = (int(batch["tokens"].shape[1]), "true_len" in batch)
-        if sig not in self._prefill_shapes:
-            self._prefill_shapes.add(sig)
-            self.prefill_compiles += 1
-            reg = get_registry()
-            if reg is not None:
-                reg.counter("prefill_compile_total",
-                            "prefill shapes first seen").inc()
-            t = get_tracer()
-            if t is not None:
-                t.instant("compile", "serving", track="prefill", seq=sig[0],
-                          total=self.prefill_compiles)
-        return self.model.prefill(self.params, batch)
+    # -- compile accounting (the reference's trace-time hooks) --------------------
+    def _on_prefill_trace(self, batch) -> None:
+        self.prefill_compiles += 1
+        reg = get_registry()
+        if reg is not None:
+            reg.counter("prefill_compile_total",
+                        "prefill shapes first seen").inc()
+        t = get_tracer()
+        if t is not None:
+            t.instant("compile", "serving", track="prefill",
+                      seq=int(batch["tokens"].shape[1]),
+                      total=self.prefill_compiles)
+
+    def _on_decode_trace(self, tokens) -> None:
+        self.decode_compiles += 1
+        t = get_tracer()
+        if t is not None:
+            t.instant("compile", "serving", track="decode",
+                      batch=int(tokens.shape[0]), total=self.decode_compiles)
 
     def _sync_device(self) -> None:
         if self.device.type == "cuda":
@@ -136,17 +190,19 @@ class ServeEngine:
                 and not cfg.is_encoder_decoder and not cfg.n_experts)
 
     def warmup(self) -> None:
-        """Warm every runner bucket and, for padded prompts, every prefill
-        ladder shape, so the serving loop sees no first-call cost and the
-        compile counters stay flat from step 0.  Unpadded (recurrent) prompts
-        have no ladder to warm."""
-        self.runner.warmup(self.params, self.cache, self.tokens)
+        """Warm (and on the card capture) every runner bucket and, for padded
+        prompts, every prefill ladder shape, so the serving loop sees no
+        first-call cost and the compile counters stay flat from step 0.
+        Unpadded (recurrent) prompts have no ladder to warm."""
+        if self.runner is not None:
+            self.runner.warmup(self.params, self.cache, self.tokens)
         padded = PREFILL_BUCKET_MIN
         while self._pad_prefill:
             p = min(padded, self.max_len)
-            self._prefill({"tokens": torch.zeros((1, p), dtype=torch.int32,
-                                                 device=self.device),
-                           "true_len": p})
+            self.prefill(self.params,
+                         {"tokens": torch.zeros((1, p), dtype=torch.int32,
+                                                device=self.device),
+                          "true_len": p})
             if p >= self.max_len:
                 break
             padded *= 2
@@ -185,7 +241,8 @@ class ServeEngine:
         self.step_count += 1
         if self.sched.idle:
             self.kv.reset_epoch()       # epoch boundary: §4.3 replan if dirty
-        elif self.step_count % REPLAN_INTERVAL == 0:
+        elif (self.replan_interval
+              and self.step_count % self.replan_interval == 0):
             self.kv.reset_epoch()       # sustained load: close on a clock
 
     def _prefill_batch(self, prompt) -> dict:
@@ -212,7 +269,8 @@ class ServeEngine:
             t.instant("prefill", "serving", track="engine", rid=sr.rid,
                       prompt_len=sr.prompt_len, slot=sr.slot)
         t0 = time.perf_counter()
-        logits, cache1 = self._prefill(self._prefill_batch(sr.req.prompt))
+        logits, cache1 = self.prefill(self.params,
+                                      self._prefill_batch(sr.req.prompt))
         if self.attn_mode == "paged":
             self._merge_paged(cache1, sr)
         else:
@@ -239,10 +297,18 @@ class ServeEngine:
                       n_running=len(running))
         t0 = time.perf_counter()
         slots = [sr.slot for sr in running]
-        # nxt arrives as host ints (step_greedy blocks on the transfer)
-        nxt, self.tokens, self.cache = self.runner.step_greedy(
-            self.params, self.cache, self.tokens, slots)
-        by_slot = {slot: i for i, slot in enumerate(slots)}
+        if self.runner is not None:
+            # nxt arrives as host ints (step_greedy blocks on the transfer)
+            nxt, self.tokens, self.cache = self.runner.step_greedy(
+                self.params, self.cache, self.tokens, slots)
+            by_slot = {slot: i for i, slot in enumerate(slots)}
+        else:
+            # the slab step advances every slot; read the running ones
+            logits, self.cache = self.decode(self.params, self.cache,
+                                             self.tokens)
+            self.tokens.copy_(logits.argmax(dim=-1))
+            nxt = self.tokens.cpu().numpy()     # one blocking transfer
+            by_slot = {slot: slot for slot in slots}
         self.decode_time_s += time.perf_counter() - t0
         self.decode_steps += 1
         for sr in running:

@@ -297,3 +297,27 @@ def test_phi4_engine_matches_reference_paged_and_gather(phi4_pair):
                          page_tokens=8, attn_mode="gather")
     gather.run(tl)
     assert gather.completed == teng.completed
+
+
+# --------------------------------------------------------------------------
+# the slab decode (use_runner=False) on the recurrent patterns
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("models_pair", ["mamba2_pair", "hybrid_pair"])
+def test_slab_decode_of_recurrent_models_matches_reference(models_pair, request):
+    """``use_runner=False`` advances every slot's state each step, idle
+    slots included; a slot's state is replaced whole at its next admission,
+    so the streams, summaries and page counts equal the reference's."""
+    jm, jp, tm, tp = request.getfixturevalue(models_pair)
+    lens = (3, 13, 5, 9)
+    shapes = [(i + 1, lens[i % 4], 4, 5 + (3 * i) % 7, i) for i in range(8)]
+    jt, tt, jl, tl = _workload(jm.cfg, shapes)
+    kw = dict(max_len=40, max_batch=4, page_tokens=None, attn_mode="gather",
+              use_runner=False)
+    jeng = JServeEngine(jm, jp, sample_trace=jt, **kw)
+    teng = ServeEngine(tm, tp, sample_trace=tt, **kw)
+    js, ts = jeng.run(jl), teng.run(tl)
+    assert ts["n_completed"] == len(shapes) and ts["max_concurrent"] >= 3
+    _assert_same(jeng, js, teng, ts)
+    assert teng.decode_compiles == jeng.decode_compiles == 1
