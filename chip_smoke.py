@@ -29,9 +29,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      then ``[serve:churn]``: the same model on a trace profiled at 8
      generated tokens whose live requests ask 32-48, so the pool runs out,
      requests are preempted and the pool is replanned, with graphs against
-     eager and at ``replan_interval`` None and 4; then the same serving path
-     for full-width, full-depth phi4-mini-3.8b (32 layers, head dim 128,
-     7.7 GB of bf16 weights) on the first trace;
+     eager and at ``replan_interval`` None and 4; then ``[serve:shared]``:
+     the same model serving 32 requests (prompts 256-1024, 64 generated
+     tokens) beside a fine-tune of the same weights (SGD, its gradient norm
+     clipped to 1, on a private bf16 replica, B=2 x S=512, the plain
+     attention path) in one
+     ``SharedArena``, at a budget halfway between the joint plan's peak and
+     the two tenants' standalone sum, so the run fits only because the
+     tenants share; the fine-tune steps fire in the valleys the arena
+     scheduled (``launch.serve.run_interleaved``), and the token streams
+     must equal those of the same engine run with no fine-tune steps; then
+     the same serving path for full-width, full-depth phi4-mini-3.8b (32
+     layers, head dim 128, 7.7 GB of bf16 weights) on the first trace;
   5. serve full-width mamba2-130m (24 layers, bf16, seeded random weights)
      in gather mode with the SSD kernel in every prefill, then check it
      against its plain path: token streams of a 2-layer f32 model, and the
@@ -106,6 +115,10 @@ SSM_ARCH = "mamba2-130m"
 HYBRID_ARCH = "recurrentgemma-9b"
 MAX_BATCH, MAX_LEN, GEN_LEN, N_REQUESTS, SEED = 8, 1024, 32, 12, 0
 CHURN_PROFILED_GEN = 8      # the churn trace's profile; live requests ask 32-48
+# [serve:shared]: 32 requests of 256-1024 prompt tokens and 64 generated ones
+# (~0.4 GB of KV at full width) beside a fine-tune of B=2 x S=512
+# (launch.serve.FULL_FINETUNE_SEQ_BATCH), 2 fine-tune steps per serving round
+SHARED_REQUESTS, SHARED_GEN, SHARED_MAX_LEN, SHARED_TRAIN_STEPS = 32, 64, 2048, 2
 HYBRID_MAX_LEN = 4096       # room for the 2100-3000-token prompts
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
 # the reference's own plan_remat_policy / plan_with_remat parameters; a
@@ -677,6 +690,144 @@ def churn_phase(torch, ops, cfg, model, params, card) -> dict:
     return run
 
 
+def shared_phase(torch, ops, cfg, model, params, card) -> dict:
+    """``[serve:shared]``: full-width qwen2-0.5b serving (paged decode, flash
+    prefill, graphs) and fine-tuning (B=2 x S=512 SGD steps, gradient norm
+    clipped to 1, on a private replica of the served bf16 weights, plain
+    attention) in one
+    ``SharedArena``.  The fine-tune step is profiled as it runs (``make_fx``
+    over the replica's dtypes); a probe arena with both tenants gives the
+    joint peak and the standalone sum, and the budget is set halfway
+    between them (plus the retained bytes), so the plan is feasible only
+    because the tenants share.  The shrink hook (the eviction search) is
+    not wired here: at full width it takes minutes on the host, and the
+    CPU tests drive it.  Fails unless the plan is feasible, a fine-tune step
+    fired, every request completed, the launches equal the serving path's
+    formula, and the token streams equal those of a second engine built the
+    same way and run with ``eng.run(live)``.  Returns the launches and the
+    numbers it printed."""
+    from repro_torch.core import SharedArena
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.runtime import train_lib
+    from repro_torch.runtime.serve_lib import Request
+    from repro_torch.serving import GenRequest, ServeEngine
+    from repro_torch.serving.pages import choose_page_tokens
+    from torch.utils._pytree import tree_leaves
+    free_cuda(torch)
+    t_phase = time.perf_counter()
+    rng = random.Random(SEED + 13)
+    g = torch.Generator().manual_seed(SEED + 13)
+    trace, live, t = [], [], 0
+    for i in range(SHARED_REQUESTS):
+        t += rng.randint(0, 3)
+        n_prompt = rng.randint(256, 1024)
+        trace.append(Request(rid=i + 1, prompt_len=n_prompt, gen_len=SHARED_GEN,
+                             arrival=t))
+        live.append(GenRequest(rid=i + 1, prompt=torch.randint(
+            0, cfg.vocab_size, (n_prompt,), generator=g, dtype=torch.int32),
+            gen_len=SHARED_GEN, arrival=t))
+    seq, batch = serve_cli.finetune_shape("full")
+    ft_model = serve_cli.finetune_model(model)
+    t0 = time.perf_counter()
+    tprof = train_lib.profile_step(ft_model, {"tokens": ((batch, seq + 1), torch.int32)},
+                                   loaded=True)
+    profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pool = choose_page_tokens(cfg, trace)
+    probe = SharedArena(1 << 62)
+    probe.register_training(tprof, steps_per_round=SHARED_TRAIN_STEPS)
+    probe.register_serving(pool.profile)
+    pp = probe.plan()
+    if not pp.joint_peak < pp.standalone_sum:
+        raise AssertionError(f"shared: joint peak {pp.joint_peak} is no less than the "
+                             f"standalone sum {pp.standalone_sum}")
+    budget = pp.retained_bytes + (pp.joint_peak + pp.standalone_sum) // 2
+
+    def make():
+        arena = SharedArena(budget)
+        tview = arena.register_training(tprof, steps_per_round=SHARED_TRAIN_STEPS)
+        eng = ServeEngine(model, params, sample_trace=trace, max_len=SHARED_MAX_LEN,
+                          max_batch=MAX_BATCH, page_tokens=pool.page_tokens,
+                          attn_mode="paged", shared=arena)
+        return arena, tview, eng
+
+    arena, tview, eng = make()
+    plan = arena.plan()
+    plan_s = time.perf_counter() - t0
+    account = plan.joint_peak + plan.retained_bytes
+    if not (plan.feasible and account <= budget < plan.retained_bytes + plan.standalone_sum):
+        raise AssertionError(f"shared: budget {budget} against joint {plan.joint_peak}, "
+                             f"sum {plan.standalone_sum}, retained {plan.retained_bytes}, "
+                             f"feasible {plan.feasible}")
+    print(f"[serve:shared] plan: budget={budget} B ({budget / 1e9:.3f} GB) "
+          f"joint_peak={plan.joint_peak} standalone_sum={plan.standalone_sum} "
+          f"(serving {plan.standalone['serving']}, training {plan.standalone['training']}) "
+          f"win={plan.sharing_win} joint/sum={plan.joint_peak / plan.standalone_sum:.4f} "
+          f"retained={plan.retained_bytes} feasible={plan.feasible}; "
+          f"profile {tprof.n} blocks in {profile_s:.1f}s, plans in {plan_s:.1f}s; "
+          f"page_tokens={pool.page_tokens}", flush=True)
+    eng.warmup()
+    step = serve_cli.make_train_step(ft_model, params, seq, batch, seed=SEED,
+                                     max_grad_norm=serve_cli.FULL_FINETUNE_MAX_GRAD_NORM)
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    steps0, prefills0 = eng.decode_steps, eng.prefill_calls
+    summary, colo = serve_cli.run_interleaved(eng, live, arena, step)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    peak = torch.cuda.max_memory_allocated()
+    n_steps, n_prefills = eng.decode_steps - steps0, eng.prefill_calls - prefills0
+    want = {"flash_attention": cfg.n_layers * n_prefills,
+            "paged_attention": cfg.n_layers * n_steps, "ssd_scan": 0, "rglru_scan": 0}
+    step_ms = 1e3 * eng.decode_time_s / eng.decode_steps
+    prefill_ms = 1e3 * eng.prefill_time_s / eng.prefill_calls
+    replica = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    print(f"[serve:shared] training phases {colo['phases']} of a "
+          f"{colo['window_steps']}-step window, serving_cap={eng.sched.cap} "
+          f"serving_budget={eng.kv.tenant.budget} training_budget={tview.budget} "
+          f"reserves={plan.reserves}", flush=True)
+    print(f"[serve:shared] train_steps={colo['n_train_steps']} "
+          f"train_step_ms={colo['train_step_ms_mean']:.2f} loss={colo['train_loss']:.4f} "
+          f"| decode steps={n_steps} step_ms={step_ms:.3f} "
+          f"tok/s={summary['tokens_per_s']:.1f} prefills={n_prefills} "
+          f"prefill_ms={prefill_ms:.2f} completed {summary['n_completed']}/"
+          f"{len(live)} max_concurrent={summary['max_concurrent']} "
+          f"preemptions={summary['n_preemptions']} reopts={summary['kv_n_reopt']} "
+          f"arena_reopts={arena.n_reopt} | {card}", flush=True)
+    print(f"[serve:shared] memory: max_allocated={peak} B ({peak / 1e9:.3f} GB) over the "
+          f"interleaved run (held before it {held / 1e9:.3f} GB), budget "
+          f"{budget / 1e9:.3f} GB, arena account (joint + retained once) "
+          f"{account / 1e9:.3f} GB: measured/account {peak / account:.4f}, "
+          f"measured - account {(peak - account) / 1e9:.3f} GB against one weight "
+          f"replica {replica / 1e9:.3f} GB | {card}", flush=True)
+    print(f"[serve:shared] launches {launches}", flush=True)
+    if colo["n_train_steps"] < 1 or not math.isfinite(colo["train_loss"]):
+        raise AssertionError(f"shared: fine-tune {colo}")
+    if summary["n_completed"] != len(live):
+        raise AssertionError(f"shared: completed {summary['n_completed']}/{len(live)}")
+    if launches != want or n_steps == 0:
+        raise AssertionError(f"shared: launches {launches}, expected {want}")
+    got = dict(eng.completed)
+    del step, eng
+    free_cuda(torch)
+    _, _, eng = make()
+    eng.warmup()
+    eng.run(live)
+    where = first_divergence(eng.completed, got)
+    print(f"[serve:shared] token streams equal to the same engine without fine-tune "
+          f"steps: {where is None}; phase {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    if where is not None:
+        rid, i = where
+        raise AssertionError(f"shared: rid {rid} diverges at token {i} beside the "
+                             "fine-tune")
+    del eng
+    return dict(launches=launches, budget=budget, account=account, peak=peak,
+                train_step_ms=colo["train_step_ms_mean"], step_ms=step_ms)
+
+
 def check_forward(torch, cfg, Transformer, params, tokens, kernel, plain, yardstick,
                   what: str, *, hold: bool = True, slack: int = 0) -> None:
     """Full-width bf16 ``forward`` logits through the kernels (RunOpts
@@ -1018,6 +1169,9 @@ def main() -> int:
         "rglru_scan": 0}, card, "qwen2")["launches"]
     stamp(t_start, "[graph:qwen2]")
     churn = churn_phase(torch, ops, cfg, model, params, card)
+    stamp(t_start, "[serve:churn]")
+    shared = shared_phase(torch, ops, cfg, model, params, card)
+    stamp(t_start, "[serve:shared]")
     del model, params
     same_streams(torch, cfg.with_overrides(n_layers=2, dtype="float32"),
                  [(RunOpts(attention_impl="kernel"), "paged"),
@@ -1132,6 +1286,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attention.py:76",
          "launches": qwen2["paged_attention"] + phi4["paged_attention"],
          "churn_launches": churn["launches"]["paged_attention"],
+         "shared_launches": shared["launches"]["paged_attention"],
          "train_launches": train["paged_attention"],
          "max_abs_err": max(paged_worst["bfloat16"], paged128_worst["bfloat16"]),
          "ms": pk["ms"],
@@ -1145,6 +1300,7 @@ def main() -> int:
          "launches": (qwen2["flash_attention"] + phi4["flash_attention"]
                       + rgemma["flash_attention"]),
          "churn_launches": churn["launches"]["flash_attention"],
+         "shared_launches": shared["launches"]["flash_attention"],
          "train_launches": train["flash_attention"],
          "max_abs_err": max(flash_worst["bfloat16"], flash128_worst["bfloat16"],
                             flash_wide_worst["bfloat16"]),

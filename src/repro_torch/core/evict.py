@@ -1,6 +1,6 @@
-"""Eviction stub transform (copy of ``repro.core.evict``) — used by the
-greedy search (``remat.search``); in the reference the exact MIP
-formulation (``core.mip``, not ported yet) shares it.
+"""Eviction stub transform (copy of ``repro.core.evict``) — shared by the
+greedy search (``remat.search``) and the exact MIP formulation
+(``core.mip``).
 
 Evicting a block does not delete its rectangle: the buffer still exists for
 one tick while being produced and one tick while being re-materialized

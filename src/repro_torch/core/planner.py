@@ -1,13 +1,13 @@
 """MemoryPlanner — the paper's workflow as a framework service.
 
 profile (``make_fx`` liveness, recorded events or request traces) -> DSA
-solve (best-fit) -> validated AllocationPlan, plus the planning services
-built on top of it: shared-memory budget checks for the CUDA kernels, HBM
-feasibility / maximum mini-batch search (with or without remat), eviction
-planning (``plan_with_remat``), and side-by-side comparison against the
-pool/naive baselines.  Port of ``repro.core.planner`` with H100 budgets;
-``plan_reordered`` and ``plan_shared`` wait for ``core/reorder`` and
-``core/unified``, and the exact/MILP solvers are not ported.
+solve (best-fit / exact / MILP) -> validated AllocationPlan, plus the
+planning services built on top of it: shared-memory budget checks for the
+CUDA kernels, HBM feasibility / maximum mini-batch search (with or without
+remat), eviction planning (``plan_with_remat``), slack reordering
+(``plan_reordered``), one HBM budget shared by a serving and a training
+tenant (``plan_shared``), and side-by-side comparison against the pool/naive
+baselines.  Port of ``repro.core.planner`` with H100 budgets.
 """
 from __future__ import annotations
 
@@ -19,8 +19,11 @@ import numpy as np
 from .bestfit import best_fit
 from .dsa import AllocationPlan, plan_quality, validate_plan
 from .events import MemoryProfile
+from .exact import solve_exact
 from .liveness import profile_fn
 from .pool import NaiveAllocator, PoolAllocator, replay
+from .reorder import ReorderResult, reorder_profile
+from .solvers import SolverUnavailable, have_solver, solve_milp
 
 # NVIDIA H100 SXM5 budgets (nvidia-smi names the card "NVIDIA H100 80GB HBM3";
 # NVIDIA H100 data sheet, dense rates at the 700 W limit).
@@ -42,6 +45,8 @@ class PlanReport:
 
 _SOLVERS: dict[str, Callable[[MemoryProfile], AllocationPlan]] = {
     "bestfit": best_fit,
+    "exact": solve_exact,
+    "milp": solve_milp,        # needs the [solver] extra (scipy/HiGHS)
 }
 
 
@@ -49,14 +54,42 @@ class MemoryPlanner:
     def __init__(self, solver: str = "bestfit"):
         if solver not in _SOLVERS:
             raise ValueError(f"unknown solver {solver!r}; have {sorted(_SOLVERS)}")
+        if solver == "milp" and not have_solver():
+            raise SolverUnavailable(
+                "solver='milp' needs scipy; install the [solver] extra")
         self.solver_name = solver
         self.solver = _SOLVERS[solver]
 
-    def plan(self, profile: MemoryProfile) -> AllocationPlan:
-        """Solve one DSA instance and validate the placement."""
+    def plan(self, profile: MemoryProfile, *,
+             reorder: str | bool | None = None) -> AllocationPlan:
+        """Solve one DSA instance; ``reorder`` runs the slack-reordering pass
+        first (``"greedy"`` / ``"ils"`` / ``True`` = ils).
+
+        With reordering the returned placement is for the *reordered*
+        schedule — use :meth:`plan_reordered` when the caller also needs the
+        reordered lifetimes.
+        """
+        if reorder:
+            return self.plan_reordered(profile, mode=reorder).plan
         plan = self.solver(profile)
         validate_plan(profile, plan)
         return plan
+
+    def plan_reordered(self, profile: MemoryProfile, *,
+                       mode: str | bool = "ils", rounds: int = 8,
+                       seed: int = 0) -> ReorderResult:
+        """Reorder lifetimes within recovered dependency slack, then pack.
+
+        The identity order is always a candidate, so
+        ``result.peak <= plan(profile).peak``; the result carries both the
+        reordered profile and its validated plan.
+        """
+        if mode is True:
+            mode = "ils"
+        result = reorder_profile(profile, mode=mode, rounds=rounds, seed=seed,
+                                 solver=self.solver)
+        validate_plan(result.profile, result.plan)
+        return result
 
     def plan_fn(self, fn: Callable, *args) -> PlanReport:
         """Profile a function via ``make_fx`` liveness, solve, compare."""
@@ -118,21 +151,60 @@ class MemoryPlanner:
                         max_evict: int = 256,
                         candidate_filter=None,
                         price_mode: str = "auto",
+                        view=None,
+                        reorder: str | bool | None = None,
                         groups=None):
         """Evict activations (recompute/offload) until the packed peak meets
         the target; returns the ``repro_torch.remat.EvictionPlan``.
 
         ``target_peak`` is a packing-peak target (excludes
         ``profile.retained_bytes``); with neither target the search buys
-        every peak reduction it can find.  ``groups`` restricts candidates
-        to the given pattern groups (``remat.policy.pattern_group``).
+        every peak reduction it can find.  ``view`` (a SharedArena tenant
+        view) makes the search plan against the training tenant's share of
+        the joint budget instead.  ``reorder`` makes every eviction trial
+        repack with the slack-reordering pass; ``groups`` restricts
+        candidates to the given pattern groups (``remat.policy.pattern_group``).
         """
         from ..remat import plan_evictions
         return plan_evictions(profile, target_peak=target_peak,
                               target_ratio=target_ratio, max_evict=max_evict,
                               candidate_filter=candidate_filter,
                               price_mode=price_mode, solver=self.solver,
-                              groups=groups)
+                              view=view, reorder=reorder, groups=groups)
+
+    # -- unified serve x train planning (core.unified) ----------------------------
+    def plan_shared(self, *, hbm_budget: int,
+                    serving_profile: MemoryProfile | None = None,
+                    training_profile: MemoryProfile | None = None,
+                    train_steps: int = 1,
+                    shrink: str | None = "remat",
+                    max_evict: int = 256,
+                    reorder: str | bool | None = None,
+                    incremental: bool = True):
+        """Build a ``SharedArena`` over one HBM budget and jointly plan the
+        registered tenants.  ``shrink="remat"`` wires the eviction search as
+        the training tenant's shrink hook, so evict-vs-share is resolved in
+        the same pass.  ``reorder``/``incremental`` thread through to the
+        joint pass (see ``SharedArena``).  Returns the planned ``SharedArena``.
+        """
+        from .unified import SharedArena
+        arena = SharedArena(hbm_budget, solver=self.solver, reorder=reorder,
+                            incremental=incremental)
+        if serving_profile is not None:
+            arena.register_serving(serving_profile)
+        if training_profile is not None:
+            shrink_fn = None
+            if shrink == "remat":
+                def shrink_fn(target: int):
+                    ev = self.plan_with_remat(training_profile,
+                                              target_peak=target,
+                                              max_evict=max_evict)
+                    return ev.profile if ev.evictions else None
+            arena.register_training(training_profile,
+                                    steps_per_round=train_steps,
+                                    shrink=shrink_fn)
+        arena.plan()
+        return arena
 
     def max_feasible_batch_planned(self,
                                    profile_at_batch: Callable[[int], MemoryProfile],

@@ -22,8 +22,20 @@ bucket on the card; ``--no-runner`` decodes every slot each step through
 the full-batch "slab" step (one graph per batch shape on the card).
 Runs on the card; ``--device cpu`` runs the plain PyTorch versions instead,
 eagerly.
-``--share-hbm``, ``--trace`` and the ``--slo-*`` reports of the reference
-driver are not ported yet.
+
+``--share-hbm GB``: one budget, two workloads — a fine-tune step of the same
+model is registered as the training tenant of a ``SharedArena``, the page
+pool becomes the serving tenant, and admission is gated against the serving
+share of the jointly planned split.  The loop then executes the joint plan:
+real fine-tune steps (SGD on a private replica of the weights, through the
+plain attention path: no kernel has a backward) run at the valley phases
+``SharedPlan.schedule`` picked, interleaved with engine steps in one
+process, and both workloads' measured step times are reported.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --preset full --attn paged --prompt-len 512 --gen-len 64 --max-len 2048 --requests 16 --share-hbm 6 --train-steps 2
+
+``--trace`` and the ``--slo-*`` reports of the reference driver are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -32,11 +44,27 @@ import random
 import time
 
 import torch
+from torch.utils._pytree import tree_leaves, tree_map
 
 from ..configs import get_config
+from ..core import MemoryPlanner, SharedArena
 from ..models import RunOpts, Transformer
+from ..runtime import train_lib
 from ..runtime.serve_lib import ServingArena, synth_trace
 from ..serving import GenRequest, ServeEngine
+from . import train as train_launch
+
+# --share-hbm at --preset full: the fine-tune tenant's (seq, batch).  The
+# reference's full-size runs have no training shape; B=2, S=512 keeps the
+# serving tenant from vanishing beside the training one.  Reduced presets
+# take the training driver's (seq, batch).
+FULL_FINETUNE_SEQ_BATCH = (512, 2)
+# --share-hbm at --preset full: the fine-tune clips its global gradient norm
+# to this.  The seeded random weights make an exploding stack at full width
+# (qwen2-0.5b's first gradient has an L2 norm near 1.4e15 on the card), so
+# unclipped SGD turns the replica to NaN within a few steps; reduced presets
+# run unclipped SGD, as the reference does.
+FULL_FINETUNE_MAX_GRAD_NORM = 1.0
 
 # Copy of ``repro.launch.train.PRESETS``.
 PRESETS = {
@@ -76,6 +104,89 @@ def reduced_config(arch: str, preset: str):
     )
 
 
+def finetune_shape(preset: str) -> tuple[int, int]:
+    """(seq, batch) of the ``--share-hbm`` fine-tune step at ``preset``."""
+    if preset == "full":
+        return FULL_FINETUNE_SEQ_BATCH
+    p = train_launch.PRESETS[preset]
+    return p["seq"], p["batch"]
+
+
+def finetune_model(model: Transformer) -> Transformer:
+    """The fine-tune tenant's model: the same config and device as the served
+    ``model``, on the plain attention path (the kernels have no backward)."""
+    return Transformer(model.cfg, RunOpts(attention_impl="full",
+                                          use_kernels=False),
+                       device=model.device)
+
+
+def make_train_step(ft_model: Transformer, params, seq: int, batch: int,
+                    lr: float = 1e-3, seed: int = 0,
+                    max_grad_norm: float | None = None):
+    """One real SGD fine-tune step on a private replica of ``params`` (the
+    training tenant's executable; serving keeps decoding its own weights).
+    The replica is a ``detach().clone()`` of the served (loaded) weights on
+    their device, so it runs in their dtypes; ``ft_model`` is
+    ``finetune_model``'s.  ``max_grad_norm`` scales the gradients down to
+    that global L2 norm when they exceed it (None: plain SGD, the
+    reference's step).  Returns ``step() -> loss`` (a 0-d tensor), with the
+    replica as ``step.replica``."""
+    gen = torch.Generator().manual_seed(seed + 7)
+    tokens = torch.randint(0, ft_model.cfg.vocab_size, (batch, seq + 1),
+                           dtype=torch.int32, generator=gen).to(ft_model.device)
+    tbatch = {"tokens": tokens}
+    replica = tree_map(lambda t: t.detach().clone(), params)
+    leaves = tree_leaves(replica)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+
+    def step():
+        loss, _ = ft_model.loss_fn(replica, tbatch, remat=False)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            scale = None
+            if max_grad_norm is not None:
+                norm = torch.linalg.vector_norm(torch.stack(
+                    [torch.linalg.vector_norm(g.float()) for g in grads]))
+                scale = (max_grad_norm / (norm + 1e-6)).clamp(max=1.0)
+            for p, g in zip(leaves, grads):
+                if scale is not None:
+                    g = g * scale.to(g.dtype)
+                p.sub_(g, alpha=lr)
+        return loss.detach()
+
+    step.replica = replica
+    return step
+
+
+def run_interleaved(eng, live, shared, train_step, max_steps: int = 100_000):
+    """Execute the joint plan: engine steps with fine-tune steps fired at the
+    valley phases the ``SharedArena`` scheduled, all in one process."""
+    jp = shared.plan()
+    window = max(1, jp.profile.meta.get("window_steps", 1))
+    phases = set(jp.schedule.get("training", []))
+    pending = sorted(live, key=lambda r: (r.arrival, r.rid))
+    train_s, n_train, last_loss = 0.0, 0, None
+    while pending or not eng.sched.idle:
+        while pending and pending[0].arrival <= eng.step_count:
+            eng.enqueue(pending.pop(0))
+        eng.step()
+        if phases and (eng.step_count - 1) % window in phases:
+            t0 = time.perf_counter()
+            last_loss = float(train_step())     # syncs: the step is timed whole
+            train_s += time.perf_counter() - t0
+            n_train += 1
+        if eng.step_count >= max_steps:
+            raise RuntimeError(f"engine did not drain in {max_steps} steps")
+    return eng.metrics.summary(eng.kv.stats()), {
+        "n_train_steps": n_train,
+        "train_step_ms_mean": 1e3 * train_s / n_train if n_train else None,
+        "train_loss": last_loss,
+        "window_steps": window,
+        "phases": sorted(phases),
+    }
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
@@ -91,6 +202,16 @@ def main(argv=None) -> None:
                     help="page size in tokens (default: profile-guided)")
     ap.add_argument("--policy", choices=["fcfs", "priority"], default="fcfs")
     ap.add_argument("--prefill-chunk", type=int, default=512)
+    ap.add_argument("--share-hbm", type=float, default=0.0,
+                    help="GiB (2**30 bytes) of one HBM budget shared with a "
+                         "concurrent fine-tune tenant (0 = serving owns its "
+                         "arena); the fine-tune takes the training driver's "
+                         "(seq, batch) at a reduced preset and "
+                         f"{FULL_FINETUNE_SEQ_BATCH} at --preset full, where "
+                         "it also clips its global gradient norm to "
+                         f"{FULL_FINETUNE_MAX_GRAD_NORM}")
+    ap.add_argument("--train-steps", type=int, default=4,
+                    help="--share-hbm: fine-tune steps per serving round")
     ap.add_argument("--runner", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="decode via the bucketed DecodeRunner (--no-runner: "
@@ -123,11 +244,27 @@ def main(argv=None) -> None:
           f"naive={cmp['naive_peak'] / 1e9:.2f}GB "
           f"saving_vs_pool={100 * cmp['saving_vs_pool']:.1f}%")
 
+    shared = ft_model = None
+    if args.share_hbm > 0:
+        # one budget, two workloads: register the fine-tune tenant first so
+        # the engine's first joint plan sees both.  The profile is of the
+        # step that runs: grad of the loss over the replica's dtypes.
+        shared = SharedArena(int(args.share_hbm * 2 ** 30))
+        planner = MemoryPlanner()
+        seq, batch = finetune_shape(args.preset)
+        ft_model = finetune_model(model)
+        tprof = train_lib.profile_step(
+            ft_model, {"tokens": ((batch, seq + 1), torch.int32)}, loaded=True)
+        tview = shared.register_training(
+            tprof, steps_per_round=args.train_steps,
+            shrink=lambda target: planner.plan_with_remat(
+                tprof, target_peak=target).profile)
+
     eng = ServeEngine(model, params, sample_trace=trace, max_len=args.max_len,
                       max_batch=args.max_batch, page_tokens=args.page_tokens,
                       policy=args.policy, prefill_chunk=args.prefill_chunk,
-                      accounting_cfg=full_cfg, use_runner=args.runner,
-                      attn_mode=args.attn)
+                      accounting_cfg=full_cfg, shared=shared,
+                      use_runner=args.runner, attn_mode=args.attn)
     if args.runner:
         t0 = time.perf_counter()
         eng.warmup()
@@ -138,6 +275,16 @@ def main(argv=None) -> None:
     print(f"[paged pool] page_tokens={kv['page_tokens']} "
           f"n_pages={kv['n_pages']} pool={kv['pool_bytes'] / 1e6:.2f}MB "
           f"(planned peak {kv['planned_peak'] / 1e6:.2f}MB)")
+    if shared is not None:
+        s = shared.stats()
+        print(f"[shared arena] budget={s['hbm_budget'] / 1e9:.2f}GB "
+              f"joint_peak={s['joint_peak'] / 1e6:.2f}MB "
+              f"standalone_sum={s['standalone_sum'] / 1e6:.2f}MB "
+              f"win={s['sharing_win'] / 1e6:.2f}MB "
+              f"(joint/sum={s['joint_vs_sum']:.2f}) "
+              f"train_steps@{s['schedule'].get('training', [])} "
+              f"serving_cap={eng.sched.cap} "
+              f"train_budget={tview.budget / 1e6:.2f}MB")
 
     # live traffic: same shapes with jitter, so some requests outgrow the
     # profile and exercise preemption + §4.3 replanning
@@ -149,7 +296,16 @@ def main(argv=None) -> None:
                        gen_len=max(2, r.gen_len + rng.randint(-2, 6)),
                        arrival=r.arrival)
             for r in trace]
-    summary = eng.run(live)
+    colocated = None
+    if shared is not None:
+        # execute the joint plan: fine-tune steps at the valley phases
+        train_step = make_train_step(
+            ft_model, params, seq, batch, seed=args.seed,
+            max_grad_norm=(FULL_FINETUNE_MAX_GRAD_NORM if args.preset == "full"
+                           else None))
+        summary, colocated = run_interleaved(eng, live, shared, train_step)
+    else:
+        summary = eng.run(live)
     if eng.decode_steps:
         mode, compiles = (("runner", eng.runner.n_compiles) if args.runner
                           else ("slab", eng.decode_compiles))
@@ -158,6 +314,13 @@ def main(argv=None) -> None:
               f"graphs={eng.graphs} compiles={compiles} "
               f"prefill_compiles={eng.prefill_compiles} "
               f"prefill_ms={1e3 * eng.prefill_time_s / max(1, eng.prefill_calls):.2f}")
+    if colocated is not None:
+        tms = colocated["train_step_ms_mean"]
+        print(f"[colocated] train_steps={colocated['n_train_steps']} "
+              f"at phases {colocated['phases']} "
+              f"(window={colocated['window_steps']}) "
+              f"train_step_ms={'n/a' if tms is None else f'{tms:.1f}'} "
+              f"loss={colocated['train_loss']}")
     ttft = summary["ttft_steps_mean"]
     print(f"completed {summary['n_completed']}/{summary['n_requests']} "
           f"requests, {summary['tokens']} tokens in {summary['wall_s']:.1f}s "
@@ -168,6 +331,12 @@ def main(argv=None) -> None:
           f"reopts={summary['kv_n_reopt']}")
     for rid in sorted(eng.completed)[:3]:
         print(f"  req {rid}: {eng.completed[rid][:8]}...")
+    if shared is not None:
+        jp = shared.plan()
+        print(f"[shared arena] boundary_reopts={shared.n_reopt} "
+              f"feasible={jp.feasible} "
+              f"reserves={{'serving': {jp.reserves['serving'] / 1e6:.1f}MB, "
+              f"'training': {jp.reserves['training'] / 1e6:.1f}MB}}")
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ from torch.utils._pytree import tree_leaves
 
 from ..checkpoint import Checkpointer
 from ..configs import get_config
-from ..core import MemoryPlanner
+from ..core import MemoryPlanner, SharedArena
 from ..data import DataConfig, SyntheticPipeline
 from ..models import RunOpts, Transformer
 from ..obs import MetricsRegistry
@@ -87,8 +87,13 @@ def main(argv=None) -> None:
     ap.add_argument("--remat-target", type=float, default=0.5,
                     help="planned mode: target packed-peak ratio vs no-remat")
     ap.add_argument("--share-hbm", type=float, default=0.0,
-                    help="GB of one HBM budget shared with a serving tenant "
-                         "(needs core/unified, not ported yet)")
+                    help="GiB (2**30 bytes) of one HBM budget shared with a "
+                         "concurrent serving tenant (0 = training owns its "
+                         "arena); the remat target becomes the training "
+                         "share of the jointly planned split")
+    ap.add_argument("--share-requests", type=int, default=16,
+                    help="--share-hbm: size of the serving peer's profiled "
+                         "request trace")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
@@ -101,9 +106,6 @@ def main(argv=None) -> None:
                     help="cuda (default) or cpu; no silent fallback")
     args = ap.parse_args(argv)
 
-    if args.share_hbm > 0:
-        raise NotImplementedError("--share-hbm needs core/unified (the shared "
-                                  "serve x train arena), not ported yet")
     if args.trace:
         raise NotImplementedError("--trace needs obs/export (Chrome-trace "
                                   "export), not ported yet")
@@ -124,13 +126,38 @@ def main(argv=None) -> None:
           f"saving={100 * rep.baselines['saving_vs_pool']:.1f}% "
           f"retained={prof.retained_bytes / 1e6:.1f}MB")
 
+    tview = None
+    if args.share_hbm > 0:
+        # one budget, two workloads: a serving peer (paged staircases at
+        # full arch scale) shares the HBM budget with this fine-tune
+        from ..runtime.serve_lib import synth_trace
+        from ..serving.pages import plan_pool
+        pool_plan = plan_pool(get_config(args.arch),
+                              synth_trace(args.share_requests, 64, 96,
+                                          seed=args.seed, jitter=False),
+                              page_tokens=32)
+        shared = SharedArena(int(args.share_hbm * 2 ** 30))
+        shared.register_serving(pool_plan.profile)
+        tview = shared.register_training(prof, steps_per_round=1)
+        s = shared.stats()
+        print(f"shared arena: budget={s['hbm_budget'] / 1e9:.2f}GB "
+              f"joint_peak={s['joint_peak'] / 1e6:.1f}MB "
+              f"win={s['sharing_win'] / 1e6:.1f}MB "
+              f"(joint/sum={s['joint_vs_sum']:.2f}) "
+              f"train_budget={tview.budget / 1e6:.1f}MB")
+
     if args.remat == "planned":
         remat, ev = train_lib.plan_remat_policy(model, batch_sds,
-                                                target_ratio=args.remat_target)
+                                                target_ratio=args.remat_target,
+                                                shared=tview)
         s = ev.summary()
         print(f"remat plan: {remat.describe()} evicted={s['n_evicted']} "
               f"peak {s['baseline_peak'] / 1e6:.1f}->{s['peak'] / 1e6:.1f}MB "
               f"(-{100 * s['saving']:.1f}%) overhead={s['overhead_s'] * 1e3:.3f}ms")
+        if tview is not None:
+            print(f"shared arena after remat: reserves="
+                  f"{ {k: round(v / 1e6, 1) for k, v in tview.shared.plan().reserves.items()} }MB "
+                  f"feasible={tview.shared.plan().feasible}")
     else:
         remat = args.remat == "full"
 

@@ -27,8 +27,8 @@ from typing import Callable, Optional
 from ..core.bestfit import best_fit
 from ..core.dsa import AllocationPlan
 from ..core.events import MemoryProfile
-# The stub transform lives in core so this search and the reference's exact
-# MIP (core/mip.py, not ported yet) optimize the same objective.
+# The stub transform lives in core so this search and the exact MIP
+# (core/mip.py) provably optimize the same objective.
 from ..core.evict import MIN_EVICT_LIFETIME as _MIN_EVICT_LIFETIME
 from ..core.evict import evict_block
 from ..obs.trace import get_tracer
@@ -58,6 +58,15 @@ class EvictionPlan:
     plan: AllocationPlan         # offsets for the transformed profile
     profile: MemoryProfile       # the transformed (post-eviction) profile
     meta: dict = field(default_factory=dict)
+    #: Profile the plan's offsets are valid against.  Equal to ``profile``
+    #: unless the search ran with ``reorder`` and the reordered schedule won,
+    #: in which case this holds the reordered lifetimes (``profile`` keeps
+    #: the as-traced execution order for staging / retracing).
+    packed_profile: Optional[MemoryProfile] = None
+
+    @property
+    def plan_profile(self) -> MemoryProfile:
+        return self.packed_profile if self.packed_profile is not None else self.profile
 
     @property
     def evicted_bids(self) -> set[int]:
@@ -111,39 +120,55 @@ def plan_evictions(profile: MemoryProfile,
     no scan, so a group is a block's tag, the aten op that produced it.
     Composes with ``candidate_filter``.
 
-    ``reorder`` and ``view`` wait for modules the port does not have yet
-    (``core.reorder`` and ``core.unified``): passing either raises
-    ``NotImplementedError``.
+    ``reorder`` — truthy runs the slack-reordering pass on every trial
+    repack and scores the trial at ``min(identity, reordered)`` peak, so an
+    eviction is bought only if it still pays after compaction.  The returned
+    plan/profile are the winning variant; ``meta["reordered"]`` records
+    whether the reordered schedule won (execution must adopt the order for
+    the peak to be real — see ``core.reorder``).
 
     ``price_mode`` — "auto" prices each candidate at its cheaper mechanism
     (recompute vs offload); "recompute" prices and labels everything as
     recompute, for callers whose delivery mechanism is a ``torch.utils.checkpoint``
     policy (which folds offload selections into the recompute set).
+
+    ``view`` — a ``core.unified.TenantView``: the search plans against the
+    training tenant's share of a SharedArena instead of owning its own
+    budget.  Without an explicit target, the target peak is the tenant's
+    joint-plan budget, and the post-eviction profile is staged back so the
+    arena rebalances the split at its next round boundary.
     """
     if price_mode not in ("auto", "recompute"):
         raise ValueError(f"unknown price_mode {price_mode!r}")
-    if reorder:
-        raise NotImplementedError("plan_evictions(reorder=...) waits for core/reorder, "
-                                  "which the port does not have yet")
-    if view is not None:
-        raise NotImplementedError("plan_evictions(view=...) waits for core/unified, "
-                                  "which the port does not have yet")
+    if view is not None and target_peak is None and target_ratio is None:
+        target_peak = view.budget
     costs = costs or CostModel.from_profile(profile)
 
-    def repack(block_map) -> AllocationPlan:
-        return solver(MemoryProfile(blocks=list(block_map.values()),
-                                    retained_bytes=profile.retained_bytes,
-                                    clock_end=profile.clock_end, meta=profile.meta))
+    def repack(block_map):
+        """Pack one trial; with ``reorder`` keep the cheaper of identity /
+        slack-reordered schedules.  Returns (plan, packed_profile, reordered)."""
+        prof = MemoryProfile(blocks=list(block_map.values()),
+                             retained_bytes=profile.retained_bytes,
+                             clock_end=profile.clock_end, meta=profile.meta)
+        plan = solver(prof)
+        if reorder:
+            from ..core.reorder import reorder_profile
+            res = reorder_profile(prof,
+                                  mode="ils" if reorder is True else reorder,
+                                  solver=solver)
+            if res.plan.peak < plan.peak:
+                return res.plan, res.profile, True
+        return plan, prof, False
 
     blocks = {b.bid: b for b in profile.blocks}
     block_steps = profile.meta.get("block_steps", {})
     next_bid = max(blocks, default=0) + 1
-    base_plan = repack(blocks)
+    base_plan, base_packed, base_reordered = repack(blocks)
     baseline_peak = base_plan.peak
     if target_peak is None and target_ratio is not None:
         target_peak = int(baseline_peak * target_ratio)
 
-    cur_plan = base_plan
+    cur_plan, cur_packed, cur_reordered = base_plan, base_packed, base_reordered
     cur_peak = baseline_peak
     evictions: list[Eviction] = []
     n_tried = 0
@@ -188,7 +213,7 @@ def plan_evictions(profile: MemoryProfile,
         del trial[b.bid]
         for s in stubs:
             trial[s.bid] = s
-        trial_plan = repack(trial)
+        trial_plan, trial_packed, trial_reordered = repack(trial)
         if tr is not None:
             # one evict -> repack -> verify round, accepted or rolled back
             tr.instant("evict-trial", "remat", track="search", bid=b.bid,
@@ -198,7 +223,8 @@ def plan_evictions(profile: MemoryProfile,
             continue
         blocks = trial
         next_bid += 1
-        cur_plan = trial_plan
+        cur_plan, cur_packed, cur_reordered = (trial_plan, trial_packed,
+                                               trial_reordered)
         cur_peak = trial_plan.peak
         saved = b.size * b.lifetime - sum(s.size * s.lifetime for s in stubs)
         evictions.append(Eviction(bid=b.bid, mode=cand_mode(cand),
@@ -213,6 +239,9 @@ def plan_evictions(profile: MemoryProfile,
         tr.instant("evict-search-done", "remat", track="search",
                    n_evicted=len(evictions), n_tried=n_tried,
                    baseline_peak=baseline_peak, peak=cur_peak)
+    if view is not None and evictions:
+        # §4.3: rebalance at the boundary
+        view.request_replan(final_profile, cause="evict-stage")
     return EvictionPlan(
         evictions=evictions,
         baseline_peak=baseline_peak,
@@ -222,5 +251,7 @@ def plan_evictions(profile: MemoryProfile,
         plan=cur_plan,
         profile=final_profile,
         meta={"n_tried": n_tried, "solver": getattr(solver, "__name__", "?"),
+              "reordered": cur_reordered,
               **({"groups": sorted(group_set)} if groups is not None else {})},
+        packed_profile=cur_packed if cur_reordered else None,
     )

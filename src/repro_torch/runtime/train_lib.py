@@ -80,13 +80,18 @@ def grad_step(model: Transformer, remat):
 
 
 def profile_step(model: Transformer, batch_sds: dict, remat=False, *,
-                 grad: bool = True):
+                 grad: bool = True, loaded: bool = False):
     """``make_fx`` liveness profile of ``grad(loss)`` (of the loss alone
     with ``grad=False``) on fake f32 masters and a fake batch (``{name:
-    (shape, dtype)}``): nothing is allocated."""
+    (shape, dtype)}``): nothing is allocated.  ``loaded=True`` profiles over
+    ``model.load``'s cast copies instead, the dtypes a fine-tune of served
+    weights runs in (bf16 at the registered configs)."""
     from ..core import profile_fn
     mode = FakeTensorMode()
     params = model.abstract(mode)
+    if loaded:
+        with mode:
+            params = model.load(params)
     for leaf in tree_leaves(params):
         leaf.requires_grad_(grad)
     fn = (grad_step(model, remat) if grad
@@ -107,8 +112,13 @@ def plan_remat_policy(model: Transformer, batch_sds: dict, *,
     dtype)}``; profiles are taken over ``grad(loss)`` on fake parameters and
     batch, so nothing is allocated; pass ``profile`` to reuse an
     already-computed no-remat profile.  ``max_evict`` bounds each round's
-    search (``MemoryPlanner.plan_with_remat``).  ``shared`` (a shared-arena
-    tenant) waits for ``core/unified`` and raises ``NotImplementedError``.
+    search (``MemoryPlanner.plan_with_remat``).
+
+    ``shared`` — a ``core.unified.TenantView`` for the training tenant (the
+    ``--share-hbm`` path): the eviction target becomes the tenant's share of
+    the joint serve+train budget, and the final post-eviction profile is
+    staged back so the SharedArena rebalances the split at its next round
+    boundary.
 
     The compile is closed-loop: an op-level policy can miss the target the
     block-level search hit (residuals of unselected ops survive, and a
@@ -124,9 +134,6 @@ def plan_remat_policy(model: Transformer, batch_sds: dict, *,
     from ..remat import EvictionPlan, RematPolicy
     from ..remat.policy import _prim_of_tag
 
-    if shared is not None:
-        raise NotImplementedError("plan_remat_policy(shared=...) waits for "
-                                  "core/unified, which the port does not have yet")
     planner = planner or MemoryPlanner()
 
     def prof_with(remat):
@@ -140,6 +147,8 @@ def plan_remat_policy(model: Transformer, batch_sds: dict, *,
     # Delivery is a checkpoint policy, so price everything at recompute cost
     # (offload-mode selections compile into the recompute set too).
     prof = profile if profile is not None else prof_with(False)
+    if shared is not None and target_peak is None:
+        target_peak = shared.budget     # the tenant's share of the split
     ev0 = planner.plan_with_remat(prof, target_peak=target_peak,
                                   target_ratio=None if target_peak else target_ratio,
                                   max_evict=max_evict, candidate_filter=expressible,
@@ -185,6 +194,11 @@ def plan_remat_policy(model: Transformer, batch_sds: dict, *,
         meta={"rounds": rounds, "verified": policy.enabled,
               "policy": policy.describe()},
     )
+    if shared is not None:
+        # stage the verified post-remat step rectangles; the SharedArena
+        # rebalances the serve/train split at its next round boundary
+        shared.request_replan(final_profile)
+        shared.shared.reset_round()
     return policy, ev
 
 

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core.unified import SharedArena
 from ..models.transformer import Transformer
 from ..obs.metrics import get_registry
 from ..obs.trace import get_tracer
@@ -52,7 +53,7 @@ class ServeEngine:
                  policy: str = "fcfs", prefill_chunk: int = 512,
                  hbm_budget: Optional[int] = None, reserve_pages: int = 0,
                  accounting_cfg: Optional[ModelConfig] = None,
-                 mesh=None, shared=None,
+                 mesh=None, shared: Optional[SharedArena] = None,
                  metrics: Optional[ServeMetrics] = None,
                  use_runner: bool = True,
                  attn_mode: str = "gather",
@@ -65,6 +66,12 @@ class ServeEngine:
         scale while a reduced model executes (the launch-driver pattern).
         ``hbm_budget`` caps admission at the largest concurrency whose
         planned pool fits it; ``reserve_pages`` pads the pool.
+
+        ``shared`` (the ``--share-hbm`` path): the page pool becomes the
+        serving tenant of a ``SharedArena`` — admission is gated against the
+        tenant's share of the joint budget (register any training tenant on
+        the arena *before* constructing the engine, so the first joint plan
+        sees both workloads).
 
         ``use_runner=False`` decodes every slot each step through the
         full-batch "slab" step (the reference's baseline).
@@ -81,24 +88,25 @@ class ServeEngine:
         ``donate``): decode through CUDA graphs; None means on when the
         model lies on a CUDA device, False runs the same steps eagerly.
 
-        ``mesh`` and ``shared`` are the reference's sharding and
-        ``SharedArena`` options, not ported yet: anything but None raises."""
+        ``mesh`` is the reference's sharding option, not ported yet:
+        anything but None raises."""
         if mesh is not None:
             raise NotImplementedError(
                 "ServeEngine(mesh=...): sharding is not ported yet (ROADMAP "
                 "queue 1, item 10)")
-        if shared is not None:
-            raise NotImplementedError(
-                "ServeEngine(shared=...): core/unified's SharedArena is not "
-                "ported yet (ROADMAP queue 1, item 3)")
         self.model = model
         self.params = params
         self.device = model.device
         self.max_len = max_len
         self.max_batch = max_batch
         acct = accounting_cfg or model.cfg
+        self._acct = acct
+        self._sample_trace = list(sample_trace)
         self.kv = PagedKVCache(acct, sample_trace, page_tokens=page_tokens,
-                               reserve_pages=reserve_pages)
+                               reserve_pages=reserve_pages, shared=shared)
+        if hbm_budget is None and self.kv.tenant is not None:
+            # unified mode: the HBM gate is this tenant's share of the split
+            hbm_budget = self.kv.tenant.budget
         cap = None
         if hbm_budget is not None:
             cap = pages_lib.max_concurrency(acct, sample_trace,
@@ -241,9 +249,22 @@ class ServeEngine:
         self.step_count += 1
         if self.sched.idle:
             self.kv.reset_epoch()       # epoch boundary: §4.3 replan if dirty
+            self._refresh_cap()
         elif (self.replan_interval
               and self.step_count % self.replan_interval == 0):
             self.kv.reset_epoch()       # sustained load: close on a clock
+            self._refresh_cap()
+
+    def _refresh_cap(self) -> None:
+        """Unified mode: a boundary replan may have rebalanced the split, so
+        re-gate admission against the serving tenant's current share."""
+        if self.kv.tenant is None:
+            return
+        cap = pages_lib.max_concurrency(self._acct, self._sample_trace,
+                                        self.kv.page_tokens,
+                                        self.kv.tenant.budget,
+                                        hi=self.max_batch)
+        self.sched.cap = max(1, min(self.max_batch, cap))
 
     def _prefill_batch(self, prompt) -> dict:
         """Pad the prompt to a power-of-two ladder so prefill sees

@@ -19,8 +19,8 @@ planner's ``ArenaAllocator`` rides along as the accountant so that requests
 outgrowing their profiled lengths overflow and trigger a §4.3 boundary
 replan (``stats()["n_reopt"]``), exactly like the training-shaped streams.
 
-Port of ``repro.serving.pages`` without the ``SharedArena`` tenant mode and
-the advisory ``reorder`` pass (neither is ported yet).
+Port of ``repro.serving.pages``, with the ``SharedArena`` tenant mode and the
+advisory ``reorder`` pass.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from ..core import (ArenaAllocator, Block, MemoryPlanner, MemoryProfile,
                     align, best_fit)
 from ..core.events import DEFAULT_ALIGNMENT
 from ..core.pool import NaiveAllocator, PoolAllocator, replay
+from ..core.unified import SharedArena, TenantView
 from ..runtime.serve_lib import Request, cache_bytes_per_token, state_bytes
 
 PAGE_TOKEN_CANDIDATES = (8, 16, 32, 64, 128)
@@ -98,12 +99,27 @@ def paged_request_blocks(requests: Sequence[Request], cfg: ModelConfig,
 
 
 def plan_pool(cfg: ModelConfig, sample_trace: Sequence[Request],
-              page_tokens: int, solver=best_fit) -> "PagePlan":
-    """Plan the sample trace and size the pool to the DSA peak."""
+              page_tokens: int, solver=best_fit,
+              reorder: str | bool | None = None) -> "PagePlan":
+    """Plan the sample trace and size the pool to the DSA peak.
+
+    ``reorder`` additionally runs the slack-reordering pass over the
+    staircase profile and reports the reordered peak in the baselines.  The
+    pool is still sized by the identity-order plan: requests arrive in real
+    time, so a reordered schedule is *advisory* for serving (it bounds what a
+    replay-controlled admission order could reach), not a capacity claim.
+    """
     profile = paged_request_blocks(sample_trace, cfg, page_tokens)
     plan = solver(profile)
     pb = page_bytes_for(cfg, page_tokens)
     n_pages = max(1, math.ceil(plan.peak / pb))
+    reorder_baselines = {}
+    if reorder:
+        from ..core.reorder import reorder_profile
+        mode = reorder if isinstance(reorder, str) else "ils"
+        rres = reorder_profile(profile, mode=mode, solver=solver)
+        reorder_baselines = {"reordered_dsa_peak": rres.peak,
+                             "reorder_improvement": rres.stats["improvement"]}
     slab = MemoryProfile(blocks=[
         Block(bid=r.rid, size=align(
             cache_bytes_per_token(cfg) * (r.prompt_len + r.gen_len)
@@ -118,7 +134,8 @@ def plan_pool(cfg: ModelConfig, sample_trace: Sequence[Request],
                                "pool_peak": pool["peak"],
                                "slab_dsa_peak": solver(slab).peak,
                                "paged_dsa_peak": plan.peak,
-                               "lower_bound": profile.liveness_lower_bound()})
+                               "lower_bound": profile.liveness_lower_bound(),
+                               **reorder_baselines})
 
 
 @dataclass(frozen=True)
@@ -146,13 +163,14 @@ class PagePlan:
 
 def choose_page_tokens(cfg: ModelConfig, sample_trace: Sequence[Request],
                        candidates: Sequence[int] = PAGE_TOKEN_CANDIDATES,
-                       solver=best_fit) -> PagePlan:
+                       solver=best_fit,
+                       reorder: str | bool | None = None) -> PagePlan:
     """Profile-guided page-size selection: plan the trace at every candidate
     page size and keep the cheapest (peak + table overhead; ties -> larger
     pages, i.e. smaller tables)."""
     best: Optional[PagePlan] = None
     for pt in sorted(candidates, reverse=True):
-        plan = plan_pool(cfg, sample_trace, pt, solver=solver)
+        plan = plan_pool(cfg, sample_trace, pt, solver=solver, reorder=reorder)
         if best is None or plan.cost() < best.cost():
             best = plan
     assert best is not None
@@ -207,21 +225,35 @@ class PagedKVCache:
     def __init__(self, cfg: ModelConfig, sample_trace: Sequence[Request],
                  page_tokens: Optional[int] = None,
                  reserve_pages: int = 0, solver=best_fit,
+                 shared: Optional[SharedArena] = None,
+                 tenant_name: str = "serving",
+                 reorder: str | bool | None = None,
                  incremental: bool = True):
-        """``incremental`` warm-starts the accounting arena's §4.3 replans
-        from the previous plan."""
+        """With ``shared``, the pool stops owning its memory claim: its
+        staircase profile is registered as the serving tenant of the
+        ``SharedArena``, replans are forwarded as §4.3 requests, and pool
+        growth at epoch boundaries is clamped to the tenant's share of the
+        joint budget.  ``reorder`` reports the advisory reordered peak in the
+        plan baselines; ``incremental`` warm-starts the accounting arena's
+        §4.3 replans from the previous plan."""
         self.cfg = cfg
         self.solver = solver
         if page_tokens is None:
-            self.plan = choose_page_tokens(cfg, sample_trace, solver=solver)
+            self.plan = choose_page_tokens(cfg, sample_trace, solver=solver,
+                                           reorder=reorder)
         else:
-            self.plan = plan_pool(cfg, sample_trace, page_tokens, solver=solver)
+            self.plan = plan_pool(cfg, sample_trace, page_tokens,
+                                  solver=solver, reorder=reorder)
         self.page_tokens = self.plan.page_tokens
         self.page_bytes = self.plan.page_bytes
         self.reserve_pages = reserve_pages
         self.n_pages = self.plan.n_pages + reserve_pages
         self.arena = ArenaAllocator(self.plan.profile, solver=solver,
                                     mode="immediate", incremental=incremental)
+        self.tenant: Optional[TenantView] = None
+        if shared is not None:
+            self.tenant = shared.register_serving(self.plan.profile,
+                                                  name=tenant_name)
         self._free: list[int] = list(range(self.n_pages - 1, -1, -1))
         self.tables: dict[int, list[int]] = {}     # rid -> page ids
         self._addrs: dict[int, list[int]] = {}     # rid -> arena addrs
@@ -341,17 +373,31 @@ class PagedKVCache:
         ``cause`` tags the §4.3 counters the drift monitor reads — the
         engine's page-pool-exhaustion path is "decode-outrun"."""
         self.arena.request_replan(cause)
+        if self.tenant is not None:
+            self.tenant.request_replan(cause=cause)
 
     def reset_epoch(self) -> None:
         """Boundary: §4.3 replan from the shadow-observed stream, then resize
-        the physical pool to the new planned peak (never below live pages)."""
+        the physical pool to the new planned peak (never below live pages).
+        In shared mode the observed staircase is pushed to the SharedArena,
+        the joint split is rebalanced, and growth is clamped to the serving
+        tenant's share of the joint budget."""
+        replanned = self.arena.n_reopt
         self.arena.reset_iteration()
+        if self.tenant is not None and self.arena.n_reopt > replanned:
+            # decode outran the profile: hand the observed rectangles to the
+            # joint planner and rebalance the split at this boundary
+            self.tenant.request_replan(self.arena.profile)
+            self.tenant.shared.reset_round()
         planned = max(1, math.ceil(self.arena.peak / self.page_bytes))
         held = [p for t in self.tables.values() for p in t]
         # never shrink below the highest live page id: a later growth would
         # re-issue a held id and alias two requests onto one page
         floor = max(held) + 1 if held else 0
         target = max(planned + self.reserve_pages, floor)
+        if self.tenant is not None:
+            budget_pages = self.tenant.budget // self.page_bytes
+            target = max(min(target, budget_pages), floor, 1)
         if target != self.n_pages:
             if target > self.n_pages:
                 self._free.extend(range(self.n_pages, target))
@@ -362,7 +408,7 @@ class PagedKVCache:
 
     def stats(self) -> dict:
         a = self.arena.stats()
-        return {
+        out = {
             "page_tokens": self.page_tokens,
             "page_bytes": self.page_bytes,
             "n_pages": self.n_pages,
@@ -382,3 +428,6 @@ class PagedKVCache:
             "n_replan_requests": a["n_replan_requests"],
             "replan_causes": a["replan_causes"],
         }
+        if self.tenant is not None:
+            out["tenant"] = self.tenant.stats()
+        return out

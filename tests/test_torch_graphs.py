@@ -175,10 +175,9 @@ def test_metrics_object_is_the_one_filled(pair):
 def test_unported_options_raise(pair):
     _, _, tm, tp = pair
     trace = [TRequest(rid=1, prompt_len=8, gen_len=4, arrival=0)]
-    for kw, what in ((dict(mesh=object()), "sharding"),
-                     (dict(shared=object()), "SharedArena")):
-        with pytest.raises(NotImplementedError, match=what):
-            ServeEngine(tm, tp, sample_trace=trace, max_len=32, max_batch=2, **kw)
+    with pytest.raises(NotImplementedError, match="sharding"):
+        ServeEngine(tm, tp, sample_trace=trace, max_len=32, max_batch=2,
+                    mesh=object())
     for build in (build_prefill_step, build_decode_step):
         with pytest.raises(NotImplementedError, match="sharding"):
             build(tm, object())

@@ -93,14 +93,6 @@ def test_plan_evictions_picks_the_reference_bids(price_mode, target_ratio):
     assert tev.evictions                    # the fat block is bought back
 
 
-def test_search_refuses_what_waits_for_unported_modules():
-    prof = make_profile(_skyline_spec())
-    with pytest.raises(NotImplementedError, match="core/reorder"):
-        plan_evictions(prof, reorder=True)
-    with pytest.raises(NotImplementedError, match="core/unified"):
-        plan_evictions(prof, view=object())
-
-
 def _profile_at_batch(mk, b):
     per = 8 << 20
     prof = mk([(b * per, 0, 100)] + [(per, t, t + 4) for t in range(1, 93, 4)])
@@ -246,12 +238,6 @@ def test_plan_remat_policy_loop_invariants(planned_loop):
     assert ev.profile.n == retraced.n
     if ev.reached_target:
         assert ev.peak <= ev.target_peak
-
-
-def test_plan_remat_policy_refuses_a_shared_arena(planned_loop):
-    model, bsds, _, _ = planned_loop
-    with pytest.raises(NotImplementedError, match="core/unified"):
-        train_lib.plan_remat_policy(model, bsds, shared=object())
 
 
 # ---------------------------------------------------------------------------

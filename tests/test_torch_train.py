@@ -299,10 +299,8 @@ def test_train_cli_defaults_to_full_remat(monkeypatch):
 
 
 def test_train_cli_refuses_what_is_not_ported():
-    for flags, what in ((["--share-hbm", "1"], "core/unified"),
-                        (["--trace", "t.json"], "obs/export")):
-        with pytest.raises(NotImplementedError, match=what):
-            _cli("--device", "cpu", *flags)
+    with pytest.raises(NotImplementedError, match="obs/export"):
+        _cli("--device", "cpu", "--trace", "t.json")
 
 
 def test_train_cli_needs_a_card_unless_told_cpu():
