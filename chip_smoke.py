@@ -10,9 +10,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` for sm_90a;
   3. hold each kernel against its plain PyTorch version on the card at the
      serving paths' shapes (paged decode and flash at qwen2-0.5b's head dim
-     64 and phi4-mini-3.8b's 128), and time kernel, plain version, the
-     library call where one exists (SDPA, a yardstick the port never calls)
-     and the bound.  Attention: bf16 max-abs 2e-2, the reference's own
+     64 and phi4-mini-3.8b's 128; paged decode at qwen2's layout also at
+     B=16 and 32, the ``[load:qwen2]`` buckets), and time kernel, plain
+     version, the library call where one exists (SDPA, a yardstick the port
+     never calls) and the bound.  Attention: bf16 max-abs 2e-2, the reference's own
      tolerance (bf16 flash runs on the tensor cores and rounds P to bf16 for
      P V, where the plain version keeps it in f32); f32 1e-4, because the
      sum order differs.  SSD: max-abs 1e-4 of max|y| (of max|h| for the
@@ -39,11 +40,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      tenants share; the fine-tune steps fire in the valleys the arena
      scheduled (``launch.serve.run_interleaved``), and the token streams
      must equal those of the same engine run with no fine-tune steps; then
+     ``[load:qwen2]`` (``load_phase``): the same weights serving the
+     ``launch/load.py`` burst cell (32 requests, two priority classes, the
+     pool planned from the trace with every generation halved) traced with
+     graphs, untraced and traced eagerly, with spans, SLOs, drift and a
+     validated Perfetto export; then
      the same serving path for full-width, full-depth phi4-mini-3.8b (32
      layers, head dim 128, 7.7 GB of bf16 weights) on the first trace;
   5. serve full-width mamba2-130m (24 layers, bf16, seeded random weights)
-     in gather mode with the SSD kernel in every prefill, then check it
-     against its plain path: token streams of a 2-layer f32 model, and the
+     in gather mode with the SSD kernel in every prefill, then
+     ``[load:mamba2]``, the diurnal load cell on the same weights, then
+     check it against its plain path: token streams of a 2-layer f32 model, and the
      full-width bf16 ``forward`` logits, within twice what re-chunking the
      plain path moves them;
   6. serve full-width, full-depth recurrentgemma-9b (38 layers, bf16, seeded
@@ -77,7 +84,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      card as on the CPU (1e-5 relative) and gradients no further from a
      float64 CPU run than twice the CPU's own f32 gradients (relative L2
      over every leaf), TF32 off;
-  8. print the kernels JSON line, the card line, and the result line.
+  8. print the load phases' launches (``[load] launches``), the kernels
+     JSON line, the card line, and the result line.
 
 Every serving path runs twice on the same trace and weights, first with the
 runner's steps eager (``graphs=False``), then replaying one CUDA graph per
@@ -95,6 +103,7 @@ Imports nothing of JAX.  Stdout's last line is the result JSON.
 from __future__ import annotations
 
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -102,6 +111,7 @@ import random
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -188,25 +198,27 @@ def check(name, err, dtype):
 
 
 def paged_cases(torch, ops, ref, pt: int, kv: int, group: int, hd: int, layers: int,
-                seed: int):
+                seed: int, bf16_batches=(1, 3, 8)):
     """Paged decode at the engine's pool geometry for a model's head layout
     (``kv`` heads of ``group`` query rows, head dim ``hd``): fragmented
     non-monotonic page tables, partial last pages, zero-padded table tails;
     ``layers`` layer pools cycled so every launch reads K/V from HBM, as
-    decode does.  Besides the timed cases, B=1, 3 and 8 at positions on and
-    across the split-KV kernel's 64-token chunk edges, position 0 and the
-    table's last token, each called twice in a row (the completion counters
-    must reset)."""
+    decode does.  The timed cases run at ``bf16_batches`` (positions drawn
+    from 100-631 up to B=8 and from the whole table past it, as the load
+    cells' batches of up to 32 reach) and at B=8 in f32.  Besides them, B=1,
+    3 and 8 at positions on and across the split-KV kernel's 64-token chunk
+    edges, position 0 and the table's last token.  Every case is called
+    twice in a row (the completion counters must reset)."""
     F = torch.nn.functional
     maxp = math.ceil(MAX_LEN / pt) + 1
-    n_pages = MAX_BATCH * maxp
+    n_pages = max(MAX_BATCH, *bf16_batches) * maxp
     g = torch.Generator(device="cuda").manual_seed(seed)
     rng = random.Random(seed)
     out, worst = {}, {}
     last = maxp * pt - 1
     edges = ([0], [63, 64, 65], [0, 1, 63, 64, 127, 128, last, 500])
     tag = f"hd={hd} KV={kv} G={group}"
-    for dtype_name, batches in (("bfloat16", (1, 3, 8)), ("float32", (8,))):
+    for dtype_name, batches in (("bfloat16", bf16_batches), ("float32", (8,))):
         dt = getattr(torch, dtype_name)
         kp = torch.randn(layers, n_pages, pt, kv, hd, generator=g, device="cuda").to(dt)
         vp = torch.randn(layers, n_pages, pt, kv, hd, generator=g, device="cuda").to(dt)
@@ -236,7 +248,8 @@ def paged_cases(torch, ops, ref, pt: int, kv: int, group: int, hd: int, layers: 
             print(f"[paged] {tag} edge B={len(pos)} {dtype_name} pt={pt} pos={pos} "
                   f"max_abs_err={err:.3g} (two calls in a row)", flush=True)
         for b in batches:
-            pos = [rng.randint(100, 631) for _ in range(b)]
+            pos = [rng.randint(100, 631) if b <= MAX_BATCH else rng.randint(0, last)
+                   for _ in range(b)]
             q, tables, positions, err = case(pos)
             calls = itertools.count()
 
@@ -828,6 +841,126 @@ def shared_phase(torch, ops, cfg, model, params, card) -> dict:
                 train_step_ms=colo["train_step_ms_mean"], step_ms=step_ms)
 
 
+def load_phase(torch, ops, cfg, model, params, cell: str, tag: str, expected,
+               card: str) -> dict:
+    """``[load:<tag>]``: one ``repro_torch.launch.load`` cell (a seeded
+    ``LoadGen`` trace; the pool planned from it with every generation length
+    halved) served by the loaded full-width model three ways through
+    ``load.run_cell``: traced with graphs (``Tracer(capacity=262_144)``),
+    untraced with graphs, traced eagerly.  Launch counters, peak memory and
+    the step timers are reset just before each run.  Prints the trace's
+    SHA-256 and class counts, then ``load.report``'s lines (TTFT/TPOT/E2E
+    p50/p99 in steps and in ms, TTFT ending at the first token on the host;
+    SLO attainment and goodput per class; preemptions and stall steps by
+    replan cause; the drift report), the physical pool's bytes and
+    ``max_memory_allocated``, decode step ms traced and untraced (the
+    tracer's cost) and the traced run's launches.  Fails unless every run
+    completes every request with launches equal to ``expected``, no span
+    breaks conservation, the exported trace validates and its ``kv-pool``
+    rectangles pass ``validate_plan``, the untraced and eager token streams
+    equal the traced ones, and the eager run's step-clock spans equal the
+    graphed run's.  Returns the traced run's launches, preemptions and
+    replans."""
+    from repro_torch.core.dsa import AllocationPlan, validate_plan
+    from repro_torch.core.events import Block, MemoryProfile
+    from repro_torch.launch import load
+    from repro_torch.obs import load_chrome_trace, plan_rectangles, validate_chrome_trace
+    free_cuda(torch)
+    t_phase = time.perf_counter()
+    lt, sample, live = load.traffic(cell, cfg.vocab_size)
+    classes = {}
+    for name in lt.class_of.values():
+        classes[name] = classes.get(name, 0) + 1
+    print(f"[load:{tag}] {cell}: {len(live)} requests, arrivals "
+          f"{[r.arrival for r in live]}, classes {classes or 'none'}, prompts "
+          f"{min(len(r.prompt) for r in live)}-{max(len(r.prompt) for r in live)}, "
+          f"live gen {min(r.gen_len for r in live)}-{max(r.gen_len for r in live)}, "
+          f"trace sha256 {hashlib.sha256(lt.to_bytes()).hexdigest()}", flush=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="load_trace_") as tmp:
+        path = str(Path(tmp) / f"{cell}.json")
+        for name, graphs, traced in (("traced", None, True), ("untraced", None, False),
+                                     ("eager", False, True)):
+            eng = load.make_engine(model, params, cell, sample, graphs=graphs)
+            eng.warmup()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            steps0, prefills0 = eng.decode_steps, eng.prefill_calls
+            eng.decode_time_s = eng.prefill_time_s = 0.0
+            run = load.run_cell(eng, cell, lt, live, traced=traced,
+                                trace_path=path if name == "traced" else "")
+            launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+            n_steps, n_prefills = eng.decode_steps - steps0, eng.prefill_calls - prefills0
+            r = dict(run=run, launches=launches, completed=dict(eng.completed),
+                     step_ms=1e3 * eng.decode_time_s / n_steps,
+                     prefill_ms=1e3 * eng.prefill_time_s / n_prefills,
+                     peak=torch.cuda.max_memory_allocated(), n_steps=n_steps,
+                     n_prefills=n_prefills, engine_steps=eng.step_count)
+            if run.summary["n_completed"] != len(live):
+                raise AssertionError(f"load:{tag} {name}: completed "
+                                     f"{run.summary['n_completed']}/{len(live)}")
+            want = expected(n_steps, n_prefills)
+            if launches != want:
+                raise AssertionError(f"load:{tag} {name}: launches {launches}, "
+                                     f"expected {want}")
+            if name == "traced":
+                bad = run.tracker.conservation_violations()
+                if bad or run.tracer.n_dropped or len(run.tracker.finished()) != len(live):
+                    raise AssertionError(f"load:{tag}: conservation violated for {bad}, "
+                                         f"dropped {run.tracer.n_dropped}, "
+                                         f"{len(run.tracker.finished())} finished spans")
+                trace = load_chrome_trace(path)
+                r["trace_bytes"] = Path(path).stat().st_size
+                validate_chrome_trace(trace)
+                rects = plan_rectangles(trace, "kv-pool")
+                rebuilt = MemoryProfile(
+                    blocks=[Block(bid=x["bid"], size=x["size"], start=x["start"],
+                                  end=x["end"]) for x in rects],
+                    clock_end=max(x["end"] for x in rects))
+                validate_plan(rebuilt, AllocationPlan(
+                    offsets={x["bid"]: x["offset"] for x in rects}, peak=rects[0]["peak"]))
+                r["rects"] = len(rects)
+                r["pool_bytes"] = sum(t.numel() * t.element_size()
+                                      for t in eng.cache.values())
+                r["n_pages"] = eng.kv.stats()["n_pages"]
+            runs[name] = r
+            del eng, run
+            free_cuda(torch)
+    tr, un, ea = runs["traced"], runs["untraced"], runs["eager"]
+    run = tr["run"]
+    print(f"[load:{tag}] traced graphs: engine steps={tr['engine_steps']} decode steps="
+          f"{tr['n_steps']} prefills={tr['n_prefills']} wall={run.wall_s:.2f}s "
+          f"events={len(run.tracer.events())} (none dropped), trace {tr['trace_bytes']} B "
+          f"valid, kv-pool rectangles {tr['rects']} valid; launches {tr['launches']} "
+          f"| {card}", flush=True)
+    load.report(run, tag, f" | {card}")
+    print(f"[load:{tag}] pool n_pages={tr['n_pages']}: physical pool {tr['pool_bytes']} B, "
+          f"max_memory_allocated over the run {tr['peak']} B | {card}", flush=True)
+    print(f"[load:{tag}] decode step ms traced {tr['step_ms']:.4f} untraced "
+          f"{un['step_ms']:.4f} (tracer {tr['step_ms'] - un['step_ms']:+.4f} ms a step), "
+          f"eager traced {ea['step_ms']:.4f}; prefill ms traced {tr['prefill_ms']:.3f} "
+          f"untraced {un['prefill_ms']:.3f}; wall s traced {run.wall_s:.3f} untraced "
+          f"{un['run'].wall_s:.3f} | {card}", flush=True)
+    for other in ("untraced", "eager"):
+        where = first_divergence(tr["completed"], runs[other]["completed"])
+        if where is not None:
+            raise AssertionError(f"load:{tag}: the {other} run diverges from the traced "
+                                 f"graphed one at (rid, token) {where}")
+    same_spans = load.step_spans(run.tracker) == load.step_spans(ea["run"].tracker)
+    print(f"[load:{tag}] token streams traced = untraced = eager: True; step-clock spans "
+          f"graphs = eager: {same_spans}; phase {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    if not same_spans:
+        raise AssertionError(f"load:{tag}: the eager run's step-clock spans differ")
+    s = run.summary
+    if s["n_preemptions"] + s["kv_n_reopt"] == 0:
+        print(f"[load:{tag}] no preemption and no replan: the admission gate absorbed "
+              "the undersized pool", flush=True)
+    return dict(launches=tr["launches"], preemptions=s["n_preemptions"],
+                reopts=s["kv_n_reopt"])
+
+
 def check_forward(torch, cfg, Transformer, params, tokens, kernel, plain, yardstick,
                   what: str, *, hold: bool = True, slack: int = 0) -> None:
     """Full-width bf16 ``forward`` logits through the kernels (RunOpts
@@ -1132,7 +1265,9 @@ def main() -> int:
     trace_p, live_p = serve_trace(cfg_p, torch, N_REQUESTS, SEED)
     pt_p = choose_page_tokens(cfg_p, trace_p).page_tokens
     # qwen2's decode layout (2 kv heads of 7, hd 64) and phi4's (8 of 3, hd 128)
-    paged, paged_worst = paged_cases(torch, ops, ref, pt, 2, 7, 64, cfg.n_layers, SEED + 1)
+    # B=16 and 32: the batch buckets [load:qwen2] decodes at (launch.load.MAX_BATCH)
+    paged, paged_worst = paged_cases(torch, ops, ref, pt, 2, 7, 64, cfg.n_layers, SEED + 1,
+                                     bf16_batches=(1, 3, 8, 16, 32))
     paged128, paged128_worst = paged_cases(torch, ops, ref, pt_p, 8, 3, 128,
                                            cfg_p.n_layers, SEED + 8)
     stamp(t_start, "[paged]")
@@ -1172,6 +1307,15 @@ def main() -> int:
     stamp(t_start, "[serve:churn]")
     shared = shared_phase(torch, ops, cfg, model, params, card)
     stamp(t_start, "[serve:shared]")
+    load_q = load_phase(torch, ops, cfg, model, params, "qwen2-burst-tight", "qwen2",
+                        lambda steps, prefills: {
+                            "flash_attention": cfg.n_layers * prefills,
+                            "paged_attention": cfg.n_layers * steps, "ssd_scan": 0,
+                            "rglru_scan": 0}, card)
+    if load_q["preemptions"] + load_q["reopts"] == 0:
+        raise AssertionError("load:qwen2: the tight pool never bit (no preemption, "
+                             "no replan)")
+    stamp(t_start, "[load:qwen2]")
     del model, params
     same_streams(torch, cfg.with_overrides(n_layers=2, dtype="float32"),
                  [(RunOpts(attention_impl="kernel"), "paged"),
@@ -1205,8 +1349,15 @@ def main() -> int:
         "flash_attention": 0, "paged_attention": 0,
         "ssd_scan": cfg_m.n_layers * prefills, "rglru_scan": 0}, card,
         "mamba2")["launches"]
-    del model, params
     stamp(t_start, "[serve:mamba2]")
+    # the diurnal load cell reuses the loaded mamba2 weights, so it runs here,
+    # after the mamba2 serving path, and not beside [load:qwen2]
+    load_m = load_phase(torch, ops, cfg_m, model, params, "mamba2-diurnal-tight", "mamba2",
+                        lambda steps, prefills: {
+                            "flash_attention": 0, "paged_attention": 0,
+                            "ssd_scan": cfg_m.n_layers * prefills, "rglru_scan": 0}, card)
+    stamp(t_start, "[load:mamba2]")
+    del model, params
     same_streams(torch, cfg_m.with_overrides(n_layers=2, dtype="float32"),
                  [(RunOpts(use_kernels=True), "gather"),
                   (RunOpts(use_kernels=False), "gather")],
@@ -1331,6 +1482,7 @@ def main() -> int:
          "bound_by": rk["bound_by"], "library_ms": None,
          "s2600_ms": rk_long["ms"], "s2600_bound_ms": rk_long["bound_ms"]},
     ]
+    print(f"[load] launches {json.dumps({'qwen2': load_q['launches'], 'mamba2': load_m['launches']})}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -34,8 +34,15 @@ process, and both workloads' measured step times are reported.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --preset full --attn paged --prompt-len 512 --gen-len 64 --max-len 2048 --requests 16 --share-hbm 6 --train-steps 2
 
-``--trace`` and the ``--slo-*`` reports of the reference driver are not
-ported yet.
+``--trace PATH`` writes a Chrome-trace/Perfetto JSON of the run (runtime
+events, one span track per request, the ``kv-pool`` plan's rectangles and,
+with ``--share-hbm``, the ``joint`` plan's); ``--metrics`` prints the
+engine's registry as Prometheus text; ``--slo-ttft/--slo-tpot/--slo-e2e``
+(engine steps) print the ``[slo]`` attainment and goodput line.  Every run
+prints the ``[drift]`` line: the pool's planned peak against the arena's
+observed address peak, fragmentation and replans by cause.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --preset full --attn paged --trace serve.json --metrics --slo-ttft 4 --slo-tpot 1.5
 """
 from __future__ import annotations
 
@@ -49,6 +56,8 @@ from torch.utils._pytree import tree_leaves, tree_map
 from ..configs import get_config
 from ..core import MemoryPlanner, SharedArena
 from ..models import RunOpts, Transformer
+from ..obs import (ChromeTraceBuilder, DriftMonitor, SLOEngine, SLOSpec,
+                   SpanTracker, Tracer, use_tracer)
 from ..runtime import train_lib
 from ..runtime.serve_lib import ServingArena, synth_trace
 from ..serving import GenRequest, ServeEngine
@@ -222,6 +231,18 @@ def main(argv=None) -> None:
                          "runs the paged-attention kernel straight off the "
                          "page pool")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="write a Chrome-trace/Perfetto JSON of the run "
+                         "(runtime events + per-request span tracks + "
+                         "packed-plan rectangles)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the metrics registry as Prometheus text")
+    ap.add_argument("--slo-ttft", type=float, default=None, metavar="STEPS",
+                    help="TTFT ceiling (engine steps); enables the SLO report")
+    ap.add_argument("--slo-tpot", type=float, default=None, metavar="STEPS",
+                    help="per-token decode-cadence ceiling (engine steps)")
+    ap.add_argument("--slo-e2e", type=float, default=None, metavar="STEPS",
+                    help="enqueue->finish ceiling (engine steps)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -296,16 +317,62 @@ def main(argv=None) -> None:
                        gen_len=max(2, r.gen_len + rng.randint(-2, 6)),
                        arrival=r.arrival)
             for r in trace]
+    want_slo = any(v is not None
+                   for v in (args.slo_ttft, args.slo_tpot, args.slo_e2e))
+    tracer = Tracer() if (args.trace or want_slo) else None
     colocated = None
-    if shared is not None:
-        # execute the joint plan: fine-tune steps at the valley phases
-        train_step = make_train_step(
-            ft_model, params, seq, batch, seed=args.seed,
-            max_grad_norm=(FULL_FINETUNE_MAX_GRAD_NORM if args.preset == "full"
-                           else None))
-        summary, colocated = run_interleaved(eng, live, shared, train_step)
-    else:
-        summary = eng.run(live)
+    with use_tracer(tracer):
+        if shared is not None:
+            # execute the joint plan: fine-tune steps at the valley phases
+            train_step = make_train_step(
+                ft_model, params, seq, batch, seed=args.seed,
+                max_grad_norm=(FULL_FINETUNE_MAX_GRAD_NORM
+                               if args.preset == "full" else None))
+            summary, colocated = run_interleaved(eng, live, shared, train_step)
+        else:
+            summary = eng.run(live)
+    tracker = None
+    if tracer is not None:
+        # fold the event stream into per-request spans (queue/prefill/
+        # decode/preempted) — the trace export and SLO report read these
+        tracker = SpanTracker().feed(tracer.events())
+    if args.trace:
+        tb = ChromeTraceBuilder()
+        tb.add_events(tracer.events())
+        tb.add_events(tracker.to_events())
+        tb.add_plan("kv-pool", eng.kv.plan.profile)
+        if shared is not None:
+            jp = shared.plan()
+            tb.add_plan("joint", jp.profile, plan=jp.plan)
+        tb.write(args.trace)
+        print(f"[trace] {len(tracer.events())} events "
+              f"(dropped {tracer.n_dropped}), "
+              f"{len(tracker.finished())} request spans -> {args.trace}")
+    if want_slo:
+        slo = SLOEngine(SLOSpec(ttft_steps=args.slo_ttft,
+                                tpot_steps=args.slo_tpot,
+                                e2e_steps=args.slo_e2e))
+        slo.observe_spans(tracker.finished())
+        rep = slo.report(n_steps=eng.step_count, wall_s=summary["wall_s"])
+        att = rep["attainment"]
+        print(f"[slo] attainment={'n/a' if att is None else f'{att:.3f}'} "
+              f"({rep['n_met']}/{rep['n_requests']}) "
+              f"goodput={rep['goodput_tokens_per_step']:.2f} tok/step "
+              f"({rep['goodput_tokens_per_s']:.1f} tok/s) "
+              f"ttft_p99={rep['ttft_steps']['p99']} "
+              f"e2e_p99={rep['e2e_steps']['p99']}")
+    # the observed peak is the logical arena's address peak; the physical
+    # page pool is sized by max_batch x max_len, not by the plan
+    drift = DriftMonitor(eng.kv.plan.profile)
+    drift.observe_arena(eng.kv.arena)
+    d = drift.report()
+    print(f"[drift] planned={d['planned_peak'] / 1e6:.2f}MB "
+          f"observed={d['observed_peak'] / 1e6:.2f}MB "
+          f"peak_ratio={d['peak_ratio']:.2f} "
+          f"frag={d['fragmentation']:.2f} "
+          f"replans={d['n_replans']} causes={d['replan_causes']}")
+    if args.metrics:
+        print(eng.metrics.registry.to_prometheus_text(), end="")
     if eng.decode_steps:
         mode, compiles = (("runner", eng.runner.n_compiles) if args.runner
                           else ("slab", eng.decode_compiles))

@@ -4,6 +4,9 @@ Config registry, synthetic pipeline, AdamW, async checkpointing, fault
 injection (--fail-at) with restart, straggler monitoring, and the paper's
 memory planner: a ``make_fx`` profile of the step packed by best fit, and the
 profile-guided remat policy.  Runs on the card unless ``--device cpu``.
+``--trace PATH`` writes a Chrome-trace/Perfetto JSON of the planning phase:
+the remat search's and the shared arena's events, the packed
+``activations`` plan and, with ``--share-hbm``, the ``joint`` plan.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
@@ -25,7 +28,9 @@ from ..configs import get_config
 from ..core import MemoryPlanner, SharedArena
 from ..data import DataConfig, SyntheticPipeline
 from ..models import RunOpts, Transformer
-from ..obs import MetricsRegistry
+from ..obs import ChromeTraceBuilder, MetricsRegistry, Tracer
+from ..obs import disable as trace_disable
+from ..obs import enable as trace_enable
 from ..optim.adamw import AdamWConfig
 from ..runtime import train_lib
 from ..runtime.fault import SimulatedFailure, StragglerMonitor, TrainController
@@ -98,17 +103,18 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--trace", default="", metavar="PATH",
-                    help="Chrome-trace export of the planning phase (needs "
-                         "obs/export, not ported yet)")
+                    help="write a Chrome-trace/Perfetto JSON of the planning "
+                         "phase (remat search rounds, shared-arena events) "
+                         "plus the packed activation plan")
     ap.add_argument("--metrics", action="store_true",
                     help="print planner metrics as Prometheus text")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; no silent fallback")
     args = ap.parse_args(argv)
 
-    if args.trace:
-        raise NotImplementedError("--trace needs obs/export (Chrome-trace "
-                                  "export), not ported yet")
+    tracer = Tracer() if args.trace else None
+    if tracer is not None:
+        trace_enable(tracer)
 
     cfg, seq, batch = reduced_config(args.arch, args.preset)
     model = Transformer(cfg, RunOpts(attention_impl="full", use_kernels=False),
@@ -210,6 +216,17 @@ def main(argv=None) -> None:
         print(f"done: {remaining} steps in {dt:.1f}s "
               f"final_loss={ctl.losses[-1]:.4f} stragglers={mon.stragglers()}")
 
+    if tracer is not None:
+        trace_disable()
+        tb = ChromeTraceBuilder()
+        tb.add_events(tracer.events())
+        tb.add_plan("activations", prof, plan=rep.plan)
+        if tview is not None:
+            jp = tview.shared.plan()
+            tb.add_plan("joint", jp.profile, plan=jp.plan)
+        tb.write(args.trace)
+        print(f"[trace] {len(tracer.events())} events "
+              f"(dropped {tracer.n_dropped}) -> {args.trace}")
     if args.metrics:
         reg = MetricsRegistry()
         reg.gauge("train_plan_peak_bytes",

@@ -14,8 +14,11 @@ Public API:
   - engine:    ServeEngine
   - runner:    DecodeRunner, bucket_ladder
   - metrics:   ServeMetrics
+  - loadgen:   LoadGen, LoadSpec, LoadTrace, TrafficClass, make_loadgen
+               (seeded trace-replay traffic; a copy of the reference's)
 """
 from .engine import ServeEngine
+from .loadgen import LoadGen, LoadSpec, LoadTrace, TrafficClass, make_loadgen
 from .metrics import ServeMetrics
 from .pages import (PagePlan, PagedKVCache, PagePoolExhausted,
                     choose_page_tokens, paged_request_blocks, plan_pool)
@@ -23,8 +26,9 @@ from .runner import DecodeRunner, bucket_ladder
 from .scheduler import GenRequest, RequestState, Scheduler
 
 __all__ = [
-    "DecodeRunner", "GenRequest", "PagePlan", "PagePoolExhausted",
-    "PagedKVCache", "RequestState", "Scheduler", "ServeEngine",
-    "ServeMetrics", "bucket_ladder", "choose_page_tokens",
+    "DecodeRunner", "GenRequest", "LoadGen", "LoadSpec", "LoadTrace",
+    "PagePlan", "PagePoolExhausted", "PagedKVCache", "RequestState",
+    "Scheduler", "ServeEngine", "ServeMetrics", "TrafficClass",
+    "bucket_ladder", "choose_page_tokens", "make_loadgen",
     "paged_request_blocks", "plan_pool",
 ]

@@ -298,9 +298,22 @@ def test_train_cli_defaults_to_full_remat(monkeypatch):
     assert "done: 2 steps" in text
 
 
-def test_train_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="obs/export"):
-        _cli("--device", "cpu", "--trace", "t.json")
+def test_train_cli_writes_a_trace_of_the_planning_phase(tmp_path):
+    """``--trace``: the remat search's events and the packed ``activations``
+    plan in one Chrome trace that passes the schema gate, with every block
+    of the plan rebuilt from the export."""
+    from repro_torch.obs import load_chrome_trace, plan_rectangles, validate_chrome_trace
+    from repro_torch.obs import get_tracer
+    path = tmp_path / "train.json"
+    text = _cli("--device", "cpu", "--preset", "tiny", "--steps", "2",
+                "--remat", "planned", "--trace", str(path))
+    assert "[trace] " in text and f"-> {path}" in text
+    assert get_tracer() is None          # the CLI uninstalls its tracer
+    trace = load_chrome_trace(str(path))
+    validate_chrome_trace(trace)
+    rects = plan_rectangles(trace, "activations")
+    assert rects and all(r["size"] > 0 for r in rects)
+    assert {e["cat"] for e in trace["traceEvents"] if e["ph"] != "M"} >= {"remat", "packing"}
 
 
 def test_train_cli_needs_a_card_unless_told_cpu():
