@@ -11,7 +11,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   3. hold each kernel against its plain PyTorch version on the card at the
      serving paths' shapes (paged decode and flash at qwen2-0.5b's head dim
      64 and phi4-mini-3.8b's 128; paged decode at qwen2's layout also at
-     B=16 and 32, the ``[load:qwen2]`` buckets), and time kernel, plain
+     B=16 and 32, the ``[load:qwen2]`` buckets; both at head dim 128 at the
+     three GQA layouts of mistral-nemo-12b, starcoder2-15b and chameleon-34b:
+     G = 4, 12 and 8 query heads per KV head), and time kernel, plain
      version, the library call where one exists (SDPA, a yardstick the port
      never calls) and the bound.  Attention: bf16 max-abs 2e-2, the reference's own
      tolerance (bf16 flash runs on the tensor cores and rounds P to bf16 for
@@ -46,7 +48,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      graphs, untraced and traced eagerly, with spans, SLOs, drift and a
      validated Perfetto export; then
      the same serving path for full-width, full-depth phi4-mini-3.8b (32
-     layers, head dim 128, 7.7 GB of bf16 weights) on the first trace;
+     layers, head dim 128, 7.7 GB of bf16 weights) on the first trace; then
+     the same for the three untied dense decoders at full width and depth
+     (``dense_phase``: ``[serve:mistral]`` mistral-nemo-12b, 40 layers, 8 KV
+     heads of 4 at head dim 128, attention width 4096 against d_model 5120,
+     24.5 GB; ``[serve:starcoder2]`` starcoder2-15b, 40 layers, 4 KV heads of
+     12, LayerNorm, the biased tanh-gelu MLP, 31.9 GB; ``[serve:chameleon]``
+     chameleon-34b, 48 layers, 8 KV heads of 8, 68.6 GB, with the card's free
+     memory after the load, the init peak, the planned and the physical
+     pool and ``max_memory_allocated`` over each run), each model freed
+     before its f32 2-layer check and before the next model is drawn;
   5. serve full-width mamba2-130m (24 layers, bf16, seeded random weights)
      in gather mode with the SSD kernel in every prefill, then
      ``[load:mamba2]``, the diurnal load cell on the same weights, then
@@ -123,6 +134,9 @@ ARCH = "qwen2-0.5b"
 PHI4_ARCH = "phi4-mini-3.8b"
 SSM_ARCH = "mamba2-130m"
 HYBRID_ARCH = "recurrentgemma-9b"
+# the untied dense decoders served at full width and depth: (arch, tag)
+DENSE_ARCHS = (("mistral-nemo-12b", "mistral"), ("starcoder2-15b", "starcoder2"),
+               ("chameleon-34b", "chameleon"))
 MAX_BATCH, MAX_LEN, GEN_LEN, N_REQUESTS, SEED = 8, 1024, 32, 12, 0
 CHURN_PROFILED_GEN = 8      # the churn trace's profile; live requests ask 32-48
 # [serve:shared]: 32 requests of 256-1024 prompt tokens and 64 generated ones
@@ -547,6 +561,7 @@ def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
     if runner.n_compiles != warm:
         raise AssertionError(f"{tag}: {runner.n_compiles - warm} captures during the run")
     stats = runner.stats()
+    cache_bytes = sum(t.numel() * t.element_size() for t in eng.cache.values())
     step_ms = 1e3 * eng.decode_time_s / eng.decode_steps
     prefill_ms = 1e3 * eng.prefill_time_s / eng.prefill_calls
     print(f"[serve:{tag}] steps={n_steps} step_ms={step_ms:.2f} "
@@ -555,7 +570,8 @@ def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
           f"graphs={stats['graphs']} compiles={stats['n_compiles']} "
           f"graph_pool={stats['graph_pool_bytes'] / 1e6:.2f}MB "
           f"captured_paged_counters={len(pa._graph_counters)} "
-          f"peak_mem={torch.cuda.max_memory_allocated() / 1e9:.2f}GB | {card}")
+          f"physical_cache={cache_bytes / 1e9:.3f}GB "
+          f"peak_mem={torch.cuda.max_memory_allocated() / 1e9:.3f}GB | {card}")
     print(f"[serve:{tag}] completed {summary['n_completed']}/{summary['n_requests']} "
           f"requests, {summary['tokens']} tokens in {summary['wall_s']:.1f}s "
           f"({summary['tokens_per_s']:.1f} tok/s), "
@@ -614,14 +630,20 @@ def free_cuda(torch) -> None:
 def load_model(torch, Transformer, cfg, opts, seed: int, tag: str):
     """A model and its weights drawn from ``seed``, one leaf at a time
     (``init_loaded``): the peak is the loaded weights plus one f32 leaf."""
+    from torch.utils._pytree import tree_leaves
     free_cuda(torch)
     torch.cuda.reset_peak_memory_stats()
     model = Transformer(cfg, opts)
     params = model.init_loaded(torch.Generator(device="cuda").manual_seed(seed))
     torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    free, total = torch.cuda.mem_get_info()
     print(f"[serve:{tag}] weights {torch.cuda.memory_allocated() / 1e9:.2f}GB "
-          f"({cfg.n_layers} layers, {cfg.dtype}), init peak "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}GB", flush=True)
+          f"({n_params} parameters, {cfg.n_layers} layers, {cfg.dtype}), init peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}GB; card free after the load "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f}GB, beside "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f}GB reserved by the caching allocator",
+          flush=True)
     return model, params
 
 
@@ -648,6 +670,38 @@ def same_streams(torch, small, variants, Transformer, ServeEngine, what: str, *,
           f"for {same[1]}/{len(live_s)} (prompts {[r.prompt_len for r in trace_s]})")
     if same != [len(live_s)] * 2:
         raise AssertionError(f"token streams differ: {streams}")
+
+
+def dense_phase(torch, ops, Transformer, RunOpts, ServeEngine, arch: str, tag: str,
+                card: str) -> dict:
+    """``[serve:<tag>]``: a registered untied dense decoder at full width and
+    depth (seeded random bf16 weights drawn leaf by leaf) serving the
+    12-request trace with paged decode and flash prefill, eagerly and then
+    with graphs (``graph_ab``: equal token streams, launches exactly
+    ``n_layers`` per decode step and per prefill); then the model is freed
+    and an f32 2-layer cut of the same width serves identical token streams
+    through paged+kernels and gather+plain (``same_streams``).  Nothing
+    falls back: an out-of-memory error in the load or the serve fails the
+    run.  Returns the graph run (``serve_path``'s dict)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    trace, live = serve_trace(cfg, torch, N_REQUESTS, SEED)
+    model, params = load_model(torch, Transformer, cfg, RunOpts(attention_impl="kernel"),
+                               SEED, tag)
+    run = graph_ab(torch, ops, lambda graphs: ServeEngine(
+        model, params, sample_trace=trace, max_len=MAX_LEN, max_batch=MAX_BATCH,
+        attn_mode="paged", graphs=graphs), live, lambda steps, prefills: {
+        "flash_attention": cfg.n_layers * prefills,
+        "paged_attention": cfg.n_layers * steps, "ssd_scan": 0,
+        "rglru_scan": 0}, card, tag)
+    del model, params
+    free_cuda(torch)
+    same_streams(torch, cfg.with_overrides(n_layers=2, dtype="float32"),
+                 [(RunOpts(attention_impl="kernel"), "paged"),
+                  (RunOpts(attention_impl="full"), "gather")],
+                 Transformer, ServeEngine, "paged+kernels vs gather+plain")
+    free_cuda(torch)
+    return run
 
 
 def churn_phase(torch, ops, cfg, model, params, card) -> dict:
@@ -1246,8 +1300,11 @@ def main() -> int:
     if smem_src != smem_py:
         raise AssertionError("rglru_scan.smem_blocks() disagrees with csrc "
                              "rglru_scan_smem_bytes")
-    for (grp, hd), (dt, code) in itertools.product(((7, 64), (3, 128)),
-                                                   pa.DTYPE_CODES.items()):
+    # qwen2's and phi4's layouts, then mistral-nemo-12b's, chameleon-34b's and
+    # starcoder2-15b's (G = 12: 44,128 B in bf16, under the 48 KB that needs
+    # no opt-in; 76,896 B in f32, which opts in)
+    for (grp, hd), (dt, code) in itertools.product(
+            ((7, 64), (3, 128), (4, 128), (8, 128), (12, 128)), pa.DTYPE_CODES.items()):
         smem_src = build.library("paged_attention").paged_attention_smem_bytes(grp, hd, code)
         smem_py = MemoryPlanner.smem_footprint(pa.smem_blocks(grp, hd, dt))
         print(f"[build] paged_attention G={grp} hd={hd} {dt} dynamic shared memory "
@@ -1270,6 +1327,16 @@ def main() -> int:
                                      bf16_batches=(1, 3, 8, 16, 32))
     paged128, paged128_worst = paged_cases(torch, ops, ref, pt_p, 8, 3, 128,
                                            cfg_p.n_layers, SEED + 8)
+    # the untied dense decoders' layouts at hd 128, each at its own page size
+    # and depth: 8 kv heads of 4, 4 of 12 (the score loop's 8 rows a pass
+    # and P V's 4 leave a tail at 12) and 8 of 8
+    dense_cfgs = {tag: get_config(arch) for arch, tag in DENSE_ARCHS}
+    paged_dense, flash_dense = {}, {}
+    for i, (tag, c) in enumerate(dense_cfgs.items()):
+        pt_d = choose_page_tokens(c, serve_trace(c, torch, N_REQUESTS, SEED)[0]).page_tokens
+        paged_dense[tag] = paged_cases(torch, ops, ref, pt_d, c.n_kv_heads,
+                                       c.n_heads // c.n_kv_heads, c.resolved_head_dim,
+                                       c.n_layers, SEED + 20 + i)
     stamp(t_start, "[paged]")
     # qwen2's layout (14 heads over 2, D=64) at the padding ladder's shapes,
     # one sliding window and one offset; recurrentgemma's local attention
@@ -1283,6 +1350,12 @@ def main() -> int:
         *((dt, sq, w, off) for dt in ("bfloat16", "float32")
           for sq, w, off in ((37, 0, 0), (256, 0, 0), (512, 0, 0), (1024, 0, 0),
                              (512, 128, 0), (64, 0, 512)))], SEED + 9)
+    # the untied dense decoders' layouts: 32 heads over 8, 48 over 4, 64 over 8
+    for i, (tag, c) in enumerate(dense_cfgs.items()):
+        flash_dense[tag] = flash_cases(torch, ops, ref, c.n_heads, c.n_kv_heads,
+                                       c.resolved_head_dim, [
+            (dt, sq, 0, 0) for dt in ("bfloat16", "float32") for sq in (37, 512, 1024)],
+            SEED + 30 + i)
     flash_wide, flash_wide_worst = flash_cases(torch, ops, ref, 16, 1, 256, [
         *((dt, sq, 2048, 0) for dt in ("bfloat16", "float32") for sq in (37, 512, 2600)),
         ("bfloat16", 64, 2048, 2500)], SEED + 6, iters=10)
@@ -1336,6 +1409,13 @@ def main() -> int:
                  [(RunOpts(attention_impl="kernel"), "paged"),
                   (RunOpts(attention_impl="full"), "gather")],
                  Transformer, ServeEngine, "paged+kernels vs gather+plain")
+    stamp(t_start, "[serve:phi4]")
+    # -- the untied dense decoders at full width and depth, one at a time ----------
+    dense = {}
+    for arch, tag in DENSE_ARCHS:
+        dense[tag] = dense_phase(torch, ops, Transformer, RunOpts, ServeEngine, arch, tag,
+                                 card)["launches"]
+        stamp(t_start, f"[serve:{tag}]")
 
     stamp(t_start, "phase 4")
     # -- 5. the mamba2 path: full-width mamba2-130m, gather decode, SSD prefill -------
@@ -1431,30 +1511,52 @@ def main() -> int:
     sk = ssd_res[("bfloat16", 1, 512)]
     rk = rglru[(1, 512, False)]
     rk_long = rglru[(1, 2600, False)]
+
+    def times(r, **library):
+        return {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "max_abs_err": r["err"], **library}
+    # the dense layouts' times; for paged decode, SDPA over a pre-gathered copy
+    # is a yardstick, not a library call that reads a paged pool
+    paged_layouts, flash_layouts = {}, {}
+    for tag, c in dense_cfgs.items():
+        lay = f"hd128_kv{c.n_kv_heads}_g{c.n_heads // c.n_kv_heads}"
+        for (dt, b), r in paged_dense[tag][0].items():
+            paged_layouts[f"{tag}_{lay}_b{b}_{dt}"] = times(
+                r, library_ms=None, sdpa_gathered_ms=r["sdpa_ms"])
+        for (dt, sq, _, _), r in flash_dense[tag][0].items():
+            flash_layouts[f"{tag}_d128_h{c.n_heads}_kv{c.n_kv_heads}_sq{sq}_{dt}"] = times(
+                r, library_ms=r["sdpa_ms"])
+    dense_paged = sum(d["paged_attention"] for d in dense.values())
+    dense_flash = sum(d["flash_attention"] for d in dense.values())
     kernels = [
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:76",
-         "launches": qwen2["paged_attention"] + phi4["paged_attention"],
+         "launches": qwen2["paged_attention"] + phi4["paged_attention"] + dense_paged,
+         "dense_launches": {tag: d["paged_attention"] for tag, d in dense.items()},
          "churn_launches": churn["launches"]["paged_attention"],
          "shared_launches": shared["launches"]["paged_attention"],
          "train_launches": train["paged_attention"],
-         "max_abs_err": max(paged_worst["bfloat16"], paged128_worst["bfloat16"]),
+         "max_abs_err": max(paged_worst["bfloat16"], paged128_worst["bfloat16"],
+                            *(w["bfloat16"] for _, w in paged_dense.values())),
          "ms": pk["ms"],
          "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
          "bound_by": pk["bound_by"], "library_ms": None,
          "d128_ms": pk128["ms"], "d128_plain_ms": pk128["plain_ms"],
-         "d128_bound_ms": pk128["bound_ms"], "d128_library_ms": None},
+         "d128_bound_ms": pk128["bound_ms"], "d128_library_ms": None,
+         "layouts": paged_layouts},
         {"name": "flash_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73",
          "launches": (qwen2["flash_attention"] + phi4["flash_attention"]
-                      + rgemma["flash_attention"]),
+                      + rgemma["flash_attention"] + dense_flash),
+         "dense_launches": {tag: d["flash_attention"] for tag, d in dense.items()},
          "churn_launches": churn["launches"]["flash_attention"],
          "shared_launches": shared["launches"]["flash_attention"],
          "train_launches": train["flash_attention"],
          "max_abs_err": max(flash_worst["bfloat16"], flash128_worst["bfloat16"],
-                            flash_wide_worst["bfloat16"]),
+                            flash_wide_worst["bfloat16"],
+                            *(w["bfloat16"] for _, w in flash_dense.values())),
          "ms": fk["ms"],
          "plain_ms": fk["plain_ms"], "bound_ms": fk["bound_ms"],
          "bound_by": fk["bound_by"], "library_ms": fk["sdpa_ms"],
@@ -1464,7 +1566,8 @@ def main() -> int:
          "d128_sq1024_ms": fk128l["ms"], "d128_sq1024_bound_ms": fk128l["bound_ms"],
          "d128_sq1024_library_ms": fk128l["sdpa_ms"],
          "d256_sq2600_ms": fw["ms"], "d256_sq2600_bound_ms": fw["bound_ms"],
-         "d256_sq2600_library_ms": fw["sdpa_ms"]},
+         "d256_sq2600_library_ms": fw["sdpa_ms"],
+         "layouts": flash_layouts},
         {"name": "ssd_scan_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:64",

@@ -10,7 +10,9 @@ g + 1), followed by the ``tail`` blocks; every other layout is kept as is
 ``w_down`` (F,D); mamba2: ``w_in``, ``w_conv``, ``b_conv``, ``dt_bias``,
 ``a_log``, ``d_skip``, ``norm_scale``, ``w_out``; rec: ``w_branch``,
 ``w_gate``, ``w_conv``, ``b_conv``, ``w_out``, ``lru``; ``embed``
-(padded_vocab, D) and, untied, ``lm_head`` of the same shape).  Leaves come
+(padded_vocab, D) and, untied, ``lm_head`` of the same shape; every norm
+with all its leaves, a LayerNorm's ``bias`` too; the ungated MLP's
+``b_up``/``b_down``).  Leaves come
 back as f32 CPU tensors; ``Transformer.load`` moves and casts them.
 """
 from __future__ import annotations
@@ -52,7 +54,7 @@ def params_from_jax(tree) -> dict:
     tail = tree.get("tail", {})
     layers += [_unstacked(tail[str(i)]) for i in range(len(tail))]
     out = {"embed": _tensor(tree["embed"]),
-           "final_norm": {"scale": _tensor(tree["final_norm"]["scale"])}}
+           "final_norm": _unstacked(tree["final_norm"])}
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"])
     out["layers"] = layers

@@ -2,8 +2,10 @@
 
 The reference keeps f32 master parameters and casts each to the compute
 dtype at every use; the port casts them once at load
-(``Transformer.load``), which gives the same numbers.  Norm scales stay f32:
-the reference reads them in f32 (``1 + scale``), never in the compute dtype.
+(``Transformer.load``), which gives the same numbers.  Norm scales and
+LayerNorm biases stay f32: the reference reads them in f32 (``1 + scale``,
+``y * scale + bias``), never in the compute dtype.  The MLP's biases are in
+the compute dtype, as the reference casts them.
 """
 from __future__ import annotations
 
@@ -26,6 +28,21 @@ def rms_norm(x, scale, eps: float = 1e-6):
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + upcast(scale))).to(dt)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """``(x - mean) * rsqrt(var + eps) * scale + bias``, computed in f32
+    (no ``1 +``: a LayerNorm scale is initialised to ones)."""
+    xf = upcast(x)
+    return F.layer_norm(xf, xf.shape[-1:], scale.to(xf.dtype), bias.to(xf.dtype),
+                        eps).to(x.dtype)
+
+
+def apply_norm(x, p, kind: str):
+    """The norm ``kind`` (``rmsnorm`` | ``layernorm``) with the leaves of ``p``."""
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
 
 
 def rope_angles(positions, head_dim: int, theta: float):
@@ -54,14 +71,25 @@ def gelu_tanh(x):
 
 
 GATED_ACTS = {"swiglu": F.silu, "geglu": gelu_tanh}
+UNGATED_ACTS = {"gelu": gelu_tanh}      # the ungated act the port's configs use
 
 
 def mlp(x, p, act: str = "swiglu"):
-    """Gated FFN: ``(act(x @ w_gate) * (x @ w_up)) @ w_down`` with act silu
-    (``swiglu``) or tanh gelu (``geglu``)."""
-    g = GATED_ACTS[act](x @ p["w_gate"])
-    h = g * (x @ p["w_up"])
-    return h @ p["w_down"]
+    """Dense FFN.  Gated (``swiglu``: silu, ``geglu``: tanh gelu):
+    ``(act(x @ w_gate) * (x @ w_up)) @ w_down``.  Otherwise ungated,
+    ``act(x @ w_up + b_up) @ w_down + b_down``, each bias only where ``p``
+    holds it (``gelu`` is the tanh form)."""
+    if act in GATED_ACTS:
+        h = GATED_ACTS[act](x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = x @ p["w_up"]
+        if "b_up" in p:
+            h = h + p["b_up"]
+        h = UNGATED_ACTS[act](h)
+    out = h @ p["w_down"]
+    if "b_down" in p:
+        out = out + p["b_down"]
+    return out
 
 
 def embed_lookup(table, tokens):

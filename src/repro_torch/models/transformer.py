@@ -15,8 +15,11 @@ Entry points, with the reference's contracts:
 Parameters are a plain nested dict: ``embed`` (padded_vocab, D), tied with
 the output head unless an ``lm_head`` of the same shape is present,
 ``final_norm``, and ``layers``, one dict per layer in execution order with
-the reference's layouts (attention: ``wq`` (D,H,hd), ``wo`` (H,hd,D),
-``w_up``/``w_gate`` (D,F), ``w_down`` (F,D); mamba2: ``w_in`` (D,proj),
+the reference's layouts (every norm ``{"scale"}`` for RMSNorm, ``{"scale",
+"bias"}`` for LayerNorm; attention: ``wq`` (D,H,hd), ``wo`` (H,hd,D), where
+H hd may differ from D (mistral-nemo-12b); MLP: ``w_up`` (D,F) and
+``w_down`` (F,D) with ``w_gate`` (D,F) when gated, else with ``b_up`` (F,)
+and ``b_down`` (D,) when ``qkv_bias`` is set; mamba2: ``w_in`` (D,proj),
 ``w_conv`` (K,conv_dim), ``w_out`` (d_inner,D) and per-head vectors; rec:
 ``w_branch``/``w_gate`` (D,lru), ``w_conv`` (K,lru), ``w_out`` (lru,D), the
 gates ``lru`` and an MLP).  Caches are dicts of tensors with a leading layer
@@ -43,14 +46,17 @@ from ..runtime.serve_lib import layer_kinds
 from . import attention as attn
 from . import rglru as rglru_lib
 from . import ssm as ssm_lib
-from .layers import apply_rope, embed_lookup, mlp, rms_norm, rope_angles, upcast
+from .layers import (GATED_ACTS, apply_norm, apply_rope, embed_lookup, mlp, rope_angles,
+                     upcast)
 from .schema import P, Schema, abstract_params, init_params
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float64": torch.float64}    # float64: a yardstick for f32 runs
 # leaves the reference reads in f32 (``astype(float32)``) or casts at each
-# use to another dtype than the compute dtype: kept f32 at load
-F32_LEAVES = frozenset({"scale", "norm_scale", "dt_bias", "a_log", "d_skip",
+# use to another dtype than the compute dtype: kept f32 at load.  ``bias`` is
+# a LayerNorm's; the MLP's ``b_up``/``b_down`` and the q/k/v biases are cast
+# to the compute dtype, as the reference's ``cdt`` casts them.
+F32_LEAVES = frozenset({"scale", "bias", "norm_scale", "dt_bias", "a_log", "d_skip",
                         "w_conv", "b_conv", "w_a", "b_a", "w_x", "b_x", "lam"})
 HYBRID_PATTERN = ("rec", "rec", "local")
 
@@ -66,10 +72,19 @@ class RunOpts:
     loss_chunk: int = 512             # sequence chunk of the chunked CE
 
 
+def _norm_schema(cfg) -> Schema:
+    """RMSNorm: a zero ``scale`` (applied as ``1 + scale``); LayerNorm: a
+    ``scale`` of ones and a zero ``bias``."""
+    if cfg.norm == "rmsnorm":
+        return {"scale": P((cfg.d_model,), init="zeros")}
+    return {"scale": P((cfg.d_model,), init="ones"),
+            "bias": P((cfg.d_model,), init="zeros")}
+
+
 def _attn_schema(cfg) -> Schema:
     hd = cfg.resolved_head_dim
     s: Schema = {
-        "norm": {"scale": P((cfg.d_model,), init="zeros")},
+        "norm": _norm_schema(cfg),
         "wq": P((cfg.d_model, cfg.n_heads, hd)),
         "wk": P((cfg.d_model, cfg.n_kv_heads, hd)),
         "wv": P((cfg.d_model, cfg.n_kv_heads, hd)),
@@ -88,7 +103,7 @@ def _mamba2_schema(cfg) -> Schema:
     g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     conv_dim = d_in + 2 * g * n
     return {
-        "norm": {"scale": P((cfg.d_model,), init="zeros")},
+        "norm": _norm_schema(cfg),
         "w_in": P((cfg.d_model, 2 * d_in + 2 * g * n + h)),
         "w_conv": P((cfg.conv_width, conv_dim), scale=0.1),
         "b_conv": P((conv_dim,), init="zeros"),
@@ -101,9 +116,16 @@ def _mamba2_schema(cfg) -> Schema:
 
 
 def _mlp_schema(cfg) -> Schema:
-    return {"w_up": P((cfg.d_model, cfg.d_ff)),
-            "w_down": P((cfg.d_ff, cfg.d_model)),
-            "w_gate": P((cfg.d_model, cfg.d_ff))}
+    """The gated MLP's ``w_gate``, or the ungated one's biases when the
+    config has ``qkv_bias`` (starcoder2)."""
+    s: Schema = {"w_up": P((cfg.d_model, cfg.d_ff)),
+                 "w_down": P((cfg.d_ff, cfg.d_model))}
+    if cfg.act in GATED_ACTS:
+        s["w_gate"] = P((cfg.d_model, cfg.d_ff))
+    elif cfg.qkv_bias:
+        s["b_up"] = P((cfg.d_ff,), init="zeros")
+        s["b_down"] = P((cfg.d_model,), init="zeros")
+    return s
 
 
 def _rec_schema(cfg) -> Schema:
@@ -111,9 +133,9 @@ def _rec_schema(cfg) -> Schema:
     lru, nb = cfg.lru_width, cfg.n_heads      # block-diagonal gates, one per head
     bs = lru // nb
     return {
-        "mlp_norm": {"scale": P((cfg.d_model,), init="zeros")},
+        "mlp_norm": _norm_schema(cfg),
         "mlp": _mlp_schema(cfg),
-        "norm": {"scale": P((cfg.d_model,), init="zeros")},
+        "norm": _norm_schema(cfg),
         "w_branch": P((cfg.d_model, lru)),
         "w_gate": P((cfg.d_model, lru)),
         "w_conv": P((cfg.conv_width, lru), scale=0.1),
@@ -133,7 +155,7 @@ def _block_schema(kind: str, cfg) -> Schema:
     if kind == "rec":
         return _rec_schema(cfg)
     return {"attn": _attn_schema(cfg),
-            "mlp_norm": {"scale": P((cfg.d_model,), init="zeros")},
+            "mlp_norm": _norm_schema(cfg),
             "mlp": _mlp_schema(cfg)}
 
 
@@ -153,15 +175,18 @@ def _unsupported(cfg) -> list[str]:
         out.append(f"pattern {cfg.block_pattern} + {cfg.tail_pattern}")
     if cfg.is_encoder_decoder or cfg.n_experts:
         out.append("encoder-decoder / MoE")
-    if pattern == ("attn",) and (cfg.act != "swiglu" or not cfg.rope):
+    dense = pattern == ("attn",)
+    if dense and (cfg.act not in ("swiglu", "gelu") or not cfg.rope):
         out.append(f"act {cfg.act} / rope {cfg.rope}")
-    if pattern == ("mamba2",) and (cfg.rope or cfg.family != "ssm"):
-        out.append(f"mamba2 with rope {cfg.rope} / family {cfg.family}")
-    if cfg.norm != "rmsnorm":
+    if dense and (cfg.family == "hybrid" or cfg.local_window):
+        out.append(f"dense pattern with family {cfg.family} / local window "
+                   f"{cfg.local_window}")
+    if pattern == ("mamba2",) and (cfg.rope or cfg.family != "ssm"
+                                   or not cfg.tie_embeddings):
+        out.append(f"mamba2 with rope {cfg.rope} / family {cfg.family} / "
+                   f"tied {cfg.tie_embeddings}")
+    if cfg.norm not in (("rmsnorm", "layernorm") if dense else ("rmsnorm",)):
         out.append(f"norm {cfg.norm}")
-    if not hybrid and (not cfg.tie_embeddings or cfg.family == "hybrid"
-                       or cfg.local_window):
-        out.append("untied head / hybrid / local window")
     if cfg.dtype not in DTYPES:
         out.append(f"dtype {cfg.dtype}")
     return out
@@ -196,7 +221,7 @@ class Transformer:
         cfg = self.cfg
         s: Schema = {
             "embed": P((cfg.padded_vocab, cfg.d_model), scale=0.02),
-            "final_norm": {"scale": P((cfg.d_model,), init="zeros")},
+            "final_norm": _norm_schema(cfg),
         }
         if not cfg.tie_embeddings:
             s["lm_head"] = P((cfg.padded_vocab, cfg.d_model), scale=0.02)
@@ -245,12 +270,16 @@ class Transformer:
         return rec(params)
 
     # ---- shared pieces -----------------------------------------------------------
+    def _norm(self, x, p):
+        """The config's norm (RMSNorm or LayerNorm) with the leaves of ``p``."""
+        return apply_norm(x, p, self.cfg.norm)
+
     def _rope(self, positions):
         return rope_angles(positions, self.cfg.resolved_head_dim,
                            self.cfg.rope_theta)
 
     def _attn_qkv(self, x, p, rope_cs):
-        h = rms_norm(x, p["attn"]["norm"]["scale"])
+        h = self._norm(x, p["attn"]["norm"])
         q, k, v = attn.qkv_project(h, p["attn"], self.cfg)
         return apply_rope(q, *rope_cs), apply_rope(k, *rope_cs), v
 
@@ -259,8 +288,7 @@ class Transformer:
         return self._mlp_residual(x, p)
 
     def _mlp_residual(self, x, p):
-        return x + mlp(rms_norm(x, p["mlp_norm"]["scale"]), p["mlp"],
-                       self.cfg.act)
+        return x + mlp(self._norm(x, p["mlp_norm"]), p["mlp"], self.cfg.act)
 
     def _embed_in(self, params, tokens):
         x = embed_lookup(params["embed"], tokens)
@@ -363,7 +391,7 @@ class Transformer:
         layer = RematPolicy.coerce(remat).wrap(self._train_layer)
         for p in params["layers"]:
             x = layer(x, p, cos, sin)
-        x = rms_norm(x, params["final_norm"]["scale"])
+        x = self._norm(x, params["final_norm"])
         ce = self._loss_from_h(params, x, targets, mask)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
@@ -453,7 +481,7 @@ class Transformer:
             v_cache[i, rows, slot] = v[:, 0]
             ctx = attn.attend_decode(q, k_cache[i], v_cache[i], pos)
             x = self._finish_block(x, ctx, p)
-        x = rms_norm(x, params["final_norm"]["scale"])
+        x = self._norm(x, params["final_norm"])
         logits = self.logits(params, x)[:, 0, :]
         return logits, {"pos": pos + 1, "k": k_cache, "v": v_cache}
 
@@ -462,14 +490,14 @@ class Transformer:
         states are replaced in place."""
         x = self._embed_in(params, tokens[:, None])
         for i, p in enumerate(params["layers"]):
-            h = rms_norm(x, p["norm"]["scale"])
+            h = self._norm(x, p["norm"])
             y, st = ssm_lib.mamba2_block_decode(
                 h[:, 0], {"conv": cache["conv"][i], "ssm": cache["ssm"][i]},
                 p, self.cfg, self.compute_dtype)
             x = x + y[:, None, :]
             cache["conv"][i] = st["conv"]
             cache["ssm"][i] = st["ssm"]
-        x = rms_norm(x, params["final_norm"]["scale"])
+        x = self._norm(x, params["final_norm"])
         logits = self.logits(params, x)[:, 0, :]
         return logits, {"pos": cache["pos"] + 1, "conv": cache["conv"],
                         "ssm": cache["ssm"]}
@@ -497,7 +525,7 @@ class Transformer:
                 x = self._finish_block(x, ctx, p)
                 i_local += 1
                 continue
-            h = rms_norm(x, p["norm"]["scale"])
+            h = self._norm(x, p["norm"])
             y, st = rglru_lib.recurrent_block_decode(
                 h[:, 0], {"conv": cache["conv"][i_rec], "h": cache["h"][i_rec]},
                 p, cfg, self.compute_dtype)
@@ -505,7 +533,7 @@ class Transformer:
             cache["conv"][i_rec] = st["conv"]
             cache["h"][i_rec] = st["h"]
             i_rec += 1
-        x = rms_norm(x, params["final_norm"]["scale"])
+        x = self._norm(x, params["final_norm"])
         logits = self.logits(params, x)[:, 0, :]
         return logits, {"pos": pos + 1, "k": cache["k"], "v": cache["v"],
                         "conv": cache["conv"], "h": cache["h"]}
@@ -532,7 +560,7 @@ class Transformer:
                     ks.append(torch.roll(k[:, start:], start % c, dims=1))
                     vs.append(torch.roll(v[:, start:], start % c, dims=1))
                 continue
-            h = rms_norm(x, p["norm"]["scale"])
+            h = self._norm(x, p["norm"])
             y, st = rglru_lib.recurrent_block_prefill(
                 h, p, cfg, self.compute_dtype, use_kernel=self.opts.use_kernels,
                 block=self.opts.rglru_block)
@@ -546,7 +574,7 @@ class Transformer:
 
     def _mamba2_layer(self, x, p):
         """Residual mamba2 block over a whole sequence -> (x, decode state)."""
-        h = rms_norm(x, p["norm"]["scale"])
+        h = self._norm(x, p["norm"])
         y, st = ssm_lib.mamba2_block_prefill(
             h, p, self.cfg, self.compute_dtype, chunk=self.opts.ssd_chunk,
             use_kernel=self.opts.use_kernels)
@@ -573,7 +601,7 @@ class Transformer:
             ctx = attn.attend_paged_decode(q, k_pages[i], v_pages[i], tables,
                                            pos)
             x = self._finish_block(x, ctx, p)
-        x = rms_norm(x, params["final_norm"]["scale"])
+        x = self._norm(x, params["final_norm"])
         logits = self.logits(params, x)[:, 0, :]
         return logits, {"pos": pos + 1, "block_tables": tables,
                         "k_pages": k_pages, "v_pages": v_pages}
@@ -604,7 +632,7 @@ class Transformer:
             x, cache = self._hybrid_layers(params, x, max_len)
             cache["pos"] = torch.full((b,), pos0, dtype=torch.int32,
                                       device=x.device)
-            x = rms_norm(x, params["final_norm"]["scale"])
+            x = self._norm(x, params["final_norm"])
             return self.logits(params, x[:, pos0 - 1:pos0, :])[:, 0, :], cache
         if self.kind == "mamba2":
             states = []
@@ -615,7 +643,7 @@ class Transformer:
                                        device=x.device),
                      "conv": torch.stack([st["conv"] for st in states]),
                      "ssm": torch.stack([st["ssm"] for st in states])}
-            x = rms_norm(x, params["final_norm"]["scale"])
+            x = self._norm(x, params["final_norm"])
             return self.logits(params, x[:, pos0 - 1:pos0, :])[:, 0, :], cache
         rope_cs = self._rope(torch.arange(s, device=tokens.device)[None, :])
         kv_shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads,
@@ -633,7 +661,7 @@ class Transformer:
         cache = {"pos": torch.full((b,), pos0, dtype=torch.int32,
                                    device=x.device),
                  "k": k_all, "v": v_all}
-        x = rms_norm(x, params["final_norm"]["scale"])
+        x = self._norm(x, params["final_norm"])
         last = x[:, pos0 - 1:pos0, :]
         return self.logits(params, last)[:, 0, :], cache
 
@@ -643,11 +671,11 @@ class Transformer:
         x = self._embed_in(params, tokens)
         if self.kind == "hybrid":
             x, _ = self._hybrid_layers(params, x)
-            return self.logits(params, rms_norm(x, params["final_norm"]["scale"]))
+            return self.logits(params, self._norm(x, params["final_norm"]))
         if self.kind == "mamba2":
             for p in params["layers"]:
                 x, _ = self._mamba2_layer(x, p)
-            return self.logits(params, rms_norm(x, params["final_norm"]["scale"]))
+            return self.logits(params, self._norm(x, params["final_norm"]))
         rope_cs = self._rope(torch.arange(tokens.shape[1],
                                           device=tokens.device)[None, :])
         for p in params["layers"]:
@@ -655,5 +683,5 @@ class Transformer:
             ctx = attn.attend(q, k, v, impl=self.opts.attention_impl,
                               causal=True)
             x = self._finish_block(x, ctx, p)
-        x = rms_norm(x, params["final_norm"]["scale"])
+        x = self._norm(x, params["final_norm"])
         return self.logits(params, x)

@@ -238,7 +238,7 @@ def test_mamba2_cache_load_and_bridge():
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "granite-moe-1b-a400m",
-                                  "whisper-small"])
+                                  "qwen3-moe-30b-a3b", "whisper-small"])
 def test_unported_patterns_are_refused(arch):
     from repro_torch.configs import get_config
     cfg = get_config(arch).smoke()
@@ -317,7 +317,8 @@ def test_admitted_configs_have_kernels_at_their_shapes():
     from repro_torch.models.transformer import _unsupported
     fits = lambda blocks: MemoryPlanner.check_smem(blocks)["fits"]
     admitted = [n for n in list_configs() if not _unsupported(get_config(n))]
-    assert {"qwen2-0.5b", "phi4-mini-3.8b", "mamba2-130m", "recurrentgemma-9b"} <= set(admitted)
+    assert {"qwen2-0.5b", "phi4-mini-3.8b", "mamba2-130m", "recurrentgemma-9b",
+            "mistral-nemo-12b", "starcoder2-15b", "chameleon-34b"} <= set(admitted)
     for name in admitted:
         cfg = get_config(name)
         kinds = set(cfg.block_pattern) | set(cfg.tail_pattern)
