@@ -13,7 +13,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      64 and phi4-mini-3.8b's 128; paged decode at qwen2's layout also at
      B=16 and 32, the ``[load:qwen2]`` buckets; both at head dim 128 at the
      three GQA layouts of mistral-nemo-12b, starcoder2-15b and chameleon-34b:
-     G = 4, 12 and 8 query heads per KV head), and time kernel, plain
+     G = 4, 12 and 8 query heads per KV head; flash at the MoE decoders'
+     layouts, G = 2 at D=64 and G = 8 at D=128), and time kernel, plain
      version, the library call where one exists (SDPA, a yardstick the port
      never calls) and the bound.  Attention: bf16 max-abs 2e-2, the reference's own
      tolerance (bf16 flash runs on the tensor cores and rounds P to bf16 for
@@ -25,7 +26,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      64, the plain version of 256).  RG-LRU: max-abs 1e-5 of max|y|: both
      sides compute in f32 from the same inputs, the kernel in segments of
      its own (held also against ``ref_rglru_segmented``, its order in plain
-     PyTorch), the plain version log-depth;
+     PyTorch), the plain version log-depth.  ``[moe]``: the MoE FFN on the
+     card against the same function on the CPU in f32 (``moe_cases``):
+     routing and dispatch exact, y max-abs 1e-5, aux 1e-6 of max(1, |aux|);
   4. serve full-width qwen2-0.5b (24 layers, bf16, seeded random weights)
      through the port's ``ServeEngine`` with paged decode and flash prefill,
      and check that path against its plain version on a small f32 input;
@@ -57,7 +60,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      chameleon-34b, 48 layers, 8 KV heads of 8, 68.6 GB, with the card's free
      memory after the load, the init peak, the planned and the physical
      pool and ``max_memory_allocated`` over each run), each model freed
-     before its f32 2-layer check and before the next model is drawn;
+     before its f32 2-layer check and before the next model is drawn; then
+     the two MoE decoders the same way in gather mode, their prompts
+     unpadded (``[serve:granite-moe]`` granite-moe-1b-a400m, 24 layers, 32
+     experts top-8, 8 KV heads of 2 at head dim 64, 2.67 GB;
+     ``[serve:qwen3-moe]`` qwen3-moe-30b-a3b, 48 layers, 128 experts top-8,
+     4 KV heads of 8 at head dim 128, 61.07 GB): launches exactly
+     ``n_layers`` per prefill and none of the paged, SSD or RG-LRU kernels,
+     one prefill shape per distinct prompt length, and an f32 2-layer check
+     of gather+kernel against gather+full (granite-moe's also served on the
+     CPU, whose token streams must equal the card's);
   5. serve full-width mamba2-130m (24 layers, bf16, seeded random weights)
      in gather mode with the SSD kernel in every prefill, then
      ``[load:mamba2]``, the diurnal load cell on the same weights, then
@@ -137,6 +149,10 @@ HYBRID_ARCH = "recurrentgemma-9b"
 # the untied dense decoders served at full width and depth: (arch, tag)
 DENSE_ARCHS = (("mistral-nemo-12b", "mistral"), ("starcoder2-15b", "starcoder2"),
                ("chameleon-34b", "chameleon"))
+# the MoE decoders served at full width and depth in gather mode: (arch, tag)
+MOE_ARCHS = (("granite-moe-1b-a400m", "granite-moe"), ("qwen3-moe-30b-a3b", "qwen3-moe"))
+MOE_Y_TOL = 1e-5            # [moe]: f32 y, card against CPU, max-abs
+MOE_AUX_TOL = 1e-6          # [moe]: f32 aux, card against CPU, of max(1, |aux|)
 MAX_BATCH, MAX_LEN, GEN_LEN, N_REQUESTS, SEED = 8, 1024, 32, 12, 0
 CHURN_PROFILED_GEN = 8      # the churn trace's profile; live requests ask 32-48
 # [serve:shared]: 32 requests of 256-1024 prompt tokens and 64 generated ones
@@ -581,7 +597,7 @@ def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
     return dict(launches=launches, step_ms=step_ms, prefill_ms=prefill_ms,
                 tokens_per_s=summary["tokens_per_s"], pool_bytes=stats["graph_pool_bytes"],
                 n_compiles=stats["n_compiles"], completed=dict(eng.completed),
-                summary=summary)
+                summary=summary, prefill_shapes=eng.prefill_compiles)
 
 
 def first_divergence(want: dict, got: dict):
@@ -648,60 +664,136 @@ def load_model(torch, Transformer, cfg, opts, seed: int, tag: str):
 
 
 def same_streams(torch, small, variants, Transformer, ServeEngine, what: str, *,
-                 max_len: int = MAX_LEN, long_rids=()) -> None:
+                 max_len: int = MAX_LEN, long_rids=(), on_cpu: bool = False) -> None:
     """A shallow full-width f32 model serves identical greedy token streams
     through each ``(RunOpts, attn_mode)`` variant with CUDA graphs (the
     kernels' path and the plain path, on the same weights), and through the
-    first variant again eagerly (``graphs=False``)."""
+    first variant again eagerly (``graphs=False``); with ``on_cpu`` also
+    through the last variant on the CPU (the plain versions, the same
+    weights copied there)."""
+    from torch.utils._pytree import tree_map
     trace_s, live_s = serve_trace(small, torch, 4, SEED + 3, long_rids)
+    runs = [*((o, m, None, None) for o, m in variants), (*variants[0], False, None)]
+    if on_cpu:
+        runs.append((*variants[-1], False, "cpu"))
     streams = []
     params = None
-    for opts, mode, graphs in [*((o, m, None) for o, m in variants), (*variants[0], False)]:
-        m = Transformer(small, opts)
+    for opts, mode, graphs, device in runs:
+        m = Transformer(small, opts, device=device)
         if params is None:
             params = m.init_loaded(torch.Generator(device="cuda").manual_seed(SEED + 3))
-        e = ServeEngine(m, params, sample_trace=trace_s, max_len=max_len, max_batch=4,
+        p = params if device is None else tree_map(lambda t: t.to(device), params)
+        e = ServeEngine(m, p, sample_trace=trace_s, max_len=max_len, max_batch=4,
                         attn_mode=mode, graphs=graphs)
         e.run(live_s)
         streams.append(e.completed)
     same = [sum(streams[0][r] == other[r] for r in other) for other in streams[1:]]
+    cpu = f", card vs CPU for {same[2]}/{len(live_s)}" if on_cpu else ""
     print(f"[check] {small.name} f32 {small.n_layers}-layer full-width: {what} token "
           f"streams identical for {same[0]}/{len(live_s)} requests, graphs vs eager "
-          f"for {same[1]}/{len(live_s)} (prompts {[r.prompt_len for r in trace_s]})")
-    if same != [len(live_s)] * 2:
+          f"for {same[1]}/{len(live_s)}{cpu} (prompts {[r.prompt_len for r in trace_s]})")
+    if same != [len(live_s)] * len(same):
         raise AssertionError(f"token streams differ: {streams}")
 
 
 def dense_phase(torch, ops, Transformer, RunOpts, ServeEngine, arch: str, tag: str,
-                card: str) -> dict:
-    """``[serve:<tag>]``: a registered untied dense decoder at full width and
+                card: str, mode: str = "paged", on_cpu: bool = False) -> dict:
+    """``[serve:<tag>]``: a registered dense or MoE decoder at full width and
     depth (seeded random bf16 weights drawn leaf by leaf) serving the
-    12-request trace with paged decode and flash prefill, eagerly and then
+    12-request trace with flash prefill and ``mode`` decode, eagerly and then
     with graphs (``graph_ab``: equal token streams, launches exactly
-    ``n_layers`` per decode step and per prefill); then the model is freed
-    and an f32 2-layer cut of the same width serves identical token streams
-    through paged+kernels and gather+plain (``same_streams``).  Nothing
-    falls back: an out-of-memory error in the load or the serve fails the
-    run.  Returns the graph run (``serve_path``'s dict)."""
+    ``n_layers`` per prefill and, paged, per decode step).  In gather mode
+    (the MoE decoders: prompts unpadded, as the reference's engine takes
+    them) the run must also make one prefill shape per distinct prompt
+    length.  Then the model is freed and an f32 2-layer cut of the same
+    width serves identical token streams through the kernels' path and the
+    plain one (``same_streams``; paged+kernels vs gather+plain, or
+    gather+kernel vs gather+full), and with ``on_cpu`` on the CPU too.
+    Nothing falls back: an out-of-memory error in the load or the serve
+    fails the run.  Returns the graph run (``serve_path``'s dict)."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     trace, live = serve_trace(cfg, torch, N_REQUESTS, SEED)
     model, params = load_model(torch, Transformer, cfg, RunOpts(attention_impl="kernel"),
                                SEED, tag)
+    paged = mode == "paged"
     run = graph_ab(torch, ops, lambda graphs: ServeEngine(
         model, params, sample_trace=trace, max_len=MAX_LEN, max_batch=MAX_BATCH,
-        attn_mode="paged", graphs=graphs), live, lambda steps, prefills: {
+        attn_mode=mode, graphs=graphs), live, lambda steps, prefills: {
         "flash_attention": cfg.n_layers * prefills,
-        "paged_attention": cfg.n_layers * steps, "ssd_scan": 0,
+        "paged_attention": cfg.n_layers * steps if paged else 0, "ssd_scan": 0,
         "rglru_scan": 0}, card, tag)
+    lengths = len({r.prompt_len for r in trace})
+    if not paged and run["prefill_shapes"] != lengths:
+        raise AssertionError(f"{tag}: {run['prefill_shapes']} prefill shapes for "
+                             f"{lengths} distinct prompt lengths")
     del model, params
     free_cuda(torch)
-    same_streams(torch, cfg.with_overrides(n_layers=2, dtype="float32"),
-                 [(RunOpts(attention_impl="kernel"), "paged"),
-                  (RunOpts(attention_impl="full"), "gather")],
-                 Transformer, ServeEngine, "paged+kernels vs gather+plain")
+    variants = ([(RunOpts(attention_impl="kernel"), "paged"),
+                 (RunOpts(attention_impl="full"), "gather")] if paged else
+                [(RunOpts(attention_impl="kernel"), "gather"),
+                 (RunOpts(attention_impl="full"), "gather")])
+    same_streams(torch, cfg.with_overrides(n_layers=2, dtype="float32"), variants,
+                 Transformer, ServeEngine, "paged+kernels vs gather+plain" if paged
+                 else "gather+kernel vs gather+full", on_cpu=on_cpu)
     free_cuda(torch)
     return run
+
+
+def moe_cases(torch, moe, cfgs: dict) -> dict:
+    """``[moe]``: the card's ``moe_groups`` against the same function on the
+    CPU, on the same seeded f32 inputs and one layer's f32 weights (TF32
+    off), at granite-moe's width for T = 1, 8, 37 and 600 and at
+    qwen3-moe's for T = 8 and 37, each with a spread router and once with
+    one skewed towards experts 0..k-1 (a direction the inputs share, worth
+    ~4 in the logits) so that experts overflow.  ``order``, ``keep``,
+    ``dest`` and ``token_of`` must be equal exactly (the card's top-k, stable
+    argsort and ``searchsorted`` give the CPU's routing and order), y within
+    MOE_Y_TOL and aux within MOE_AUX_TOL of max(1, |aux|).  Prints the share
+    of assignments dropped.  Returns {tag: worst y error}."""
+    worst = {}
+    for tag, ts in (("granite-moe", (1, 8, 37, 600)), ("qwen3-moe", (8, 37))):
+        cfg = cfgs[tag]
+        e, k, d, f = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
+        g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+        base = {"w_router": torch.randn(d, e, generator=g, device="cuda") / math.sqrt(d),
+                "w_gate": torch.randn(e, d, f, generator=g, device="cuda") / math.sqrt(d),
+                "w_up": torch.randn(e, d, f, generator=g, device="cuda") / math.sqrt(d),
+                "w_down": torch.randn(e, f, d, generator=g, device="cuda") / math.sqrt(f)}
+        for skew in (False, True):
+            p = dict(base)
+            if skew:
+                p["w_router"] = base["w_router"].clone()
+                p["w_router"][:, :k] += 8.0 / d
+            p_cpu = {name: t.cpu() for name, t in p.items()}
+            for t in ts:
+                x = torch.randn(1, t, d, generator=g, device="cuda") + (0.5 if skew else 0.0)
+                y, aux, disp = moe.moe_groups(x, p, cfg, torch.float32)
+                y_c, aux_c, disp_c = moe.moe_groups(x.cpu(), p_cpu, cfg, torch.float32)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a.cpu(), b) for a, b in zip(disp, disp_c))
+                y_err = (y.cpu() - y_c).abs().max().item()
+                aux_err = abs(aux.item() - aux_c.item())
+                dropped = int((~disp.keep).sum().item())
+                cap = moe.capacity(t, k, e, cfg.capacity_factor)
+                print(f"[moe] {tag} D={d} E={e} k={k} F={f} T={t} C={cap} router="
+                      f"{'skewed' if skew else 'spread'} dropped={dropped}/{t * k} "
+                      f"({dropped / (t * k):.3f}) order/keep/dest/token_of equal: {same} "
+                      f"y_max_abs_err={y_err:.3g} (|y| max {y_c.abs().max().item():.3g}) "
+                      f"aux card={aux.item():.7g} cpu={aux_c.item():.7g}", flush=True)
+                if not same:
+                    raise AssertionError(f"moe {tag} T={t}: the card's dispatch differs "
+                                         "from the CPU's")
+                if not (y_err <= MOE_Y_TOL
+                        and aux_err <= MOE_AUX_TOL * max(1.0, abs(aux_c.item()))):
+                    raise AssertionError(f"moe {tag} T={t}: y err {y_err:.3g}, aux err "
+                                         f"{aux_err:.3g}")
+                if skew and t >= 37 and dropped == 0:
+                    raise AssertionError(f"moe {tag} T={t}: the skewed router dropped "
+                                         "nothing")
+                worst[tag] = max(worst.get(tag, 0.0), y_err)
+        del base, p, p_cpu
+    return worst
 
 
 def churn_phase(torch, ops, cfg, model, params, card) -> dict:
@@ -1253,6 +1345,7 @@ def main() -> int:
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import RunOpts, Transformer
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import ssm
     from repro_torch.runtime.serve_lib import layer_kinds
     from repro_torch.serving import ServeEngine
@@ -1356,10 +1449,23 @@ def main() -> int:
                                        c.resolved_head_dim, [
             (dt, sq, 0, 0) for dt in ("bfloat16", "float32") for sq in (37, 512, 1024)],
             SEED + 30 + i)
+    # the MoE decoders' layouts: granite-moe's 16 heads over 8 at D=64 (G = 2)
+    # and qwen3-moe's 32 over 4 at D=128 (G = 8), at the unpadded prompt
+    # lengths they prefill at, an odd one of the serving trace among them
+    moe_cfgs = {tag: get_config(arch) for arch, tag in MOE_ARCHS}
+    odd = next(r.prompt_len for r in trace if r.prompt_len % 2)
+    flash_moe = {}
+    for i, (tag, c) in enumerate(moe_cfgs.items()):
+        flash_moe[tag] = flash_cases(torch, ops, ref, c.n_heads, c.n_kv_heads,
+                                     c.resolved_head_dim, [
+            (dt, sq, 0, 0) for dt in ("bfloat16", "float32") for sq in (37, odd, 512, 1024)],
+            SEED + 50 + i)
     flash_wide, flash_wide_worst = flash_cases(torch, ops, ref, 16, 1, 256, [
         *((dt, sq, 2048, 0) for dt in ("bfloat16", "float32") for sq in (37, 512, 2600)),
         ("bfloat16", 64, 2048, 2500)], SEED + 6, iters=10)
     stamp(t_start, "[flash]")
+    moe_cases(torch, moe_lib, moe_cfgs)
+    stamp(t_start, "[moe]")
     ssd_res, ssd_worst = ssd_cases(torch, ops, ssd, ssm, ref)
     stamp(t_start, "[ssd]")
     rglru, rglru_worst = rglru_cases(torch, ops, rg, ref,
@@ -1415,6 +1521,13 @@ def main() -> int:
     for arch, tag in DENSE_ARCHS:
         dense[tag] = dense_phase(torch, ops, Transformer, RunOpts, ServeEngine, arch, tag,
                                  card)["launches"]
+        stamp(t_start, f"[serve:{tag}]")
+    # -- the MoE decoders at full width and depth, gather decode, flash prefill ------
+    moe_runs = {}
+    for arch, tag in MOE_ARCHS:
+        moe_runs[tag] = dense_phase(torch, ops, Transformer, RunOpts, ServeEngine, arch,
+                                    tag, card, mode="gather",
+                                    on_cpu=tag == "granite-moe")["launches"]
         stamp(t_start, f"[serve:{tag}]")
 
     stamp(t_start, "phase 4")
@@ -1526,14 +1639,20 @@ def main() -> int:
         for (dt, sq, _, _), r in flash_dense[tag][0].items():
             flash_layouts[f"{tag}_d128_h{c.n_heads}_kv{c.n_kv_heads}_sq{sq}_{dt}"] = times(
                 r, library_ms=r["sdpa_ms"])
+    for tag, c in moe_cfgs.items():
+        for (dt, sq, _, _), r in flash_moe[tag][0].items():
+            flash_layouts[f"{tag}_d{c.resolved_head_dim}_h{c.n_heads}_kv{c.n_kv_heads}"
+                          f"_sq{sq}_{dt}"] = times(r, library_ms=r["sdpa_ms"])
     dense_paged = sum(d["paged_attention"] for d in dense.values())
     dense_flash = sum(d["flash_attention"] for d in dense.values())
+    moe_flash = sum(d["flash_attention"] for d in moe_runs.values())
     kernels = [
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:76",
          "launches": qwen2["paged_attention"] + phi4["paged_attention"] + dense_paged,
          "dense_launches": {tag: d["paged_attention"] for tag, d in dense.items()},
+         "moe_launches": {tag: d["paged_attention"] for tag, d in moe_runs.items()},
          "churn_launches": churn["launches"]["paged_attention"],
          "shared_launches": shared["launches"]["paged_attention"],
          "train_launches": train["paged_attention"],
@@ -1549,14 +1668,16 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73",
          "launches": (qwen2["flash_attention"] + phi4["flash_attention"]
-                      + rgemma["flash_attention"] + dense_flash),
+                      + rgemma["flash_attention"] + dense_flash + moe_flash),
          "dense_launches": {tag: d["flash_attention"] for tag, d in dense.items()},
+         "moe_launches": {tag: d["flash_attention"] for tag, d in moe_runs.items()},
          "churn_launches": churn["launches"]["flash_attention"],
          "shared_launches": shared["launches"]["flash_attention"],
          "train_launches": train["flash_attention"],
          "max_abs_err": max(flash_worst["bfloat16"], flash128_worst["bfloat16"],
                             flash_wide_worst["bfloat16"],
-                            *(w["bfloat16"] for _, w in flash_dense.values())),
+                            *(w["bfloat16"] for _, w in flash_dense.values()),
+                            *(w["bfloat16"] for _, w in flash_moe.values())),
          "ms": fk["ms"],
          "plain_ms": fk["plain_ms"], "bound_ms": fk["bound_ms"],
          "bound_by": fk["bound_by"], "library_ms": fk["sdpa_ms"],

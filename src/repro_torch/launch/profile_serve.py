@@ -5,9 +5,11 @@ window of engine steps with every request already decoding.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch phi4-mini-3.8b --preset full
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mamba2-130m
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch recurrentgemma-9b
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen3-moe-30b-a3b
 
 Attention models decode off the paged pool (``attn_mode="paged"``); models
-with recurrent state decode in gather mode, the only mode they support.
+with recurrent state and the MoE decoders decode in gather mode, the only
+mode they support.
 
 The engine is profiled as built: on the card its runner replays one CUDA
 graph per bucket.  Prints the host time per step, the device time the

@@ -8,7 +8,8 @@ comparison at full arch scale.  Prefill runs the flash-attention CUDA
 kernel (attention layers), the SSD chunk-scan CUDA kernel (mamba2) and the
 RG-LRU scan CUDA kernel (recurrentgemma's rec layers); ``--attn paged``
 decodes through the paged-attention CUDA kernel and is for pure-attention
-models only.  Weights are drawn and cast one leaf at a time
+models only (not mamba2, recurrentgemma or the MoE decoders, which decode in
+gather mode).  Weights are drawn and cast one leaf at a time
 (``Transformer.init_loaded``), so recurrentgemma-9b's 9.6B parameters never
 exist in f32 all at once.
 
@@ -16,6 +17,8 @@ exist in f32 all at once.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b --preset full --attn paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --preset full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --preset full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --preset full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --preset full
 
 Decode runs through the bucketed ``DecodeRunner``, one CUDA graph per
 bucket on the card; ``--no-runner`` decodes every slot each step through

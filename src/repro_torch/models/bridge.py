@@ -7,7 +7,8 @@ is split into one dict per layer and the layers are interleaved in
 execution order (group g runs pattern position 0, 1, ... before group
 g + 1), followed by the ``tail`` blocks; every other layout is kept as is
 (attention: ``wq`` (D,H,hd), ``wo`` (H,hd,D), ``w_up``/``w_gate`` (D,F),
-``w_down`` (F,D); mamba2: ``w_in``, ``w_conv``, ``b_conv``, ``dt_bias``,
+``w_down`` (F,D); MoE: ``w_router`` (D,E), ``w_gate``/``w_up`` (E,D,F),
+``w_down`` (E,F,D); mamba2: ``w_in``, ``w_conv``, ``b_conv``, ``dt_bias``,
 ``a_log``, ``d_skip``, ``norm_scale``, ``w_out``; rec: ``w_branch``,
 ``w_gate``, ``w_conv``, ``b_conv``, ``w_out``, ``lru``; ``embed``
 (padded_vocab, D) and, untied, ``lm_head`` of the same shape; every norm

@@ -1,7 +1,8 @@
 """Decoder over block patterns (port of ``repro.models.transformer`` for
-``block_pattern=("attn",)``, the dense GQA decoder, ``("mamba2",)``, the
-attention-free SSD stack, and ``("rec", "rec", "local")`` with a tail, the
-Griffin hybrid of RG-LRU blocks and local attention).
+``block_pattern=("attn",)``, the dense GQA decoder and, with ``n_experts``,
+the MoE decoder, ``("mamba2",)``, the attention-free SSD stack, and
+``("rec", "rec", "local")`` with a tail, the Griffin hybrid of RG-LRU blocks
+and local attention).
 
 Entry points, with the reference's contracts:
   * ``loss_fn(params, batch)``        — training forward (+ CE loss) over f32
@@ -19,7 +20,8 @@ the reference's layouts (every norm ``{"scale"}`` for RMSNorm, ``{"scale",
 "bias"}`` for LayerNorm; attention: ``wq`` (D,H,hd), ``wo`` (H,hd,D), where
 H hd may differ from D (mistral-nemo-12b); MLP: ``w_up`` (D,F) and
 ``w_down`` (F,D) with ``w_gate`` (D,F) when gated, else with ``b_up`` (F,)
-and ``b_down`` (D,) when ``qkv_bias`` is set; mamba2: ``w_in`` (D,proj),
+and ``b_down`` (D,) when ``qkv_bias`` is set; MoE: ``w_router`` (D,E),
+``w_gate``/``w_up`` (E,D,F) and ``w_down`` (E,F,D); mamba2: ``w_in`` (D,proj),
 ``w_conv`` (K,conv_dim), ``w_out`` (d_inner,D) and per-head vectors; rec:
 ``w_branch``/``w_gate`` (D,lru), ``w_conv`` (K,lru), ``w_out`` (lru,D), the
 gates ``lru`` and an MLP).  Caches are dicts of tensors with a leading layer
@@ -44,6 +46,7 @@ from ..configs.base import ModelConfig
 from ..runtime.device import resolve_device
 from ..runtime.serve_lib import layer_kinds
 from . import attention as attn
+from . import moe as moe_lib
 from . import rglru as rglru_lib
 from . import ssm as ssm_lib
 from .layers import (GATED_ACTS, apply_norm, apply_rope, embed_lookup, mlp, rope_angles,
@@ -55,9 +58,11 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 # leaves the reference reads in f32 (``astype(float32)``) or casts at each
 # use to another dtype than the compute dtype: kept f32 at load.  ``bias`` is
 # a LayerNorm's; the MLP's ``b_up``/``b_down`` and the q/k/v biases are cast
-# to the compute dtype, as the reference's ``cdt`` casts them.
+# to the compute dtype, as the reference's ``cdt`` casts them.  The MoE
+# router is read in f32; the expert leaves are in the compute dtype.
 F32_LEAVES = frozenset({"scale", "bias", "norm_scale", "dt_bias", "a_log", "d_skip",
-                        "w_conv", "b_conv", "w_a", "b_a", "w_x", "b_x", "lam"})
+                        "w_conv", "b_conv", "w_a", "b_a", "w_x", "b_x", "lam",
+                        "w_router"})
 HYBRID_PATTERN = ("rec", "rec", "local")
 
 
@@ -116,8 +121,13 @@ def _mamba2_schema(cfg) -> Schema:
 
 
 def _mlp_schema(cfg) -> Schema:
-    """The gated MLP's ``w_gate``, or the ungated one's biases when the
-    config has ``qkv_bias`` (starcoder2)."""
+    """The experts' leaves when the config has ``n_experts``; else the gated
+    MLP's ``w_gate``, or the ungated one's biases when the config has
+    ``qkv_bias`` (starcoder2)."""
+    if cfg.n_experts:
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        return {"w_router": P((d, e)), "w_gate": P((e, d, f)),
+                "w_up": P((e, d, f)), "w_down": P((e, f, d))}
     s: Schema = {"w_up": P((cfg.d_model, cfg.d_ff)),
                  "w_down": P((cfg.d_ff, cfg.d_model))}
     if cfg.act in GATED_ACTS:
@@ -173,9 +183,14 @@ def _unsupported(cfg) -> list[str]:
                        f"{cfg.local_window} / lru {cfg.lru_width}")
     elif pattern not in (("attn",), ("mamba2",)) or cfg.tail_pattern:
         out.append(f"pattern {cfg.block_pattern} + {cfg.tail_pattern}")
-    if cfg.is_encoder_decoder or cfg.n_experts:
-        out.append("encoder-decoder / MoE")
+    if cfg.is_encoder_decoder:
+        out.append("encoder-decoder")
     dense = pattern == ("attn",)
+    if cfg.n_experts and (not dense or cfg.tail_pattern or cfg.family != "moe"
+                          or cfg.norm != "rmsnorm"
+                          or not 0 < cfg.top_k <= cfg.n_experts):
+        out.append(f"experts on pattern {cfg.block_pattern} + {cfg.tail_pattern} / "
+                   f"family {cfg.family} / norm {cfg.norm} / top_k {cfg.top_k}")
     if dense and (cfg.act not in ("swiglu", "gelu") or not cfg.rope):
         out.append(f"act {cfg.act} / rope {cfg.rope}")
     if dense and (cfg.family == "hybrid" or cfg.local_window):
@@ -198,7 +213,7 @@ class Transformer:
         """``device=None`` means the card; raises ``RuntimeError`` without one."""
         unsupported = _unsupported(cfg)
         if unsupported:
-            raise ValueError(f"{cfg.name}: the port runs dense attention "
+            raise ValueError(f"{cfg.name}: the port runs dense and MoE attention "
                              f"decoders, mamba2 stacks and the rec/rec/local "
                              f"hybrid only ({'; '.join(unsupported)})")
         self.cfg = cfg
@@ -288,7 +303,13 @@ class Transformer:
         return self._mlp_residual(x, p)
 
     def _mlp_residual(self, x, p):
-        return x + mlp(self._norm(x, p["mlp_norm"]), p["mlp"], self.cfg.act)
+        """The MLP's residual; with ``n_experts`` the MoE FFN, whose aux term
+        only a loss reads (the reference's steps drop it)."""
+        h = self._norm(x, p["mlp_norm"])
+        if self.cfg.n_experts:
+            return x + moe_lib.moe_mlp(h, p["mlp"], self.cfg, self.compute_dtype,
+                                       need_aux=False)[0]
+        return x + mlp(h, p["mlp"], self.cfg.act)
 
     def _embed_in(self, params, tokens):
         x = embed_lookup(params["embed"], tokens)
@@ -371,12 +392,18 @@ class Transformer:
         each layer (the reference's pattern group) runs under
         ``RematPolicy.coerce(remat).wrap``.  No kernel has a backward, in
         either package, so RunOpts naming a kernel path raise ``ValueError``;
-        the mamba2 and hybrid patterns are not ported to training yet."""
+        the mamba2 and hybrid patterns and MoE models are not ported to
+        training yet."""
         from ..remat.policy import RematPolicy
         if self.kind != "attn":
             raise NotImplementedError(
                 f"loss_fn: training the {self.kind} pattern is not ported yet "
                 "(ROADMAP queue 1, item 8)")
+        if self.cfg.n_experts:
+            raise NotImplementedError(
+                "loss_fn: training an MoE model (the reference's ce + 0.01 * aux "
+                "over the layers' aux terms) is not ported yet (ROADMAP queue 1, "
+                "item 9)")
         if self.opts.attention_impl == "kernel" or self.opts.use_kernels:
             raise ValueError("loss_fn: the CUDA kernels have no backward; train with "
                              "RunOpts(attention_impl='full', use_kernels=False)")
@@ -617,10 +644,10 @@ class Transformer:
         and the cache position starts there, so the padded tail is masked out
         of every later decode step until it is overwritten.  Only attention
         caches are pad-safe: a mamba2 or RG-LRU state integrates every input
-        token, so callers pass those prompts unpadded.  Mamba2 and rec
-        prefill run the SSD and RG-LRU kernels when ``RunOpts.use_kernels``
-        is set (the reference's prefill always runs the plain scans; the
-        results agree to rounding)."""
+        token, and MoE capacity counts the pad tokens, so callers pass those
+        prompts unpadded.  Mamba2 and rec prefill run the SSD and RG-LRU
+        kernels when ``RunOpts.use_kernels`` is set (the reference's prefill
+        always runs the plain scans; the results agree to rounding)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         true_len = batch.get("true_len")

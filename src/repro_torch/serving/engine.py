@@ -13,8 +13,9 @@ through the bucketed ``DecodeRunner`` (one CUDA graph per bucket on the
 card) or, with ``use_runner=False``, through the full-batch "slab" step of
 ``serve_lib.build_decode_step``; prompts of pure-attention models are
 padded to a power-of-two ladder before prefill (a recurrent state would
-integrate the pad tokens, so mamba2 and recurrentgemma prompts go in
-unpadded).  ``attn_mode="paged"`` decodes straight off per-layer page pools
+integrate the pad tokens and MoE capacity would count them, so mamba2,
+recurrentgemma and MoE prompts go in unpadded, one prefill shape per
+prompt length).  ``attn_mode="paged"`` decodes straight off per-layer page pools
 through the paged-attention CUDA kernel; prefill runs the flash kernel when
 the model's ``RunOpts.attention_impl`` is ``"kernel"`` and the SSD and
 RG-LRU kernels when ``RunOpts.use_kernels`` is set.
@@ -201,7 +202,7 @@ class ServeEngine:
         """Warm (and on the card capture) every runner bucket and, for padded
         prompts, every prefill ladder shape, so the serving loop sees no
         first-call cost and the compile counters stay flat from step 0.
-        Unpadded (recurrent) prompts have no ladder to warm."""
+        Unpadded (recurrent or MoE) prompts have no ladder to warm."""
         if self.runner is not None:
             self.runner.warmup(self.params, self.cache, self.tokens)
         padded = PREFILL_BUCKET_MIN

@@ -18,8 +18,15 @@ Its inputs are static: the engine's cache and token buffer, updated in
 place, and a slot buffer filled before each replay.  Paged
 pool leaves (``*_pages``) carry no batch axis: they are never gathered, and
 the step updates them in place.  A partial batch is padded to its bucket by
-repeating the last running slot: duplicated rows compute identical updates
-from identical inputs, so the duplicate writes are value-identical.
+repeating the last running slot.  For most models the duplicated rows
+compute identical updates from identical inputs; with MoE they need not:
+the pad rows are tokens to the router too, sort after the row they copy and
+are dropped first when an expert overflows.  The reference's scatter keeps
+the last duplicate, the last pad row; PyTorch's indexed write keeps any one,
+on the card and on the CPU.  So after the bucket's rows are written back
+(and the greedy tokens), the last slot's row is written once more from the
+bucket's last row, and every duplicate slot ends holding the reference's
+row.
 """
 from __future__ import annotations
 
@@ -66,13 +73,17 @@ def _gather_rows(cache: dict, slots: torch.Tensor) -> dict:
 
 
 def _scatter_rows(cache: dict, sub: dict, slots: torch.Tensor) -> None:
-    """Write the updated sub-cache rows back into the full batch cache."""
+    """Write the updated sub-cache rows back into the full batch cache; the
+    last slot (the one padding repeats) gets the bucket's last row."""
+    last = slots[-1:]
     for name, leaf in cache.items():
         axis = _batch_axis(name)
         if axis == 1:
             leaf[:, slots] = sub[name]
+            leaf[:, last] = sub[name][:, -1:]
         elif axis == 0:
             leaf[slots] = sub[name]
+            leaf[last] = sub[name][-1:]
         # pools were updated in place by the step itself
 
 
@@ -115,6 +126,7 @@ class DecodeRunner:
         # only the (bucket,) next tokens travel to the host
         nxt = logits.argmax(dim=-1).to(torch.int32)
         tokens[slots] = nxt
+        tokens[slots[-1:]] = nxt[-1:]
         _scatter_rows(cache, new_sub, slots)
         return logits, nxt
 

@@ -29,7 +29,7 @@ from repro_torch.runtime.serve_lib import build_decode_step, build_prefill_step
 from repro_torch.serving import DecodeRunner, ServeEngine, ServeMetrics, bucket_ladder
 from repro_torch.serving import GenRequest as TGenRequest
 from repro_torch.serving import pages as tpages
-from torch_port_utils import SMALL, models, prompt
+from torch_port_utils import MOE_SMALL, SMALL, models, prompt
 
 PAGE_STATS = ("page_tokens", "page_bytes", "n_pages", "used_pages",
               "n_pool_resize", "n_reopt", "n_incr_replans", "n_full_replans",
@@ -290,14 +290,18 @@ class _HostTraffic(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-130m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-130m", "recurrentgemma-9b",
+                                  "granite-moe-1b-a400m", "qwen3-moe-30b-a3b"])
 def test_decode_steps_are_capture_safe(arch, monkeypatch):
     """The decode step, the runner's step and the slab step of each
-    pattern, on ``meta`` tensors: no op reads a value on the host or takes a
-    host tensor, and no tensor is built on the host for the device
-    (``torch.tensor(..., device=...)`` is a copy a capture refuses)."""
+    pattern, and of the MoE decoders (the router, top-k, the stable sort,
+    ``searchsorted``, dispatch and combine), on ``meta`` tensors: no op reads
+    a value on the host or takes a host tensor, and no tensor is built on
+    the host for the device (``torch.tensor(..., device=...)`` is a copy a
+    capture refuses)."""
     cfg = get_config(arch)
-    cfg = (cfg.with_overrides(**SMALL) if arch == "qwen2-0.5b" else cfg.smoke()
+    over = {"qwen2-0.5b": SMALL, **MOE_SMALL}.get(arch)
+    cfg = (cfg.with_overrides(**over) if over else cfg.smoke()
            ).with_overrides(dtype="float32")
     opts = RunOpts(attention_impl="full", use_kernels=False)
     params = Transformer(cfg, opts, device="cpu").init(torch.Generator().manual_seed(0))

@@ -244,8 +244,17 @@ def test_unported_patterns_are_refused(arch):
     cfg = get_config(arch).smoke()
     if arch == "recurrentgemma-9b":     # ported; any other hybrid pattern is not
         cfg = cfg.with_overrides(block_pattern=("rec", "local", "rec"))
-    with pytest.raises(ValueError, match="the port runs"):
+    elif arch == "granite-moe-1b-a400m":    # ported; experts on mamba2 are not
+        cfg = get_config("mamba2-130m").smoke().with_overrides(
+            n_experts=cfg.n_experts, top_k=cfg.top_k)
+    elif arch == "qwen3-moe-30b-a3b":       # ported; experts with an encoder are not
+        cfg = cfg.with_overrides(encoder_layers=2, encoder_seq=16)
+    with pytest.raises(ValueError, match="the port runs") as err:
         TTransformer(cfg, device="cpu")
+    if arch == "granite-moe-1b-a400m":
+        assert "experts on pattern ('mamba2',)" in str(err.value)
+    elif arch == "qwen3-moe-30b-a3b":
+        assert "encoder-decoder" in str(err.value)
 
 
 # --------------------------------------------------------------------------

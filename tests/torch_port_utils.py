@@ -39,16 +39,27 @@ DENSE_SMALL = {
     "chameleon-34b": dict(n_layers=2, d_model=128, n_heads=8, n_kv_heads=1,
                           head_dim=16, d_ff=128, vocab_size=512),
 }
+# the MoE decoders at a small width, with their registered experts, top-k,
+# capacity factor and head (tied or not) kept as is:
+#   granite-moe-1b-a400m: E = 32, k = 8, tied, G = 2
+#   qwen3-moe-30b-a3b:    E = 128, k = 8, untied, G = 8, attention width
+#                         8 x 16 = 128 against d_model 64
+MOE_SMALL = {
+    "granite-moe-1b-a400m": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                                 head_dim=16, d_ff=32, vocab_size=512),
+    "qwen3-moe-30b-a3b": dict(n_layers=2, d_model=64, n_heads=8, n_kv_heads=1,
+                              head_dim=16, d_ff=48, vocab_size=512),
+}
 # layouts whose few heads make the reference's init draw large q and k
 # (``_contraction_scaled_qk``)
-SCALED_QK = {"phi4-mini-3.8b", *DENSE_SMALL}
+SCALED_QK = {"phi4-mini-3.8b", *DENSE_SMALL, *MOE_SMALL}
 
 
 def small_cfgs(dtype: str = "float32", arch: str = "qwen2-0.5b"):
     """(reference config, port config) — equal dataclasses, one per package:
     qwen2-0.5b at ``SMALL``, phi4-mini-3.8b at ``PHI4_SMALL`` or a config of
-    ``DENSE_SMALL`` at its layout."""
-    over = {"phi4-mini-3.8b": PHI4_SMALL, **DENSE_SMALL}.get(arch, SMALL)
+    ``DENSE_SMALL`` or ``MOE_SMALL`` at its layout."""
+    over = {"phi4-mini-3.8b": PHI4_SMALL, **DENSE_SMALL, **MOE_SMALL}.get(arch, SMALL)
     return (jget_config(arch).with_overrides(dtype=dtype, **over),
             tget_config(arch).with_overrides(dtype=dtype, **over))
 
