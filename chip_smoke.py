@@ -69,7 +69,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``n_layers`` per prefill and none of the paged, SSD or RG-LRU kernels,
      one prefill shape per distinct prompt length, and an f32 2-layer check
      of gather+kernel against gather+full (granite-moe's also served on the
-     CPU, whose token streams must equal the card's);
+     CPU, whose token streams must equal the card's); then
+     ``[serve:granite-moe:b16]`` (``moe_b16_phase``): granite-moe at
+     max_batch 16 on a burst of 16 requests, so that bucket 16 decodes 16
+     rows against an expert capacity of 8, with the eager run's drop share
+     printed, graphs against eager, and its f32 2-layer cut at max_batch 16
+     on the card and the CPU with identical token streams;
   5. serve full-width mamba2-130m (24 layers, bf16, seeded random weights)
      in gather mode with the SSD kernel in every prefill, then
      ``[load:mamba2]``, the diurnal load cell on the same weights, then
@@ -111,12 +116,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      JSON line, the card line, and the result line.
 
 Every serving path runs twice on the same trace and weights, first with the
-runner's steps eager (``graphs=False``), then replaying one CUDA graph per
-batch bucket, the engine's default on the card: a ``[graph:<model>]`` line
-prints both runs' decode step ms, tokens/s, prefill ms, graph pool bytes
-and compile counts, and the run fails unless every request's token stream
-is the same in both.  The f32 ``[check]`` runs of token streams also hold
-graphs against eager.  Each run of a path, and the training phase, runs
+runner's steps and prefill eager (``graphs=False``), then replaying one CUDA
+graph per batch bucket and, for the pure-attention decoders' padded
+prompts, one per rung of the prompt ladder (8 at max_len 1024, captured at
+warmup, none while serving, one replay per prefill), the engine's default
+on the card: a ``[graph:<model>]`` line prints both runs' decode step ms,
+tokens/s, prefill ms (and the eager/graphed ratio of both), the decode and
+prefill graph pools' bytes and compile counts, and the run fails unless
+every request's token stream is the same in both.  The f32 ``[check]``
+runs of token streams also hold graphs against eager.  Each run of a path, and the training phase, runs
 with every launch counter set to 0 just before it and read just after it
 (a captured launch counts once per replay), and each path's models are
 freed before the next.
@@ -125,6 +133,7 @@ Imports nothing of JAX.  Stdout's last line is the result JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import itertools
@@ -153,6 +162,9 @@ DENSE_ARCHS = (("mistral-nemo-12b", "mistral"), ("starcoder2-15b", "starcoder2")
 MOE_ARCHS = (("granite-moe-1b-a400m", "granite-moe"), ("qwen3-moe-30b-a3b", "qwen3-moe"))
 MOE_Y_TOL = 1e-5            # [moe]: f32 y, card against CPU, max-abs
 MOE_AUX_TOL = 1e-6          # [moe]: f32 aux, card against CPU, of max(1, |aux|)
+# [serve:granite-moe:b16]: a burst of 16 short prompts at max_batch 16, so
+# that 9 or more requests decode together and bucket 16 runs with T > C
+MOE_B16_BATCH, MOE_B16_REQUESTS, MOE_B16_MIN_LIVE = 16, 16, 9
 MAX_BATCH, MAX_LEN, GEN_LEN, N_REQUESTS, SEED = 8, 1024, 32, 12, 0
 CHURN_PROFILED_GEN = 8      # the churn trace's profile; live requests ask 32-48
 # [serve:shared]: 32 requests of 256-1024 prompt tokens and 64 generated ones
@@ -532,33 +544,43 @@ def stamp(t_start: float, what: str) -> None:
     print(f"[time] {what} done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
 
-def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
+def serve_path(torch, ops, eng, live, expected, card, tag: str,
+               around_run=contextlib.nullcontext) -> dict:
     """Drive one serving path through ``eng`` with every launch counter set
-    to 0 just before and read just after; check completions, tokens, that
-    the launches equal ``expected(decode_steps, prefills)`` for every
-    kernel wrapper, and with graphs that warmup captured one graph per
-    bucket and the run captured none.  Returns the launches and the run's
-    numbers (``ms``: decode step and prefill, ``completed``: the token
-    streams)."""
+    to 0 just before and read just after (the run inside ``around_run()``);
+    check completions, tokens, that the launches equal
+    ``expected(decode_steps, prefills)`` for every kernel wrapper, and with
+    graphs that warmup captured one graph per bucket and, for padded
+    prompts, one prefill graph per rung of the ladder, that every prefill
+    replayed one, and that the run captured none.  Returns the launches and
+    the run's numbers (``ms``: decode step and prefill, ``completed``: the
+    token streams, the graph pools' bytes)."""
     from repro_torch.kernels import paged_attention as pa
     t0 = time.perf_counter()
     eng.warmup()
     runner = eng.runner
     warm = runner.n_compiles
+    rungs = eng.prefill_rungs()
+    pwarm = eng.prefill.stats()
     kv = eng.kv.stats()
     print(f"[serve:{tag}] warmup buckets={list(runner.buckets)} graphs={runner.graphs} "
-          f"compiles={warm} in {time.perf_counter() - t0:.1f}s; planned pool "
+          f"compiles={warm}, prefill rungs {rungs} graphs={pwarm['n_captures']} "
+          f"in {time.perf_counter() - t0:.1f}s; planned pool "
           f"page_tokens={kv['page_tokens']} page_bytes={kv['page_bytes']} "
           f"n_pages={kv['n_pages']} pool={kv['pool_bytes'] / 1e6:.2f}MB "
           f"(planned peak {kv['planned_peak'] / 1e6:.2f}MB)", flush=True)
     if warm != len(runner.buckets):
         raise AssertionError(f"{tag}: warmup made {warm} compiles for "
                              f"{len(runner.buckets)} buckets")
+    if pwarm["n_captures"] != (len(rungs) if eng.graphs else 0):
+        raise AssertionError(f"{tag}: warmup captured {pwarm['n_captures']} prefill "
+                             f"graphs for the rungs {rungs} (graphs={eng.graphs})")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     steps0, prefills0 = eng.decode_steps, eng.prefill_calls
-    summary = eng.run(live)
+    with around_run():
+        summary = eng.run(live)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
     n_steps = eng.decode_steps - steps0
@@ -576,6 +598,14 @@ def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
                              f"{n_steps} decode steps and {n_prefills} prefills")
     if runner.n_compiles != warm:
         raise AssertionError(f"{tag}: {runner.n_compiles - warm} captures during the run")
+    pstats = eng.prefill.stats()
+    replays = pstats["n_replays"] - pwarm["n_replays"]
+    if pstats["n_captures"] != pwarm["n_captures"]:
+        raise AssertionError(f"{tag}: {pstats['n_captures'] - pwarm['n_captures']} "
+                             "prefill captures during the run")
+    if replays != (n_prefills if eng.graphs and rungs else 0):
+        raise AssertionError(f"{tag}: {replays} prefill replays for {n_prefills} "
+                             f"prefills (graphs={eng.graphs}, rungs {rungs})")
     stats = runner.stats()
     cache_bytes = sum(t.numel() * t.element_size() for t in eng.cache.values())
     step_ms = 1e3 * eng.decode_time_s / eng.decode_steps
@@ -585,6 +615,8 @@ def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
           f"prefill_shapes={eng.prefill_compiles} launches={launches} "
           f"graphs={stats['graphs']} compiles={stats['n_compiles']} "
           f"graph_pool={stats['graph_pool_bytes'] / 1e6:.2f}MB "
+          f"prefill_replays={replays} "
+          f"prefill_graph_pool={pstats['graph_pool_bytes'] / 1e6:.2f}MB "
           f"captured_paged_counters={len(pa._graph_counters)} "
           f"physical_cache={cache_bytes / 1e9:.3f}GB "
           f"peak_mem={torch.cuda.max_memory_allocated() / 1e9:.3f}GB | {card}")
@@ -596,6 +628,7 @@ def serve_path(torch, ops, eng, live, expected, card, tag: str) -> dict:
           f"| {card}", flush=True)
     return dict(launches=launches, step_ms=step_ms, prefill_ms=prefill_ms,
                 tokens_per_s=summary["tokens_per_s"], pool_bytes=stats["graph_pool_bytes"],
+                prefill_pool_bytes=pstats["graph_pool_bytes"],
                 n_compiles=stats["n_compiles"], completed=dict(eng.completed),
                 summary=summary, prefill_shapes=eng.prefill_compiles)
 
@@ -610,14 +643,16 @@ def first_divergence(want: dict, got: dict):
     return None
 
 
-def graph_ab(torch, ops, make_engine, live, expected, card, tag: str) -> dict:
-    """The same path run eagerly (``graphs=False``), then with one CUDA
-    graph per bucket, on the same trace and weights: print both runs'
-    decode step ms, tokens/s, prefill ms, graph pool bytes and compile
+def graph_ab(torch, ops, make_engine, live, expected, card, tag: str,
+             around_eager=contextlib.nullcontext) -> dict:
+    """The same path run eagerly (``graphs=False``, the run inside
+    ``around_eager()``), then with one CUDA graph per bucket and per rung
+    of the prompt ladder, on the same trace and weights: print both runs'
+    decode step ms, tokens/s, prefill ms, graph pools' bytes and compile
     count, and fail unless every request's token stream is the same.
     Returns the graph run (``serve_path``'s dict)."""
     eager = serve_path(torch, ops, make_engine(graphs=False), live, expected, card,
-                       f"{tag}:eager")
+                       f"{tag}:eager", around_eager)
     free_cuda(torch)
     graph = serve_path(torch, ops, make_engine(graphs=None), live, expected, card, tag)
     where = first_divergence(eager["completed"], graph["completed"])
@@ -625,9 +660,11 @@ def graph_ab(torch, ops, make_engine, live, expected, card, tag: str) -> dict:
     def side(r):
         return (f"step_ms={r['step_ms']:.3f} tok/s={r['tokens_per_s']:.1f} "
                 f"prefill_ms={r['prefill_ms']:.2f} graph_pool={r['pool_bytes']} "
+                f"prefill_graph_pool={r['prefill_pool_bytes']} "
                 f"n_compiles={r['n_compiles']}")
     print(f"[graph:{tag}] eager {side(eager)} | graphs {side(graph)} | decode step "
-          f"{eager['step_ms'] / graph['step_ms']:.2f}x; token streams identical: "
+          f"{eager['step_ms'] / graph['step_ms']:.2f}x, prefill "
+          f"{eager['prefill_ms'] / graph['prefill_ms']:.2f}x; token streams identical: "
           f"{where is None} | {card}", flush=True)
     if where is not None:
         rid, i = where
@@ -664,28 +701,31 @@ def load_model(torch, Transformer, cfg, opts, seed: int, tag: str):
 
 
 def same_streams(torch, small, variants, Transformer, ServeEngine, what: str, *,
-                 max_len: int = MAX_LEN, long_rids=(), on_cpu: bool = False) -> None:
+                 max_len: int = MAX_LEN, long_rids=(), on_cpu: bool = False,
+                 max_batch: int = 4, make_trace=None) -> list:
     """A shallow full-width f32 model serves identical greedy token streams
     through each ``(RunOpts, attn_mode)`` variant with CUDA graphs (the
     kernels' path and the plain path, on the same weights), and through the
     first variant again eagerly (``graphs=False``); with ``on_cpu`` also
     through the last variant on the CPU (the plain versions, the same
-    weights copied there)."""
+    weights copied there).  The trace is ``make_trace(cfg)`` (default: 4
+    requests of ``serve_trace``).  Returns each run's summary."""
     from torch.utils._pytree import tree_map
-    trace_s, live_s = serve_trace(small, torch, 4, SEED + 3, long_rids)
+    trace_s, live_s = (make_trace(small) if make_trace is not None
+                       else serve_trace(small, torch, 4, SEED + 3, long_rids))
     runs = [*((o, m, None, None) for o, m in variants), (*variants[0], False, None)]
     if on_cpu:
         runs.append((*variants[-1], False, "cpu"))
-    streams = []
+    streams, summaries = [], []
     params = None
     for opts, mode, graphs, device in runs:
         m = Transformer(small, opts, device=device)
         if params is None:
             params = m.init_loaded(torch.Generator(device="cuda").manual_seed(SEED + 3))
         p = params if device is None else tree_map(lambda t: t.to(device), params)
-        e = ServeEngine(m, p, sample_trace=trace_s, max_len=max_len, max_batch=4,
+        e = ServeEngine(m, p, sample_trace=trace_s, max_len=max_len, max_batch=max_batch,
                         attn_mode=mode, graphs=graphs)
-        e.run(live_s)
+        summaries.append(e.run(live_s))
         streams.append(e.completed)
     same = [sum(streams[0][r] == other[r] for r in other) for other in streams[1:]]
     cpu = f", card vs CPU for {same[2]}/{len(live_s)}" if on_cpu else ""
@@ -694,6 +734,7 @@ def same_streams(torch, small, variants, Transformer, ServeEngine, what: str, *,
           f"for {same[1]}/{len(live_s)}{cpu} (prompts {[r.prompt_len for r in trace_s]})")
     if same != [len(live_s)] * len(same):
         raise AssertionError(f"token streams differ: {streams}")
+    return summaries
 
 
 def dense_phase(torch, ops, Transformer, RunOpts, ServeEngine, arch: str, tag: str,
@@ -794,6 +835,109 @@ def moe_cases(torch, moe, cfgs: dict) -> dict:
                 worst[tag] = max(worst.get(tag, 0.0), y_err)
         del base, p, p_cpu
     return worst
+
+
+def burst_trace(cfg, torch, n: int, seed: int):
+    """``n`` requests arriving 0 or 1 step apart, prompts of 24-64 tokens
+    (longer than any decode bucket, so that a token count tells a prefill
+    from a decode step), GEN_LEN generated tokens each: the whole burst
+    decodes together."""
+    from repro_torch.runtime.serve_lib import Request
+    from repro_torch.serving import GenRequest
+    rng = random.Random(seed)
+    g = torch.Generator().manual_seed(seed)
+    trace, t = [], 0
+    for i in range(n):
+        t += rng.randint(0, 1)
+        trace.append(Request(rid=i + 1, prompt_len=rng.randint(24, 64), gen_len=GEN_LEN,
+                             arrival=t))
+    live = [GenRequest(rid=r.rid, prompt=torch.randint(
+                0, cfg.vocab_size, (r.prompt_len,), generator=g,
+                dtype=torch.int32), gen_len=r.gen_len, arrival=r.arrival)
+            for r in trace]
+    return trace, live
+
+
+@contextlib.contextmanager
+def counting_drops(torch, moe_lib, drops: dict):
+    """``moe_lib.moe_groups`` wrapped (eager calls only: a capture would
+    count once) to add up per token count T: calls, assignments (T k) and
+    dropped assignments, the last on the device, read after the run."""
+    inner = moe_lib.moe_groups
+
+    def counted(xg, p, cfg, compute_dtype, need_aux=True):
+        y, aux, disp = inner(xg, p, cfg, compute_dtype, need_aux)
+        row = drops.setdefault(xg.shape[0] * xg.shape[1], [0, 0, torch.zeros(
+            (), dtype=torch.int64, device=xg.device)])
+        row[0] += 1
+        row[1] += disp.keep.numel()
+        row[2] += (~disp.keep).sum()
+        return y, aux, disp
+    moe_lib.moe_groups = counted
+    try:
+        yield drops
+    finally:
+        moe_lib.moe_groups = inner
+
+
+def moe_b16_phase(torch, ops, moe_lib, Transformer, RunOpts, ServeEngine, card) -> dict:
+    """``[serve:granite-moe:b16]``: full-width, full-depth granite-moe-1b-a400m
+    (gather decode, flash prefill, prompts unpadded) at max_batch 16 on a
+    burst of 16 requests, so that 9 or more decode together and the
+    runner's bucket 16 runs: 16 rows (pad rows copy the last slot's) against
+    an expert capacity C of 8, so an expert that 9 or more rows pick drops
+    assignments.  Eager against graphs (``graph_ab``: equal token streams,
+    launches exactly ``n_layers`` flash per prefill), the eager run counting
+    the dispatch's drops per token count (decode buckets and prefill
+    lengths); then an f32 2-layer cut of the same width serves the burst
+    at max_batch 16 through gather+kernel and gather+full with graphs,
+    eagerly and on the CPU, all with identical token streams
+    (``same_streams``).  Fails unless 9 or more requests ran together in
+    every run and bucket 16 ran.  Returns the graph run."""
+    from repro_torch.configs import get_config
+    arch, tag = MOE_ARCHS[0]
+    tag = f"{tag}:b16"
+    cfg = get_config(arch)
+    trace, live = burst_trace(cfg, torch, MOE_B16_REQUESTS, SEED + 14)
+    model, params = load_model(torch, Transformer, cfg, RunOpts(attention_impl="kernel"),
+                               SEED, tag)
+    drops: dict = {}
+    run = graph_ab(torch, ops, lambda graphs: ServeEngine(
+        model, params, sample_trace=trace, max_len=MAX_LEN, max_batch=MOE_B16_BATCH,
+        attn_mode="gather", graphs=graphs), live, lambda steps, prefills: {
+        "flash_attention": cfg.n_layers * prefills, "paged_attention": 0, "ssd_scan": 0,
+        "rglru_scan": 0}, card, tag, around_eager=lambda: counting_drops(torch, moe_lib, drops))
+    del model, params
+    free_cuda(torch)
+    cap = moe_lib.capacity(MOE_B16_BATCH, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+
+    def share(ts):
+        calls = sum(drops[t][0] for t in ts)
+        n = sum(drops[t][1] for t in ts)
+        dropped = sum(int(drops[t][2].item()) for t in ts)
+        return f"{dropped}/{n} ({dropped / max(1, n):.4f}) over {calls} calls"
+    buckets = sorted(t for t in drops if t <= MOE_B16_BATCH)
+    print(f"[serve:{tag}] max_concurrent={run['summary']['max_concurrent']}; eager run's "
+          f"MoE drops at decode bucket 16 (T=16, C={cap}): {share([16]) if 16 in drops else 'none'}; "
+          f"all decode buckets {buckets}: {share(buckets)}; prefill "
+          f"(T {min(t for t in drops if t > MOE_B16_BATCH)}-{max(drops)}): "
+          f"{share([t for t in drops if t > MOE_B16_BATCH])} | {card}", flush=True)
+    if run["summary"]["max_concurrent"] < MOE_B16_MIN_LIVE or 16 not in drops:
+        raise AssertionError(f"{tag}: max_concurrent {run['summary']['max_concurrent']}, "
+                             f"decode token counts {buckets}: bucket 16 did not run")
+    small = cfg.with_overrides(n_layers=2, dtype="float32")
+    summaries = same_streams(
+        torch, small, [(RunOpts(attention_impl="kernel"), "gather"),
+                       (RunOpts(attention_impl="full"), "gather")],
+        Transformer, ServeEngine, "gather+kernel vs gather+full at max_batch 16",
+        on_cpu=True, max_batch=MOE_B16_BATCH,
+        make_trace=lambda c: burst_trace(c, torch, MOE_B16_REQUESTS, SEED + 15))
+    live_max = [s["max_concurrent"] for s in summaries]
+    print(f"[check] {small.name} f32 2-layer at max_batch 16: max_concurrent per run "
+          f"{live_max}", flush=True)
+    if min(live_max) < MOE_B16_MIN_LIVE:
+        raise AssertionError(f"{tag} f32 cut: max_concurrent {live_max}")
+    return run
 
 
 def churn_phase(torch, ops, cfg, model, params, card) -> dict:
@@ -943,6 +1087,8 @@ def shared_phase(torch, ops, cfg, model, params, card) -> dict:
     step_ms = 1e3 * eng.decode_time_s / eng.decode_steps
     prefill_ms = 1e3 * eng.prefill_time_s / eng.prefill_calls
     replica = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    prefill_pool = eng.prefill.stats()["graph_pool_bytes"]
+    decode_pool = eng.runner.stats()["graph_pool_bytes"]
     print(f"[serve:shared] training phases {colo['phases']} of a "
           f"{colo['window_steps']}-step window, serving_cap={eng.sched.cap} "
           f"serving_budget={eng.kv.tenant.budget} training_budget={tview.budget} "
@@ -960,7 +1106,10 @@ def shared_phase(torch, ops, cfg, model, params, card) -> dict:
           f"{budget / 1e9:.3f} GB, arena account (joint + retained once) "
           f"{account / 1e9:.3f} GB: measured/account {peak / account:.4f}, "
           f"measured - account {(peak - account) / 1e9:.3f} GB against one weight "
-          f"replica {replica / 1e9:.3f} GB | {card}", flush=True)
+          f"replica {replica / 1e9:.3f} GB; graph pools the account does not count "
+          f"(held before the run): prefill {prefill_pool / 1e9:.3f} GB "
+          f"({prefill_pool / account:.4f} of the account), decode "
+          f"{decode_pool / 1e9:.3f} GB | {card}", flush=True)
     print(f"[serve:shared] launches {launches}", flush=True)
     if colo["n_train_steps"] < 1 or not math.isfinite(colo["train_loss"]):
         raise AssertionError(f"shared: fine-tune {colo}")
@@ -984,7 +1133,8 @@ def shared_phase(torch, ops, cfg, model, params, card) -> dict:
                              "fine-tune")
     del eng
     return dict(launches=launches, budget=budget, account=account, peak=peak,
-                train_step_ms=colo["train_step_ms_mean"], step_ms=step_ms)
+                train_step_ms=colo["train_step_ms_mean"], step_ms=step_ms,
+                prefill_pool=prefill_pool)
 
 
 def load_phase(torch, ops, cfg, model, params, cell: str, tag: str, expected,
@@ -1086,8 +1236,9 @@ def load_phase(torch, ops, cfg, model, params, cell: str, tag: str, expected,
     print(f"[load:{tag}] decode step ms traced {tr['step_ms']:.4f} untraced "
           f"{un['step_ms']:.4f} (tracer {tr['step_ms'] - un['step_ms']:+.4f} ms a step), "
           f"eager traced {ea['step_ms']:.4f}; prefill ms traced {tr['prefill_ms']:.3f} "
-          f"untraced {un['prefill_ms']:.3f}; wall s traced {run.wall_s:.3f} untraced "
-          f"{un['run'].wall_s:.3f} | {card}", flush=True)
+          f"untraced {un['prefill_ms']:.3f} eager traced {ea['prefill_ms']:.3f}; TTFT ms "
+          f"graphs {load.ttft_ms(run)}, eager {load.ttft_ms(ea['run'])}; wall s traced "
+          f"{run.wall_s:.3f} untraced {un['run'].wall_s:.3f} | {card}", flush=True)
     for other in ("untraced", "eager"):
         where = first_divergence(tr["completed"], runs[other]["completed"])
         if where is not None:
@@ -1529,6 +1680,9 @@ def main() -> int:
                                     tag, card, mode="gather",
                                     on_cpu=tag == "granite-moe")["launches"]
         stamp(t_start, f"[serve:{tag}]")
+    moe_b16 = moe_b16_phase(torch, ops, moe_lib, Transformer, RunOpts, ServeEngine,
+                            card)["launches"]
+    stamp(t_start, "[serve:granite-moe:b16]")
 
     stamp(t_start, "phase 4")
     # -- 5. the mamba2 path: full-width mamba2-130m, gather decode, SSD prefill -------
@@ -1671,6 +1825,7 @@ def main() -> int:
                       + rgemma["flash_attention"] + dense_flash + moe_flash),
          "dense_launches": {tag: d["flash_attention"] for tag, d in dense.items()},
          "moe_launches": {tag: d["flash_attention"] for tag, d in moe_runs.items()},
+         "moe_b16_launches": moe_b16["flash_attention"],
          "churn_launches": churn["launches"]["flash_attention"],
          "shared_launches": shared["launches"]["flash_attention"],
          "train_launches": train["flash_attention"],

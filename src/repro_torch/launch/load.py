@@ -207,6 +207,13 @@ def export(eng: ServeEngine, tracer: Tracer, tracker: SpanTracker,
     return tb.write(path)
 
 
+def ttft_ms(run: CellRun) -> str:
+    """p50/p99 of a traced run's TTFT in ms: enqueue to the first token on
+    the host."""
+    return pcts((run.first_token_us[s.rid] - s.enqueue_ts) / 1e3
+                for s in run.tracker.finished())
+
+
 def pcts(values) -> str:
     """p50/p99 of ``values`` from the estimator of the SLO report's step
     percentiles."""
@@ -227,7 +234,7 @@ def report(run: CellRun, tag: str, suffix: str = "") -> None:
     def steps(metric):
         return f"p50 {rep[metric]['p50']:.4g} p99 {rep[metric]['p99']:.4g}"
     print(f"[load:{tag}] TTFT steps {steps('ttft_steps')}, ms "
-          f"{pcts((first[s.rid] - s.enqueue_ts) / 1e3 for s in spans)}; TPOT steps "
+          f"{ttft_ms(run)}; TPOT steps "
           f"{steps('tpot_steps')}, ms {pcts((s.finish_ts - first[s.rid]) / 1e3 / max(1, s.n_tokens - 1) for s in spans)}; "
           f"E2E steps {steps('e2e_steps')}, ms "
           f"{pcts((s.finish_ts - s.enqueue_ts) / 1e3 for s in spans)}{suffix}", flush=True)
@@ -274,7 +281,10 @@ def main(argv=None) -> None:
     print(f"[load:{args.cell}] {cfg.name} on {model.device}: {len(live)} requests, "
           f"arrivals {[r.arrival for r in live]}, max_batch {args.max_batch}, "
           f"steps={eng.step_count}, pool "
-          f"n_pages={eng.kv.stats()['n_pages']}, wall {run.wall_s:.3f}s")
+          f"n_pages={eng.kv.stats()['n_pages']}, wall {run.wall_s:.3f}s, "
+          f"prefill_compiles={eng.prefill_compiles} "
+          f"prefill_graphs={eng.prefill.n_captures} prefill_ms="
+          f"{1e3 * eng.prefill_time_s / max(1, eng.prefill_calls):.2f}")
     report(run, args.cell)
     if args.trace:
         print(f"[trace] {len(run.tracer.events())} events "

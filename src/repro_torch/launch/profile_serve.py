@@ -18,8 +18,12 @@ share), and the kernels with the most device time.  With graphs it then
 runs a second, unprofiled window of as many steps and times each replay
 with CUDA events: replay device ms per step against the host ms of the
 same steps is a busy share that does not rest on the profiler seeing
-kernels inside graphs.  Runs on the card; ``--device cpu`` runs the plain
-versions eagerly and shows host time only.
+kernels inside graphs.  For a pure-attention decoder it then times
+``--steps`` prefills of one ``--prompt-len`` prompt, padded to its rung of
+the ladder: the graphed prefill's replay device ms (CUDA events) against
+its host ms (the engine's call through the first token's argmax on the
+host), and the eager prefill's host ms.  Runs on the card; ``--device
+cpu`` runs the plain versions eagerly and shows host time only.
 """
 from __future__ import annotations
 
@@ -110,6 +114,38 @@ def main(argv=None) -> None:
               f"graph replays: host step_ms={wall_ms:.3f} "
               f"replay_device_ms_per_step={rep_ms:.3f} "
               f"busy_share={rep_ms / wall_ms:.3f}")
+    if eng.graphs and eng.prefill_rungs():
+        _profile_prefill(eng, args.prompt_len, args.steps, g)
+
+
+def _profile_prefill(eng: ServeEngine, prompt_len: int, n: int, g) -> None:
+    """Graphed prefill of one padded prompt: replay device ms (CUDA events)
+    and host ms per call, the eager prefill's host ms beside them."""
+    batch = eng._prefill_batch(torch.randint(0, eng.model.cfg.vocab_size,
+                                             (prompt_len,), generator=g,
+                                             dtype=torch.int32))
+    rung = int(batch["tokens"].shape[1])
+
+    def host_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            int(fn()[0][0].argmax())        # the engine's first-token sync
+        return 1e3 * (time.perf_counter() - t0) / n
+    eager_ms = host_ms(lambda: eng.model.prefill(eng.params, batch))
+    captures = eng.prefill.n_captures
+    eng.prefill.replay_events = []
+    graph_ms = host_ms(lambda: eng.prefill(eng.params, batch))
+    ev = eng.prefill.replay_events[1:]      # the timed calls' replays
+    eng.prefill.replay_events = None
+    if eng.prefill.n_captures != captures:
+        raise RuntimeError(f"rung {rung} was captured while it was timed")
+    rep_ms = sum(a.elapsed_time(b) for a, b in ev) / len(ev)
+    print(f"[profile] prefill prompt={prompt_len} rung={rung} x{len(ev)}: "
+          f"graphed host ms={graph_ms:.3f} replay_device_ms={rep_ms:.3f} "
+          f"busy_share={rep_ms / graph_ms:.3f}; eager host ms={eager_ms:.3f} "
+          f"({eager_ms / graph_ms:.2f}x)")
 
 
 if __name__ == "__main__":

@@ -294,7 +294,9 @@ def main(argv=None) -> None:
         eng.warmup()
         print(f"[runner] buckets={list(eng.runner.buckets)} "
               f"graphs={eng.graphs} warmed {eng.runner.n_compiles} "
-              f"compiles in {time.perf_counter() - t0:.1f}s on {model.device}")
+              f"compiles and prefill rungs {eng.prefill_rungs()} "
+              f"({eng.prefill.n_captures} graphs) "
+              f"in {time.perf_counter() - t0:.1f}s on {model.device}")
     kv = eng.kv.stats()
     print(f"[paged pool] page_tokens={kv['page_tokens']} "
           f"n_pages={kv['n_pages']} pool={kv['pool_bytes'] / 1e6:.2f}MB "
@@ -383,6 +385,7 @@ def main(argv=None) -> None:
               f"step_ms={1e3 * eng.decode_time_s / eng.decode_steps:.2f} "
               f"graphs={eng.graphs} compiles={compiles} "
               f"prefill_compiles={eng.prefill_compiles} "
+              f"prefill_graphs={eng.prefill.n_captures} "
               f"prefill_ms={1e3 * eng.prefill_time_s / max(1, eng.prefill_calls):.2f}")
     if colocated is not None:
         tms = colocated["train_step_ms_mean"]

@@ -207,6 +207,25 @@ def _unsupported(cfg) -> list[str]:
     return out
 
 
+def _prefill_pos(true_len, b: int, s: int, device) -> torch.Tensor:
+    """A prefill's (B,) int32 cache position: ``s``, or ``true_len`` (an
+    int, or a 0-d or (B,) integer tensor, copied on the device)."""
+    if isinstance(true_len, torch.Tensor):
+        pos = true_len.to(device=device, dtype=torch.int32)
+        return pos.reshape(-1).expand(b).clone()
+    return torch.full((b,), s if true_len is None else int(true_len),
+                      dtype=torch.int32, device=device)
+
+
+def _last_hidden(x, pos, true_len):
+    """(B, 1, D): each row's hidden state at ``pos - 1``, gathered on the
+    device (the reference's dynamic slice); the last one without
+    ``true_len``."""
+    if true_len is None:
+        return x[:, -1:, :]
+    return x.gather(1, (pos.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1]))
+
+
 class Transformer:
     def __init__(self, cfg: ModelConfig, opts: RunOpts = RunOpts(),
                  device=None):
@@ -636,42 +655,45 @@ class Transformer:
     # ---- public: prefill -----------------------------------------------------------
     @torch.no_grad()
     def prefill(self, params, batch, max_len: Optional[int] = None):
-        """batch: {"tokens": (B,S)[, "true_len": int]} -> (last-pos logits,
-        cache).
+        """batch: {"tokens": (B,S)[, "true_len": int or integer tensor]} ->
+        (last-pos logits, cache).
 
         ``true_len`` supports length-bucketed prompts: tokens beyond it are
         padding — the returned logits are read at position ``true_len - 1``
         and the cache position starts there, so the padded tail is masked out
-        of every later decode step until it is overwritten.  Only attention
-        caches are pad-safe: a mamba2 or RG-LRU state integrates every input
-        token, and MoE capacity counts the pad tokens, so callers pass those
-        prompts unpadded.  Mamba2 and rec prefill run the SSD and RG-LRU
-        kernels when ``RunOpts.use_kernels`` is set (the reference's prefill
-        always runs the plain scans; the results agree to rounding)."""
+        of every later decode step until it is overwritten.  As the
+        reference takes a traced scalar, ``true_len`` may be a 0-d or (B,)
+        integer tensor on the model's device: it is then read there, by a
+        gather, and never on the host, so one CUDA graph of a padded length
+        serves every ``true_len`` (``runtime.serve_lib.build_prefill_step``).
+        Only attention caches are pad-safe: a mamba2 or RG-LRU state
+        integrates every input token, and MoE capacity counts the pad
+        tokens, so callers pass those prompts unpadded.  Mamba2 and rec
+        prefill run the SSD and RG-LRU kernels when ``RunOpts.use_kernels``
+        is set (the reference's prefill always runs the plain scans; the
+        results agree to rounding)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         true_len = batch.get("true_len")
         b, s = tokens.shape
         max_len = max_len or s
         x = self._embed_in(params, tokens)
-        pos0 = s if true_len is None else int(true_len)
+        pos = _prefill_pos(true_len, b, s, x.device)
         if self.kind == "hybrid":
             x, cache = self._hybrid_layers(params, x, max_len)
-            cache["pos"] = torch.full((b,), pos0, dtype=torch.int32,
-                                      device=x.device)
+            cache["pos"] = pos
             x = self._norm(x, params["final_norm"])
-            return self.logits(params, x[:, pos0 - 1:pos0, :])[:, 0, :], cache
+            return self.logits(params, _last_hidden(x, pos, true_len))[:, 0, :], cache
         if self.kind == "mamba2":
             states = []
             for p in params["layers"]:
                 x, st = self._mamba2_layer(x, p)
                 states.append(st)
-            cache = {"pos": torch.full((b,), pos0, dtype=torch.int32,
-                                       device=x.device),
+            cache = {"pos": pos,
                      "conv": torch.stack([st["conv"] for st in states]),
                      "ssm": torch.stack([st["ssm"] for st in states])}
             x = self._norm(x, params["final_norm"])
-            return self.logits(params, x[:, pos0 - 1:pos0, :])[:, 0, :], cache
+            return self.logits(params, _last_hidden(x, pos, true_len))[:, 0, :], cache
         rope_cs = self._rope(torch.arange(s, device=tokens.device)[None, :])
         kv_shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
@@ -685,12 +707,9 @@ class Transformer:
             x = self._finish_block(x, ctx, p)
             k_all[i, :, :n] = k[:, :n]
             v_all[i, :, :n] = v[:, :n]
-        cache = {"pos": torch.full((b,), pos0, dtype=torch.int32,
-                                   device=x.device),
-                 "k": k_all, "v": v_all}
+        cache = {"pos": pos, "k": k_all, "v": v_all}
         x = self._norm(x, params["final_norm"])
-        last = x[:, pos0 - 1:pos0, :]
-        return self.logits(params, last)[:, 0, :], cache
+        return self.logits(params, _last_hidden(x, pos, true_len))[:, 0, :], cache
 
     # ---- public: inference forward (no cache) -----------------------------------------
     @torch.no_grad()

@@ -1,5 +1,5 @@
-"""CUDA graphs of the decode steps: the port's counterpart of the
-reference's AOT-compiled executables.
+"""CUDA graphs of the decode and padded prefill steps: the port's
+counterpart of the reference's AOT-compiled executables.
 
 A step captured once into a CUDA graph replays its kernels with no Python
 and no per-op launch cost.  The graph reads and writes the addresses of the

@@ -7,8 +7,8 @@ cache slabs are rectangles (size = cache bytes at final length, lifetime =
 reoptimization when a request outgrows its profiled length.  Port of
 ``repro.runtime.serve_lib``.  The reference jits both steps; here the
 decode step is captured into one CUDA graph per batch shape on the card
-(``runtime.graphs``) and runs eagerly on the CPU, and prefill runs eagerly
-everywhere.
+(``runtime.graphs``), and so is the prefill of each padded prompt length;
+on the CPU both run eagerly, and so do unpadded prompts everywhere.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core import ArenaAllocator, Block, MemoryProfile, PoolAllocator, align, best_fit
-from .graphs import StepGraph, use_graphs
+from .graphs import StepGraph, pool_bytes, use_graphs
 
 # Bytes per element of each config dtype (``jnp.dtype(cfg.dtype).itemsize``
 # in the reference).
@@ -38,25 +38,107 @@ def _refuse_mesh(mesh, what: str) -> None:
             "item 10: runtime/{mesh_ctx,sharding_rules})")
 
 
-def build_prefill_step(model, mesh, batch_sds: Optional[dict] = None,
-                       max_len: Optional[int] = None, trace_hook=None):
+class PrefillStep:
     """``prefill(params, batch)`` -> ``model.prefill(params, batch,
-    max_len=max_len)``, eager.  ``trace_hook(batch)`` fires once per new
-    (prompt length, has ``true_len``) signature: the reference's jit traces
-    once per such signature, and the hook counts those traces.
-    ``batch_sds`` only shards the reference's step; ``mesh`` must be None."""
+    max_len=max_len)``; built by ``build_prefill_step``.
+
+    With graphs a padded prompt's prefill (a batch with ``true_len``)
+    replays one CUDA graph per batch shape, bound to the ``params`` it was
+    captured with; another ``params`` captures again.  The graphs share
+    a graph memory pool of their own, apart from the decode graphs'.
+    Before a signature's first capture the step runs once eagerly on the
+    graph's own input buffers, to pay first-call costs outside the
+    capture.  Each call copies the batch's tokens and ``true_len`` into
+    those buffers, so any ``true_len`` of the length replays the same graph
+    (the model reads it on the device); the graph returns its static logits
+    and cache, which the next replay of that shape overwrites.  A batch
+    without ``true_len`` (an unpadded prompt) runs eagerly.
+
+    ``trace_hook(batch)`` fires once per capture and, eagerly, once per new
+    signature: the reference's jit traces once per such signature.  With
+    ``replay_events`` set to a list, each replay appends a pair of CUDA
+    events recorded around it (``launch.profile_serve`` times them)."""
+
+    def __init__(self, model, max_len: Optional[int], trace_hook,
+                 graphs: Optional[bool]):
+        self.model = model
+        self.max_len = max_len
+        self.trace_hook = trace_hook
+        self.graphs = use_graphs(graphs, model.device)
+        self.pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self.n_captures = self.n_replays = 0
+        self.replay_events: Optional[list] = None
+        self._seen: set = set()
+        self._captured: dict = {}      # signature -> (StepGraph, tokens, true_len)
+
+    def _eager(self, params, batch):
+        return self.model.prefill(params, batch, max_len=self.max_len)
+
+    def _hook(self, batch) -> None:
+        if self.trace_hook is not None:
+            self.trace_hook(batch)
+
+    def __call__(self, params, batch):
+        tokens = batch["tokens"]
+        sig = (tuple(tokens.shape), "true_len" in batch)
+        if not (self.graphs and sig[1]):
+            if sig not in self._seen:
+                self._seen.add(sig)
+                self._hook(batch)
+            return self._eager(params, batch)
+        entry = self._captured.get(sig)
+        if entry is None or not entry[0].binds(params, []):
+            entry = self._capture(params, batch, sig)
+        g, tok_buf, len_buf = entry
+        tok_buf.copy_(tokens)
+        true_len = batch["true_len"]
+        if isinstance(true_len, torch.Tensor):
+            len_buf.copy_(true_len)
+        else:
+            len_buf.fill_(int(true_len))
+        self.n_replays += 1
+        if self.replay_events is None:
+            return g.replay()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = g.replay()
+        end.record()
+        self.replay_events.append((start, end))
+        return out
+
+    def _capture(self, params, batch, sig):
+        tokens = batch["tokens"]
+        dev = self.model.device
+        static = {"tokens": torch.zeros(tokens.shape, dtype=tokens.dtype, device=dev),
+                  "true_len": torch.full((tokens.shape[0],), tokens.shape[1],
+                                         dtype=torch.int32, device=dev)}
+        if sig not in self._seen:
+            self._seen.add(sig)
+            self._eager(params, static)
+        self._captured.pop(sig, None)       # its pool blocks go back first
+        g = StepGraph(lambda: self._eager(params, static), params=params,
+                      tensors=[], pool=self.pool)
+        entry = self._captured[sig] = (g, static["tokens"], static["true_len"])
+        self.n_captures += 1
+        self._hook(batch)
+        return entry
+
+    def stats(self) -> dict:
+        return {"graphs": self.graphs, "n_captures": self.n_captures,
+                "n_replays": self.n_replays,
+                "graph_pool_bytes": pool_bytes(self.pool) if self.graphs else 0}
+
+
+def build_prefill_step(model, mesh, batch_sds: Optional[dict] = None,
+                       max_len: Optional[int] = None, trace_hook=None,
+                       graphs: Optional[bool] = None) -> PrefillStep:
+    """The prefill step (``PrefillStep``).  ``graphs`` (default: on when the
+    model lies on a CUDA device) captures padded prompts; True on another
+    device raises ``ValueError``.  ``batch_sds`` only shards the
+    reference's step; ``mesh`` must be None."""
     _refuse_mesh(mesh, "build_prefill_step")
     del batch_sds
-    seen: set = set()
-
-    def prefill(params, batch):
-        sig = (int(batch["tokens"].shape[1]), "true_len" in batch)
-        if sig not in seen:
-            seen.add(sig)
-            if trace_hook is not None:
-                trace_hook(batch)
-        return model.prefill(params, batch, max_len=max_len)
-    return prefill
+    return PrefillStep(model, max_len, trace_hook, graphs)
 
 
 def build_decode_step(model, mesh, batch: Optional[int] = None,

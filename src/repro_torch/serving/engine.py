@@ -12,13 +12,15 @@ writes at its own offset no matter when it was admitted.  Decode runs
 through the bucketed ``DecodeRunner`` (one CUDA graph per bucket on the
 card) or, with ``use_runner=False``, through the full-batch "slab" step of
 ``serve_lib.build_decode_step``; prompts of pure-attention models are
-padded to a power-of-two ladder before prefill (a recurrent state would
+padded to a power-of-two ladder before prefill, and on the card each rung
+replays one CUDA graph captured at ``warmup()`` (a recurrent state would
 integrate the pad tokens and MoE capacity would count them, so mamba2,
-recurrentgemma and MoE prompts go in unpadded, one prefill shape per
-prompt length).  ``attn_mode="paged"`` decodes straight off per-layer page pools
-through the paged-attention CUDA kernel; prefill runs the flash kernel when
-the model's ``RunOpts.attention_impl`` is ``"kernel"`` and the SSD and
-RG-LRU kernels when ``RunOpts.use_kernels`` is set.
+recurrentgemma and MoE prompts go in unpadded and eagerly, one prefill
+shape per prompt length).  ``attn_mode="paged"`` decodes straight off
+per-layer page pools through the paged-attention CUDA kernel; prefill
+runs the flash kernel when the model's ``RunOpts.attention_impl`` is
+``"kernel"`` and the SSD and RG-LRU kernels when ``RunOpts.use_kernels``
+is set.
 """
 from __future__ import annotations
 
@@ -86,8 +88,9 @@ class ServeEngine:
         under sustained load (None: only when fully idle).
 
         ``graphs`` (the port's counterpart of the reference runner's
-        ``donate``): decode through CUDA graphs; None means on when the
-        model lies on a CUDA device, False runs the same steps eagerly.
+        ``donate`` and of its jitted prefill): decode, and prefill each
+        rung of the prompt ladder, through CUDA graphs; None means on when
+        the model lies on a CUDA device, False runs the same steps eagerly.
 
         ``mesh`` is the reference's sharding option, not ported yet:
         anything but None raises."""
@@ -117,8 +120,11 @@ class ServeEngine:
                                max_concurrency=cap, prefill_chunk=prefill_chunk)
         self.metrics = metrics if metrics is not None else ServeMetrics()
         self.graphs = use_graphs(graphs, model.device)
+        cfg = model.cfg
+        self._pad_prefill = self.pads_prefill(cfg)
         self.prefill = build_prefill_step(model, None,
-                                          trace_hook=self._on_prefill_trace)
+                                          trace_hook=self._on_prefill_trace,
+                                          graphs=self.graphs)
         self.runner = self.decode = None
         if use_runner:
             self.runner = DecodeRunner(model, max_batch=max_batch,
@@ -134,8 +140,6 @@ class ServeEngine:
         self.decode_compiles = 0
         self.decode_steps = 0
         self.decode_time_s = 0.0
-        cfg = model.cfg
-        self._pad_prefill = self.pads_prefill(cfg)
         if attn_mode not in ("gather", "paged"):
             raise ValueError(f"unknown attn_mode {attn_mode!r}")
         self.attn_mode = attn_mode
@@ -198,24 +202,38 @@ class ServeEngine:
         return (set(cfg.block_pattern) | set(cfg.tail_pattern) <= {"attn"}
                 and not cfg.is_encoder_decoder and not cfg.n_experts)
 
+    def prefill_rungs(self) -> list[int]:
+        """The padded prompt lengths, ascending: powers of two from
+        PREFILL_BUCKET_MIN, capped at ``max_len``; none when prompts go in
+        unpadded."""
+        rungs, padded = [], PREFILL_BUCKET_MIN
+        while self._pad_prefill:
+            rungs.append(min(padded, self.max_len))
+            if padded >= self.max_len:
+                break
+            padded *= 2
+        return rungs
+
     def warmup(self) -> None:
-        """Warm (and on the card capture) every runner bucket and, for padded
-        prompts, every prefill ladder shape, so the serving loop sees no
-        first-call cost and the compile counters stay flat from step 0.
-        Unpadded (recurrent or MoE) prompts have no ladder to warm."""
+        """Warm (and on the card capture) every runner bucket and every rung
+        of the prompt ladder, largest first (on the card the smaller rungs'
+        graphs reuse the prefill pool's memory), so the serving loop sees no
+        first-call cost and captures nothing: the compile counters stay
+        flat from step 0.  Unpadded (recurrent or MoE) prompts have no
+        ladder to warm."""
         if self.runner is not None:
             self.runner.warmup(self.params, self.cache, self.tokens)
-        padded = PREFILL_BUCKET_MIN
-        while self._pad_prefill:
-            p = min(padded, self.max_len)
+        for p in reversed(self.prefill_rungs()):
             self.prefill(self.params,
                          {"tokens": torch.zeros((1, p), dtype=torch.int32,
                                                 device=self.device),
-                          "true_len": p})
-            if p >= self.max_len:
-                break
-            padded *= 2
+                          "true_len": self._true_len(p)})
         self._sync_device()
+
+    def _true_len(self, n: int) -> torch.Tensor:
+        """A prompt's true length as a 0-d device tensor (the reference's
+        traced scalar), filled on the device: no host copy."""
+        return torch.full((), n, dtype=torch.int32, device=self.device)
 
     # -- queue --------------------------------------------------------------------
     def enqueue(self, req: GenRequest) -> None:
@@ -268,21 +286,20 @@ class ServeEngine:
         self.sched.cap = max(1, min(self.max_batch, cap))
 
     def _prefill_batch(self, prompt) -> dict:
-        """Pad the prompt to a power-of-two ladder so prefill sees
-        O(log max_len) shapes.  The padded tail is exact: logits are read at
-        ``true_len - 1`` and decode masks cache positions >= ``true_len``
-        until they are overwritten.  Without ``_pad_prefill`` the prompt
-        goes in as it is."""
+        """Pad the prompt to the smallest rung of the ladder that holds it
+        (``prefill_rungs``) so prefill sees O(log max_len) shapes, each a
+        CUDA graph on the card.  The padded tail is exact: logits are read
+        at ``true_len - 1`` and decode masks cache positions >=
+        ``true_len`` until they are overwritten.  Without ``_pad_prefill``,
+        or past ``max_len`` (no rung holds it), the prompt goes in as it is,
+        without ``true_len``, and prefills eagerly."""
         prompt = torch.as_tensor(prompt, dtype=torch.int32).to(self.device)
         s = int(prompt.shape[0])
-        if not self._pad_prefill:
+        if not self._pad_prefill or s > self.max_len:
             return {"tokens": prompt[None, :]}
-        padded = PREFILL_BUCKET_MIN
-        while padded < s:
-            padded *= 2
-        padded = min(padded, self.max_len) if self.max_len >= s else s
+        padded = next(r for r in self.prefill_rungs() if r >= s)
         return {"tokens": F.pad(prompt, (0, padded - s))[None, :],
-                "true_len": s}
+                "true_len": self._true_len(s)}
 
     def _model_prefill(self, sr: ScheduledRequest) -> None:
         self.metrics.n_prefill_tokens += sr.prompt_len
@@ -291,6 +308,10 @@ class ServeEngine:
             t.instant("prefill", "serving", track="engine", rid=sr.rid,
                       prompt_len=sr.prompt_len, slot=sr.slot)
         t0 = time.perf_counter()
+        # a padded prompt's logits and cache1 may be a prefill graph's static
+        # outputs: the merge copies them and the argmax reads them, in stream
+        # order before the next replay overwrites them; nothing keeps them
+        # (a preempted request prefills again)
         logits, cache1 = self.prefill(self.params,
                                       self._prefill_batch(sr.req.prompt))
         if self.attn_mode == "paged":
