@@ -92,26 +92,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      moves them (at full depth the random-weight stack is chaotic enough
      that the yardstick itself moves most argmaxes: that reading is
      printed, not held);
-  7. train full-width, full-depth qwen2-0.5b (24 layers, bf16 compute over
-     f32 masters, B=8 x S=512, the synthetic pipeline from seed 0) through
-     the paper's loop: a ``make_fx`` profile of the grad step on fake
-     tensors (blocks, bytes, the liveness lower bound, the best-fit and
-     pool-allocator peaks), the closed-loop remat plan and the largest batch
-     that fits 80 GB without remat, then 5 AdamW steps each under no remat,
-     full remat and the planned policy from the same initial state, with
-     step ms and measured against planned peak memory.  It fails unless the
-     no-remat losses are finite, the loss on step 1's batch has fallen
-     after the 5 steps (the batch is evaluated again after training: each
-     step draws a fresh batch, and at full depth and these learning rates
-     the step losses of fresh batches move less than the batches differ,
-     so their trend is printed, not held), the other two policies' losses
-     match them within 1e-3 relative at every step, and their grad norms
-     at every step and parameters after the 5 steps within 1e-5 relative
-     (L2 over every leaf), no kernel launches,
-     and an f32 2-layer cut of the same width gives the same loss on the
-     card as on the CPU (1e-5 relative) and gradients no further from a
-     float64 CPU run than twice the CPU's own f32 gradients (relative L2
-     over every leaf), TF32 off;
+  7. train full-width qwen2-0.5b cut to 4 of its 24 layers
+     (``[train:qwen2]``, ``TRAIN_QWEN2_LAYERS``), then full-width,
+     full-depth granite-moe-1b-a400m (``[train:granite-moe]``: 24 layers,
+     32 experts top-8, the reference's ``ce + 0.01 aux``, capacity 1280 at
+     T = 4096), each with bf16 compute over f32 masters, B=8 x S=512, the
+     synthetic pipeline from seed 0, through the paper's loop: a
+     ``make_fx`` profile of the grad step on fake tensors (blocks, bytes,
+     the liveness lower bound, the best-fit and pool-allocator peaks), the
+     closed-loop remat plan and the largest batch that fits 80 GB without
+     remat (up to 256, granite-moe's up to 64), then 5 AdamW steps each
+     under no remat, full remat and the planned policy from the same
+     initial state, with step ms and measured against planned peak memory
+     (granite-moe: ce and aux apart at the first and last step, the
+     dispatch's drop share over the no-remat steps, and the step-1 batch's
+     loss after 5 no-remat steps at two larger learning rates, printed).
+     Each fails unless the no-remat losses are finite, the loss on step
+     1's batch has fallen after the 5 steps (the batch is evaluated again
+     after training: each step draws a fresh batch, and at these depths
+     and learning rates the step losses of fresh batches move less than
+     the batches differ, so their trend is printed, not held), the other
+     two policies' losses match them within 1e-3 relative at every step,
+     and their grad norms at every step and parameters after the 5 steps
+     within 1e-5 relative (L2 over every leaf), no kernel launches, and an
+     f32 2-layer cut of the same width gives the same loss on the card as
+     on the CPU (1e-5 relative) and gradients no further from a float64
+     CPU run than twice the CPU's own f32 gradients (relative L2 over
+     every leaf), TF32 off; granite-moe's cut must first route alike on
+     the card and the CPU (every layer's ``keep`` and ``dest``);
   8. print the load phases' launches (``[load] launches``), the kernels
      JSON line, the card line, and the result line.
 
@@ -173,6 +181,16 @@ CHURN_PROFILED_GEN = 8      # the churn trace's profile; live requests ask 32-48
 SHARED_REQUESTS, SHARED_GEN, SHARED_MAX_LEN, SHARED_TRAIN_STEPS = 32, 64, 2048, 2
 HYBRID_MAX_LEN = 4096       # room for the 2100-3000-token prompts
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
+# [train:qwen2] runs 4 of qwen2-0.5b's 24 layers, so that [train:granite-moe]
+# (~480 s, most of it the remat search on the host) fits beside it
+TRAIN_QWEN2_LAYERS = 4
+TRAIN_MOE_BATCH_HI = 64     # [train:granite-moe]'s largest batch tried without remat
+# AdamW peak learning rates.  granite-moe at full depth (random weights,
+# gradient norms ~1e13) raises its step-1 batch's loss after 5 steps at
+# qwen2's 3e-4 and at 1e-4, and lowers it at 3e-5 and 1e-5; the phase
+# prints the first two beside its own (TRAIN_LR_YARDSTICKS)
+TRAIN_LR = {"qwen2": 3e-4, "granite-moe": 3e-5}
+TRAIN_LR_YARDSTICKS = {"qwen2": (), "granite-moe": (3e-4, 1e-4)}
 # the reference's own plan_remat_policy / plan_with_remat parameters; a
 # smaller max_evict than the default 256 bounds the search's time (each
 # trial repacks ~4400 blocks by best fit)
@@ -859,25 +877,33 @@ def burst_trace(cfg, torch, n: int, seed: int):
 
 
 @contextlib.contextmanager
-def counting_drops(torch, moe_lib, drops: dict):
-    """``moe_lib.moe_groups`` wrapped (eager calls only: a capture would
-    count once) to add up per token count T: calls, assignments (T k) and
-    dropped assignments, the last on the device, read after the run."""
+def watching_dispatch(moe_lib, seen):
+    """``moe_lib.moe_groups`` wrapped to call ``seen(xg, dispatch)`` after
+    each call (eager calls only: a capture would be seen once)."""
     inner = moe_lib.moe_groups
 
-    def counted(xg, p, cfg, compute_dtype, need_aux=True):
+    def watched(xg, p, cfg, compute_dtype, need_aux=True):
         y, aux, disp = inner(xg, p, cfg, compute_dtype, need_aux)
+        seen(xg, disp)
+        return y, aux, disp
+    moe_lib.moe_groups = watched
+    try:
+        yield
+    finally:
+        moe_lib.moe_groups = inner
+
+
+def counting_drops(torch, moe_lib, drops: dict):
+    """``watching_dispatch`` adding up per token count T: calls, assignments
+    (T k) and dropped assignments, the last on the device, read after the
+    run."""
+    def count(xg, disp):
         row = drops.setdefault(xg.shape[0] * xg.shape[1], [0, 0, torch.zeros(
             (), dtype=torch.int64, device=xg.device)])
         row[0] += 1
         row[1] += disp.keep.numel()
         row[2] += (~disp.keep).sum()
-        return y, aux, disp
-    moe_lib.moe_groups = counted
-    try:
-        yield drops
-    finally:
-        moe_lib.moe_groups = inner
+    return watching_dispatch(moe_lib, count)
 
 
 def moe_b16_phase(torch, ops, moe_lib, Transformer, RunOpts, ServeEngine, card) -> dict:
@@ -1304,10 +1330,14 @@ def first_groups(cfg, params, groups: int):
             {**params, "layers": params["layers"][:n] + params["layers"][-tail:]})
 
 
-def train_phase(torch, ops, card: str) -> dict:
-    """The training path on full-width, full-depth qwen2-0.5b: profile,
-    plan, train under three policies, check.  Returns the kernel launches
-    counted during the phase (all must be 0)."""
+def train_phase(torch, ops, card: str, arch: str, short: str, *,
+                n_layers: int | None = None, batch_hi: int = 256) -> dict:
+    """The training path on full-width ``arch`` (at ``n_layers`` when given,
+    else full depth): profile, plan, train under three policies, check.  An
+    MoE model also prints ce and aux apart at the first and last step and
+    the no-remat run's drop share, and its f32 cut holds the routing on the
+    card against the CPU's.  Returns the kernel launches counted during the
+    phase (all must be 0)."""
     import statistics
 
     from torch.utils._pytree import tree_leaves, tree_map
@@ -1317,18 +1347,26 @@ def train_phase(torch, ops, card: str) -> dict:
     from repro_torch.core.planner import HBM_BYTES
     from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.models import RunOpts, Transformer
+    from repro_torch.models import moe as moe_lib
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime import train_lib
 
     free_cuda(torch)
     ops.reset_launches()
     t_phase = time.perf_counter()
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.with_overrides(n_layers=n_layers)
+    moe = bool(cfg.n_experts)
     opts = RunOpts(attention_impl="full", use_kernels=False)
     model = Transformer(cfg, opts)
     bsds = {"tokens": ((TRAIN_BATCH, TRAIN_SEQ + 1), torch.int32)}
     planner = MemoryPlanner()
-    tag = f"[train:qwen2] B={TRAIN_BATCH} S={TRAIN_SEQ} {cfg.n_layers} layers"
+    tag = f"[train:{short}] B={TRAIN_BATCH} S={TRAIN_SEQ} {cfg.n_layers} layers"
+    if moe:
+        cap = moe_lib.capacity(TRAIN_BATCH * TRAIN_SEQ, cfg.top_k, cfg.n_experts,
+                               cfg.capacity_factor)
+        tag += f" E={cfg.n_experts} k={cfg.top_k} C={cap}"
 
     # -- 1. profile: make_fx of grad(loss) on fake tensors --------------------------------
     t0 = time.perf_counter()
@@ -1354,9 +1392,9 @@ def train_phase(torch, ops, card: str) -> dict:
     t0 = time.perf_counter()
     max_b = planner.max_feasible_batch_planned(
         lambda b: train_lib.profile_step(model, {"tokens": ((b, TRAIN_SEQ + 1), torch.int32)}),
-        HBM_BYTES, hi=256)
+        HBM_BYTES, hi=batch_hi)
     print(f"{tag} max_feasible_batch_planned (no remat, {HBM_BYTES / 1e9:.0f}GB, "
-          f"batches 1-256) = {max_b} in {time.perf_counter() - t0:.1f}s", flush=True)
+          f"batches 1-{batch_hi}) = {max_b} in {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     full_peak = planner.plan(train_lib.profile_step(model, bsds, True)).peak
     print(f"{tag} full remat profile: bestfit_peak={full_peak / 1e9:.3f}GB "
@@ -1364,46 +1402,75 @@ def train_phase(torch, ops, card: str) -> dict:
     planned_peak = {"none": rep.plan.peak, "full": full_peak, "planned": ev.peak}
 
     # -- 3. train: 5 steps per policy from the same initial state and batches -------------
-    acfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    acfg = AdamWConfig(lr=TRAIN_LR[short], warmup_steps=2, total_steps=TRAIN_STEPS)
     pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                         global_batch=TRAIN_BATCH, seed=0))
     batches = [{"tokens": torch.from_numpy(pipe.batch_at(i)["tokens"]).cuda()}
                for i in range(TRAIN_STEPS)]
     losses, gnorms, finals = {}, {}, {}
+    drops: dict = {}
     for name, remat in (("none", False), ("full", True), ("planned", policy)):
         free_cuda(torch)
         state = train_lib.init_state(model, torch.Generator(device="cuda").manual_seed(SEED),
                                      acfg)
         step, _ = train_lib.build_train_step(model, None, acfg,
                                              train_lib.TrainOpts(remat=remat))
-        ls, gn, ms, mem = [], [], [], []
-        for b in batches:
-            torch.cuda.synchronize()
-            before = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            state, m = step(state, b)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t0))
-            mem.append(torch.cuda.max_memory_allocated() - before)
-            ls.append(float(m["loss"]))
-            gn.append(float(m["grad_norm"]))
+        ls, gn, ms, mem, parts = [], [], [], [], []
+        # the no-remat run counts the dispatch's drops (a recompute would count twice)
+        counting = (counting_drops(torch, moe_lib, drops) if moe and name == "none"
+                    else contextlib.nullcontext())
+        with counting:
+            for b in batches:
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                mem.append(torch.cuda.max_memory_allocated() - before)
+                ls.append(float(m["loss"]))
+                gn.append(float(m["grad_norm"]))
+                parts.append((float(m["ce"]), float(m["aux"])))
         losses[name], gnorms[name] = ls, gn
         finals[name] = tree_leaves(state["params"])
         if name == "none":
             with torch.no_grad():
                 held = float(model.loss_fn(state["params"], batches[0], remat=False)[0])
-            print(f"{tag} remat=none step-1 batch loss {ls[0]:.5f} before training, "
-                  f"{held:.5f} after {TRAIN_STEPS} steps; step losses fall from step 1 "
-                  f"to {TRAIN_STEPS}: {ls[-1] < ls[0]}", flush=True)
+            print(f"{tag} remat=none lr {acfg.lr:g}: step-1 batch loss {ls[0]:.5f} before "
+                  f"training, {held:.5f} after {TRAIN_STEPS} steps; step losses fall from "
+                  f"step 1 to {TRAIN_STEPS}: {ls[-1] < ls[0]}", flush=True)
         peak = max(mem)
-        print(f"{tag} remat={name} losses={[round(x, 5) for x in ls]} "
+        split = (f"ce/aux step 1 {parts[0][0]:.5f}/{parts[0][1]:.5f} step {TRAIN_STEPS} "
+                 f"{parts[-1][0]:.5f}/{parts[-1][1]:.5f} " if moe else "")
+        print(f"{tag} remat={name} losses={[round(x, 5) for x in ls]} {split}"
               f"grad_norms={[round(x, 6) for x in gn]} "
               f"step_ms={[round(x, 1) for x in ms]} median_step_ms={statistics.median(ms):.1f} "
               f"measured_peak={peak / 1e9:.3f}GB planned_peak={planned_peak[name] / 1e9:.3f}GB "
               f"measured/planned={peak / planned_peak[name]:.3f} | {card}", flush=True)
         del state, step
+    for lr in TRAIN_LR_YARDSTICKS[short]:
+        free_cuda(torch)
+        other = AdamWConfig(lr=lr, warmup_steps=2, total_steps=TRAIN_STEPS)
+        state = train_lib.init_state(model, torch.Generator(device="cuda").manual_seed(SEED),
+                                     other)
+        step, _ = train_lib.build_train_step(model, None, other,
+                                             train_lib.TrainOpts(remat=False))
+        for b in batches:
+            state, _ = step(state, b)
+        with torch.no_grad():
+            after = float(model.loss_fn(state["params"], batches[0], remat=False)[0])
+        print(f"{tag} remat=none lr {lr:g} (printed, not held): step-1 batch loss "
+              f"{losses['none'][0]:.5f} before training, {after:.5f} after {TRAIN_STEPS} "
+              "steps", flush=True)
+        del state, step
     launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    if moe:
+        (calls, n, dropped), = drops.values()
+        dropped = int(dropped.item())
+        print(f"{tag} remat=none dispatch drops at T={TRAIN_BATCH * TRAIN_SEQ}, C={cap}: "
+              f"{dropped}/{n} assignments ({dropped / n:.4f}) over {calls} calls "
+              f"({TRAIN_STEPS} steps x {cfg.n_layers} layers) | {card}", flush=True)
 
     def state_err(name):
         """(max relative grad-norm difference over the steps, relative L2
@@ -1447,26 +1514,46 @@ def train_phase(torch, ops, card: str) -> dict:
     # the f32 cut on the card and on the CPU, each held to a float64 CPU run of
     # the same step: f32 rounding alone moves this random-weight step's
     # gradients by ~1e-3 (scores of the reference's init are large), so the
-    # card must be at most twice as far from float64 as the CPU is
-    cut = cfg.with_overrides(n_layers=2, dtype="float32")
+    # card must be at most twice as far from float64 as the CPU is.  An MoE
+    # cut must route alike on the card and the CPU first (keep and dest of
+    # every layer), or the two compute different functions.
+    cut = get_config(arch).with_overrides(n_layers=2, dtype="float32")
     cut_tokens = torch.from_numpy(pipe.batch_at(0)["tokens"][:2, :65].copy())
     init = Transformer(cut, opts, device="cpu").init(torch.Generator().manual_seed(SEED + 11))
-    out = {}
+    out, routing = {}, {}
     for label, dev, dt in (("float64", "cpu", torch.float64), ("cpu", "cpu", torch.float32),
                            ("card", "cuda", torch.float32)):
         m = Transformer(cut.with_overrides(dtype=str(dt).removeprefix("torch.")), opts,
                         device=dev)
         params = tree_map(lambda t: t.to(dev, dt).requires_grad_(), init)
-        loss, _ = m.loss_fn(params, {"tokens": cut_tokens.to(dev)}, remat=False)
+        seen = routing.setdefault(label, [])
+        with watching_dispatch(moe_lib, lambda xg, d: seen.append((d.keep.cpu(),
+                                                                   d.dest.cpu()))):
+            loss, _ = m.loss_fn(params, {"tokens": cut_tokens.to(dev)}, remat=False)
         grads = torch.autograd.grad(loss, tree_leaves(params))
         out[label] = (float(loss.detach()),
                       torch.cat([g.detach().double().cpu().flatten() for g in grads]))
+
+    def same_routes(a, b):
+        return len(routing[a]) == len(routing[b]) and all(
+            torch.equal(ka, kb) and torch.equal(da, db)
+            for (ka, da), (kb, db) in zip(routing[a], routing[b]))
+    if moe:
+        kept = [int(k.sum()) for k, _ in routing["card"]]
+        print(f"[check] {arch} f32 2-layer cut routing (2 x 64 tokens, C="
+              f"{moe_lib.capacity(128, cut.top_k, cut.n_experts, cut.capacity_factor)}): "
+              f"keep and dest card = CPU: {same_routes('card', 'cpu')}, float64 = CPU: "
+              f"{same_routes('float64', 'cpu')}; kept per layer {kept} of "
+              f"{routing['card'][0][0].numel()}", flush=True)
+        if not same_routes("card", "cpu"):
+            raise AssertionError(f"train: the f32 cut of {arch} routes differently on the "
+                                 "card and on the CPU (keep or dest differ)")
 
     def grad_err(a, b):
         return float((out[a][1] - out[b][1]).norm() / out[b][1].norm())
     loss_err = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     err_card, err_cpu = grad_err("card", "float64"), grad_err("cpu", "float64")
-    print(f"[check] {ARCH} f32 2-layer full-width train step (2 x 64 tokens, TF32 off): "
+    print(f"[check] {arch} f32 2-layer full-width train step (2 x 64 tokens, TF32 off): "
           f"loss card {out['card'][0]:.6f} CPU {out['cpu'][0]:.6f} rel_err={loss_err:.3g} "
           f"(tol {CUT_LOSS_TOL}); gradients' rel L2 distance from float64: card "
           f"{err_card:.3g}, CPU {err_cpu:.3g} (tol {CUT_GRAD_YARDSTICK}x the CPU's), card "
@@ -1765,8 +1852,12 @@ def main() -> int:
                  max_len=HYBRID_MAX_LEN, long_rids=(2,))
 
     stamp(t_start, "phase 6")
-    # -- 7. the training path: full-width, full-depth qwen2-0.5b -------------------------
-    train = train_phase(torch, ops, card)
+    # -- 7. the training paths: qwen2-0.5b cut to 4 layers, granite-moe at full depth ----
+    train_q = train_phase(torch, ops, card, ARCH, "qwen2", n_layers=TRAIN_QWEN2_LAYERS)
+    stamp(t_start, "phase 7 qwen2")
+    train_m = train_phase(torch, ops, card, MOE_ARCHS[0][0], MOE_ARCHS[0][1],
+                          batch_hi=TRAIN_MOE_BATCH_HI)
+    train = {k: train_q[k] + train_m[k] for k in train_q}
     stamp(t_start, "phase 7")
     # -- 8. records ------------------------------------------------------------------------
     pk = paged[("bfloat16", MAX_BATCH)]

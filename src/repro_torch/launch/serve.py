@@ -27,7 +27,8 @@ Runs on the card; ``--device cpu`` runs the plain PyTorch versions instead,
 eagerly.
 
 ``--share-hbm GB``: one budget, two workloads — a fine-tune step of the same
-model is registered as the training tenant of a ``SharedArena``, the page
+model (a dense or an MoE decoder; the MoE step's loss carries its aux term)
+is registered as the training tenant of a ``SharedArena``, the page
 pool becomes the serving tenant, and admission is gated against the serving
 share of the jointly planned split.  The loop then executes the joint plan:
 real fine-tune steps (SGD on a private replica of the weights, through the

@@ -13,6 +13,8 @@ Examples:
       --preset tiny --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --preset 100m --steps 300 \\
       --ckpt-dir ckpt --fail-at 150 --resume
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
+      --preset 100m --steps 50 --remat planned
 """
 from __future__ import annotations
 

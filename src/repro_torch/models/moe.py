@@ -23,8 +23,16 @@ values:
     reference adds them (ascending sorted position, so ascending expert id)
     and summed one after another in the compute dtype.
 
+Under autograd (training, ``need_aux=True``) the gradients are the
+reference's: the router's reaches it through the renormalised top-k weights
+and, for the aux term, through ``mean(probs)`` only (the expert counts are a
+scatter of ones and carry none); a dropped assignment is copied to the
+spare row, which is cut off, and its combine term is masked, so neither its
+token nor its weight gets any gradient, as the reference's ``keep`` mask
+gives none.
+
 The hierarchical dispatch (``grouped=True``) gives each data-parallel group
-its own capacity; the port has no mesh yet (ROADMAP queue 1, item 10), so
+its own capacity; the port has no mesh yet (ROADMAP queue 1: sharding), so
 ``_n_data_groups`` is 1 and ``moe_mlp(grouped=True)`` runs ungrouped, as the
 reference does without a mesh.
 """

@@ -5,8 +5,9 @@ the MoE decoder, ``("mamba2",)``, the attention-free SSD stack, and
 and local attention).
 
 Entry points, with the reference's contracts:
-  * ``loss_fn(params, batch)``        — training forward (+ CE loss) over f32
-                                        master parameters (dense pattern)
+  * ``loss_fn(params, batch)``        — training forward (+ CE loss, + 0.01
+                                        x the MoE aux term) over f32 master
+                                        parameters (the attention pattern)
   * ``prefill(params, batch)``        — inference forward, builds the cache
   * ``decode_step(params, cache, t)`` — one-token step over the contiguous
                                         cache or, when the cache carries
@@ -341,14 +342,21 @@ class Transformer:
 
     # ---- training -----------------------------------------------------------------
     def _train_layer(self, x, p, cos, sin):
-        """One dense block over f32 master leaves, cast to the compute dtype
-        here, inside the layer's checkpointed region: the casts are saved
-        or recomputed with the layer, and gradients reach the f32 masters
-        through them, as through the reference's per-use ``cdt``."""
+        """One attention block over f32 master leaves, cast to the compute
+        dtype here, inside the layer's checkpointed region: the casts are
+        saved or recomputed with the layer, and gradients reach the f32
+        masters through them, as through the reference's per-use ``cdt``.
+        Returns ``(x, aux)``: the MoE FFN's Switch aux term with
+        ``n_experts``, else None (the reference's ``co.get("aux", 0.0)``)."""
         p = self.load(p)
         q, k, v = self._attn_qkv(x, p, (cos, sin))
         ctx = attn.attend(q, k, v, impl=self.opts.attention_impl, causal=True)
-        return self._finish_block(x, ctx, p)
+        if not self.cfg.n_experts:
+            return self._finish_block(x, ctx, p), None
+        x = x + attn.out_project(ctx, p["attn"], self.cfg)
+        y, aux = moe_lib.moe_mlp(self._norm(x, p["mlp_norm"]), p["mlp"], self.cfg,
+                                 self.compute_dtype, need_aux=True)
+        return x + y, aux
 
     def _train_logits(self, params, x):
         table = params.get("lm_head", params["embed"])
@@ -405,24 +413,20 @@ class Transformer:
     def loss_fn(self, params, batch, *, remat=True):
         """batch: {"tokens": (B, S+1) int32[, "mask": (B, S+1)]} over f32
         master ``params`` (``init`` or ``params_from_jax``, not ``load``'s
-        cast copies) -> (loss, {"ce", "aux"}).
+        cast copies) -> (loss, {"ce", "aux"}), with ``loss = ce + 0.01 *
+        aux`` and ``aux`` the layers' MoE aux terms summed in layer order
+        (zero without experts), as the reference's ``_run_stack`` carries it.
 
         ``remat`` is the legacy bool or a ``repro_torch.remat.RematPolicy``:
         each layer (the reference's pattern group) runs under
         ``RematPolicy.coerce(remat).wrap``.  No kernel has a backward, in
         either package, so RunOpts naming a kernel path raise ``ValueError``;
-        the mamba2 and hybrid patterns and MoE models are not ported to
-        training yet."""
+        the mamba2 and hybrid patterns are not ported to training yet."""
         from ..remat.policy import RematPolicy
         if self.kind != "attn":
             raise NotImplementedError(
                 f"loss_fn: training the {self.kind} pattern is not ported yet "
-                "(ROADMAP queue 1, item 8)")
-        if self.cfg.n_experts:
-            raise NotImplementedError(
-                "loss_fn: training an MoE model (the reference's ce + 0.01 * aux "
-                "over the layers' aux terms) is not ported yet (ROADMAP queue 1, "
-                "item 9)")
+                "(ROADMAP queue 1: training the mamba2 and hybrid patterns)")
         if self.opts.attention_impl == "kernel" or self.opts.use_kernels:
             raise ValueError("loss_fn: the CUDA kernels have no backward; train with "
                              "RunOpts(attention_impl='full', use_kernels=False)")
@@ -435,11 +439,15 @@ class Transformer:
         x = embed_lookup(params["embed"], inputs).to(cdt)
         cos, sin = self._rope(torch.arange(inputs.shape[1], device=tokens.device)[None, :])
         layer = RematPolicy.coerce(remat).wrap(self._train_layer)
+        aux = None              # the reference's 0 + aux_0 + aux_1 + ..., less the 0
         for p in params["layers"]:
-            x = layer(x, p, cos, sin)
+            x, layer_aux = layer(x, p, cos, sin)
+            if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
         x = self._norm(x, params["final_norm"])
         ce = self._loss_from_h(params, x, targets, mask)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ---- serving: caches -----------------------------------------------------------

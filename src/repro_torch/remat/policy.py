@@ -44,6 +44,20 @@ def _aliases(op) -> bool:
     return any(r.alias_info is not None for r in op._schema.returns)
 
 
+# Ops that make a buffer from nothing but a shape and a value.  Remaking one
+# costs a fill, and the buffer may be written in place afterwards (the MoE
+# dispatch's ``index_put_`` into ``new_zeros``, its expert counts'
+# ``scatter_add_`` into ``zeros_like``): a selective checkpoint refuses to
+# hand back a saved output that was mutated since, so fills are never saved.
+_FILLS = frozenset({"zeros", "zeros_like", "new_zeros", "ones", "ones_like",
+                    "new_ones", "full", "full_like", "new_full", "empty",
+                    "empty_like", "new_empty", "arange", "scalar_tensor"})
+
+
+def _fills(op) -> bool:
+    return op._schema.name.split("::")[-1] in _FILLS
+
+
 def pattern_group(tag: str) -> str:
     """Pattern group of a profiled block — the unit policies can be scoped to.
 
@@ -150,13 +164,14 @@ class RematPolicy:
         callback: outputs of the evicted ops are recomputed, every other
         op's output is saved.  Views and in-place ops are always replayed:
         they make no buffer of their own (the profile gives them no block),
-        and a saved view would hold its base alive."""
+        and a saved view would hold its base alive.  Fills (``_FILLS``) are
+        always remade too."""
         if self.mode != "policy":
             return None
         evict = self.recompute_prims | self.offload_prims
 
         def policy_fn(ctx, op, *args, **kwargs):
-            if str(op) in evict or _aliases(op):
+            if str(op) in evict or _aliases(op) or _fills(op):
                 return CheckpointPolicy.PREFER_RECOMPUTE
             return CheckpointPolicy.MUST_SAVE
 

@@ -34,8 +34,8 @@ DTYPE_ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
 def _refuse_mesh(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            f"{what}(mesh=...): sharding is not ported yet (ROADMAP queue 1, "
-            "item 10: runtime/{mesh_ctx,sharding_rules})")
+            f"{what}(mesh=...): sharding is not ported yet (ROADMAP queue 1: "
+            "sharding, runtime/{mesh_ctx,sharding_rules})")
 
 
 class PrefillStep:

@@ -4,7 +4,7 @@
 ``build_train_step`` returns a step with optional gradient accumulation over
 microbatches and optional int8 error-feedback gradient compression.  The
 reference jits the step and shards it over a mesh; the port runs it eagerly
-on one device (a mesh raises: sharding is ROADMAP queue 1, item 10), and
+on one device (a mesh raises: see ROADMAP queue 1, sharding), and
 updates the state in place, as the reference's donated state lets XLA do.
 
 ``plan_remat_policy`` is the paper's training loop: profile the grad step
@@ -216,10 +216,10 @@ def build_train_step(model: Transformer, mesh, adamw_cfg: adamw.AdamWConfig,
                      opts: TrainOpts = TrainOpts()):
     """Returns ``(step, None)``; ``step(state, batch) -> (state, metrics)``
     updates ``state`` in place.  ``mesh`` must be None: the port runs on one
-    card (sharding is ROADMAP queue 1, item 10)."""
+    card (ROADMAP queue 1: sharding)."""
     if mesh is not None:
         raise NotImplementedError("build_train_step: a mesh (sharded training) is "
-                                  "not ported yet (ROADMAP queue 1, item 10)")
+                                  "not ported yet (ROADMAP queue 1: sharding)")
 
     def grads_of(params, leaves, mb):
         loss, metrics = model.loss_fn(params, mb, remat=opts.remat)

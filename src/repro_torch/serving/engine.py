@@ -97,7 +97,7 @@ class ServeEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "ServeEngine(mesh=...): sharding is not ported yet (ROADMAP "
-                "queue 1, item 10)")
+                "queue 1: sharding)")
         self.model = model
         self.params = params
         self.device = model.device

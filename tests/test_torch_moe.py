@@ -5,10 +5,10 @@ dispatch) and granite-moe-1b-a400m (E = 32, k = 8, tied, G = 2) and
 qwen3-moe-30b-a3b (E = 128, k = 8, untied, G = 8, attention width 128
 against d_model 64) at the small layouts of ``torch_port_utils.MOE_SMALL``:
 prefill, forward, gather decode, the engine with the bucketed runner and
-with the slab step, the bridge, load dtypes, the full configs' schema, the
-training refusal and both CLIs.  The reference runs its Pallas flash kernel
-in interpret mode (tests/conftest.py), the port its wrappers' plain
-versions.
+with the slab step, the bridge, load dtypes, the full configs' schema and
+both CLIs (training is in ``test_torch_moe_train.py``).  The reference
+runs its Pallas flash kernel in interpret mode (tests/conftest.py), the
+port its wrappers' plain versions.
 
 Tolerances: f32 MoE outputs and logits max-abs 1e-5 (|y| ~1, |logits| ~1;
 observed ~1e-7 to 2e-6 and ~1e-6: the router's and the experts' products
@@ -17,9 +17,6 @@ spread router and up to E/k, ~11 observed, for a skewed one, where 1e-6 is
 one f32 ulp; observed ~1e-7 relative); ``keep``, ``dest``, the dispatch
 buffer, token streams and the engine's decisions exact.
 """
-import contextlib
-import io
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -347,14 +344,6 @@ def test_full_configs_are_admitted_with_the_reference_schema(arch):
                  "qwen3-moe-30b-a3b": 30_532_634_624}[arch]
 
 
-def test_loss_fn_refuses_moe():
-    _, tcfg = small_cfgs(arch="granite-moe-1b-a400m")
-    tm = Transformer(tcfg, RunOpts(attention_impl="full", use_kernels=False), device="cpu")
-    params = tm.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tm.loss_fn(params, {"tokens": torch.zeros((2, 9), dtype=torch.int32)})
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_cli_runs_each_config_on_the_cpu(arch, capsys):
     from repro_torch.launch import serve
@@ -374,11 +363,3 @@ def test_profile_cli_runs_a_moe_decode_step(capsys):
                         "--max-len", "32", "--steps", "2"])
     assert ("[profile] granite-moe-1b-a400m-tiny batch=2 prompt=8 attn=gather"
             in capsys.readouterr().out)
-
-
-def test_train_cli_refuses_moe():
-    from repro_torch.launch import train
-    with contextlib.redirect_stdout(io.StringIO()):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            train.main(["--arch", "granite-moe-1b-a400m", "--device", "cpu",
-                        "--preset", "tiny", "--steps", "1"])
