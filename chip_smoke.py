@@ -14,7 +14,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      B=16 and 32, the ``[load:qwen2]`` buckets; both at head dim 128 at the
      three GQA layouts of mistral-nemo-12b, starcoder2-15b and chameleon-34b:
      G = 4, 12 and 8 query heads per KV head; flash at the MoE decoders'
-     layouts, G = 2 at D=64 and G = 8 at D=128), and time kernel, plain
+     layouts, G = 2 at D=64 and G = 8 at D=128; flash at whisper-small's,
+     12 heads over 12 at D=64: non-causal over 1500 frames at B=1 and 8,
+     causal at B=8 over 4 and 448 tokens), and time kernel, plain
      version, the library call where one exists (SDPA, a yardstick the port
      never calls) and the bound.  Attention: bf16 max-abs 2e-2, the reference's own
      tolerance (bf16 flash runs on the tensor cores and rounds P to bf16 for
@@ -74,7 +76,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      max_batch 16 on a burst of 16 requests, so that bucket 16 decodes 16
      rows against an expert capacity of 8, with the eager run's drop share
      printed, graphs against eager, and its f32 2-layer cut at max_batch 16
-     on the card and the CPU with identical token streams;
+     on the card and the CPU with identical token streams; then
+     ``[serve:whisper]`` (``whisper_phase``): whisper-small, the
+     encoder-decoder, at full width and depth (12 + 12 layers) serving 8
+     requests through ``runtime.serve_lib``'s prefill over tokens and
+     seeded frames (flash non-causal in the encoder, causal in the decoder:
+     24 launches a prefill) and its decode step eagerly and graphed (equal
+     streams, one capture), with the cross cache's measured bytes beside
+     the reference's accounting, an f32 2+2-layer cut on the card and the
+     CPU (equal streams, prefill logits within 1e-4) and the full-depth
+     bf16 forward against the plain version;
   5. serve full-width mamba2-130m (24 layers, bf16, seeded random weights)
      in gather mode with the SSD kernel in every prefill, then
      ``[load:mamba2]``, the diurnal load cell on the same weights, then
@@ -173,6 +184,13 @@ MOE_AUX_TOL = 1e-6          # [moe]: f32 aux, card against CPU, of max(1, |aux|)
 # [serve:granite-moe:b16]: a burst of 16 short prompts at max_batch 16, so
 # that 9 or more requests decode together and bucket 16 runs with T > C
 MOE_B16_BATCH, MOE_B16_REQUESTS, MOE_B16_MIN_LIVE = 16, 16, 9
+# [serve:whisper]: whisper-small serving 8 requests at once, each a prompt of
+# 4 seeded ids (the length of whisper's start-of-transcript sequence) over
+# its own seeded frames, in its 448-token text context, 224 greedy tokens
+# each (whisper's sample length); the f32 cut generates fewer
+WHISPER_ARCH = "whisper-small"
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_MAX_LEN, WHISPER_GEN = 8, 4, 448, 224
+WHISPER_CUT_BATCH, WHISPER_CUT_GEN = 4, 32
 MAX_BATCH, MAX_LEN, GEN_LEN, N_REQUESTS, SEED = 8, 1024, 32, 12, 0
 CHURN_PROFILED_GEN = 8      # the churn trace's profile; live requests ask 32-48
 # [serve:shared]: 32 requests of 256-1024 prompt tokens and 64 generated ones
@@ -341,39 +359,46 @@ def paged_cases(torch, ops, ref, pt: int, kv: int, group: int, hd: int, layers: 
     return out, worst
 
 
-def attention_pairs(sq: int, sk: int, q_off: int, window: int) -> int:
-    """Valid (query, key) pairs of a causal prefill with an optional window."""
+def attention_pairs(sq: int, sk: int, q_off: int, window: int, causal: bool = True) -> int:
+    """Valid (query, key) pairs of a prefill: causal with an optional
+    window, or every one of the Sq x Sk (non-causal, the encoder's)."""
+    if not causal:
+        return sq * sk
     qp = range(q_off, q_off + sq)
     return sum(min(p + 1, sk) - (max(0, p - window + 1) if window else 0) for p in qp)
 
 
 def flash_cases(torch, ops, ref, h: int, kv: int, d: int, cases, seed: int,
                 iters: int = 20):
-    """Flash prefill (B=1) at a model's head layout against its plain
-    version, timed beside SDPA: ``cases`` are (dtype, Sq, window, q_offset).
-    SDPA gets the causal flag, or a boolean mask where a window or an offset
-    needs one."""
+    """Flash prefill at a model's head layout against its plain version,
+    timed beside SDPA: ``cases`` are (dtype, Sq, window, q_offset[, causal,
+    B]), causal at B=1 unless the case says otherwise, and each case is its
+    own key of the result.  SDPA gets the causal flag, no mask when
+    non-causal, or a boolean mask where a window or an offset needs one."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(seed)
     out, worst = {}, {}
-    for dtype_name, sq, window, q_off in cases:
+    for case in cases:
+        dtype_name, sq, window, q_off, causal, b = (*case, True, 1)[:6]
         dt = getattr(torch, dtype_name)
         sk = sq + q_off
-        q = torch.randn(1, sq, kv, h // kv, d, generator=g, device="cuda").to(dt)
-        k = torch.randn(1, sk, kv, d, generator=g, device="cuda").to(dt)
-        v = torch.randn(1, sk, kv, d, generator=g, device="cuda").to(dt)
-        kw = dict(causal=True, window=window, q_offset=q_off)
-        qh, kh, vh = q.reshape(1, sq, h, d).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        q = torch.randn(b, sq, kv, h // kv, d, generator=g, device="cuda").to(dt)
+        k = torch.randn(b, sk, kv, d, generator=g, device="cuda").to(dt)
+        v = torch.randn(b, sk, kv, d, generator=g, device="cuda").to(dt)
+        kw = dict(causal=causal, window=window, q_offset=q_off)
+        qh, kh, vh = q.reshape(b, sq, h, d).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         got = ops.flash_attention(q, k, v, **kw)
         want = ops.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        check(f"flash D={d} Sq={sq} window={window} q_offset={q_off} {dtype_name}",
-              err, dtype_name)
+        check(f"flash D={d} H={h} KV={kv} B={b} Sq={sq} causal={causal} window={window} "
+              f"q_offset={q_off} {dtype_name}", err, dtype_name)
         worst[dtype_name] = max(worst.get(dtype_name, 0.0), err)
         k_ms, k_call = time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), iters=iters)
         p_ms, _ = time_ms(torch, lambda: ref.ref_attention_bhsd(qh, kh, vh, **kw), iters=5)
-        if window or q_off:
+        if not causal:
+            sdpa = {}
+        elif window or q_off:
             qp = torch.arange(sq, device="cuda")[:, None] + q_off
             kp = torch.arange(sk, device="cuda")[None, :]
             mask = (kp <= qp) & ((kp > qp - window) if window else True)
@@ -383,12 +408,12 @@ def flash_cases(torch, ops, ref, h: int, kv: int, d: int, cases, seed: int,
         s_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kh, vh, enable_gqa=True, **sdpa))
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        bms, by = bound_ms(n_bytes, 4 * d * h * attention_pairs(sq, sk, q_off, window),
-                           dtype_name)
-        out[(dtype_name, sq, window, q_off)] = dict(
+        pairs = b * attention_pairs(sq, sk, q_off, window, causal)
+        bms, by = bound_ms(n_bytes, 4 * d * h * pairs, dtype_name)
+        out[case] = dict(
             err=err, ms=k_ms, plain_ms=p_ms, sdpa_ms=s_ms, bound_ms=bms, bound_by=by)
-        print(f"[flash] D={d} H={h} KV={kv} Sq={sq} Sk={sk} window={window} "
-              f"q_offset={q_off} {dtype_name} max_abs_err={err:.3g} "
+        print(f"[flash] D={d} H={h} KV={kv} B={b} Sq={sq} Sk={sk} causal={causal} "
+              f"window={window} q_offset={q_off} {dtype_name} max_abs_err={err:.3g} "
               f"kernel_ms={k_ms:.4f} wrapper_call_ms={k_call:.4f} "
               f"plain_ms={p_ms:.4f} sdpa_ms={s_ms:.4f} bound_ms={bms:.5f} ({by})",
               flush=True)
@@ -797,6 +822,193 @@ def dense_phase(torch, ops, Transformer, RunOpts, ServeEngine, arch: str, tag: s
                  else "gather+kernel vs gather+full", on_cpu=on_cpu)
     free_cuda(torch)
     return run
+
+
+def greedy(torch, prefill, decode, params, batch, gen: int, cache=None) -> dict:
+    """``gen`` greedy tokens per row through the serving steps: the
+    prefill's argmax, then ``gen - 1`` decode steps.  With ``cache`` the
+    prefill's cache is copied into it and decode runs on it, so a graph
+    captured on that cache replays.  Returns the (B, gen) streams on the
+    host, the prefill logits, the cache, and the host ms of the
+    prefill and of a decode step (synchronized around each)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, fresh = prefill(params, batch)
+    if cache is None:
+        cache = fresh
+    else:
+        for name, leaf in cache.items():
+            leaf.copy_(fresh[name])
+    del fresh
+    first = logits.clone()
+    tok = logits.argmax(-1).int()
+    out = [tok]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, cache = decode(params, cache, tok)
+        tok = logits.argmax(-1).int()
+        out.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(streams=torch.stack(out, 1).cpu(), logits=first, cache=cache,
+                prefill_ms=1e3 * (t1 - t0), step_ms=1e3 * (t2 - t1) / max(1, gen - 1),
+                wall_s=t2 - t0)
+
+
+def whisper_phase(torch, ops, Transformer, RunOpts, card: str) -> dict:
+    """``[serve:whisper]``: whisper-small at full width and depth (12
+    encoder and 12 decoder layers, seeded random bf16 weights) serving
+    ``WHISPER_BATCH`` requests through ``runtime.serve_lib``:
+    ``build_prefill_step`` over {"tokens", "frames"} (eager: the encoder
+    runs the flash kernel non-causally over the 1500 frames, the decoder
+    causally over the prompt, 24 launches a prefill) and
+    ``build_decode_step`` run eagerly and then graphed (one capture, on a
+    warmup cache, none after it), each run with every launch counter set to
+    0 just before and read just after.  Fails unless both runs launch
+    flash 24 times and nothing else, and their streams are equal.  Prints
+    the weights, the measured cross (``xk``/``xv``) and self cache bytes
+    beside the reference's accounting (``state_bytes``,
+    ``cache_bytes_per_token`` x max_len, which leave the cross cache out),
+    prefill ms at B=1 and B=8, decode step ms graphed and eager, tokens/s
+    and peak memory.  Then the bf16 ``forward`` with frames through the
+    kernel against the plain version, held to 2x the ``full`` attention's
+    distance from it at 1 encoder and 1 decoder layer of the served
+    weights, and read at full depth, where the yardstick flips every argmax
+    (the reference's init makes q and k ~8 an element, so the random
+    stack's attention is near one-hot and rounding picks other frames).
+    Then an f32 cut of 2 encoder and 2 decoder layers at full width serves
+    the same way on the card (graphed and eager) and on the CPU, with equal
+    streams, and its prefill logits through the kernel on the card are
+    held to 2x the card's plain path's distance from a float64 CPU run
+    (the card's f32 GEMMs alone move them ~3x further than the CPU's
+    do).  Returns the graphed run's launches."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import serve_lib
+    cfg = get_config(WHISPER_ARCH)
+    b, gen, max_len = WHISPER_BATCH, WHISPER_GEN, WHISPER_MAX_LEN
+    g = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    frames = torch.randn(b, cfg.encoder_seq, cfg.d_model, generator=g, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (b, WHISPER_PROMPT), generator=g,
+                           device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens, "frames": frames}
+    model, params = load_model(torch, Transformer, cfg, RunOpts(attention_impl="kernel"),
+                               SEED, "whisper")
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    prefill = serve_lib.build_prefill_step(model, None, max_len=max_len)
+    expected = {"flash_attention": cfg.n_layers + cfg.encoder_layers,
+                "paged_attention": 0, "ssd_scan": 0, "rglru_scan": 0}
+    runs = {}
+    for name, graphs in (("eager", False), ("graphs", None)):
+        hooks = []
+        decode = serve_lib.build_decode_step(model, None, graphs=graphs,
+                                             trace_hook=hooks.append)
+        warm = greedy(torch, prefill, decode, params, batch, 3)
+        warm_hooks = len(hooks)
+        free_cuda(torch)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        run = greedy(torch, prefill, decode, params, batch, gen, warm["cache"])
+        launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+        run.update(launches=launches, peak=torch.cuda.max_memory_allocated(),
+                   hooks=(warm_hooks, len(hooks)))
+        runs[name] = run
+        print(f"[serve:whisper:{name}] B={b} prompt={WHISPER_PROMPT} gen={gen} "
+              f"max_len={max_len} prefill_ms={run['prefill_ms']:.2f} "
+              f"step_ms={run['step_ms']:.3f} tok/s={b * gen / run['wall_s']:.1f} "
+              f"launches={launches} decode captures/traces {warm_hooks} at warmup, "
+              f"{len(hooks)} after the run; peak_mem={run['peak'] / 1e9:.3f}GB | {card}",
+              flush=True)
+        if launches != expected:
+            raise AssertionError(f"whisper {name}: launches {launches}, expected {expected}")
+        if len(hooks) != warm_hooks or warm_hooks != 1:
+            raise AssertionError(f"whisper {name}: {warm_hooks} decode traces at warmup, "
+                                 f"{len(hooks) - warm_hooks} more in the run")
+        if not torch.isfinite(run["logits"]).all():
+            raise AssertionError(f"whisper {name}: prefill logits not finite")
+        del warm, decode
+    cache = runs["graphs"]["cache"]
+    leaf_bytes = {k: t.numel() * t.element_size() for k, t in cache.items()}
+    cross = (leaf_bytes["xk"] + leaf_bytes["xv"]) // b
+    self_kv = (leaf_bytes["k"] + leaf_bytes["v"]) // b
+    acct = serve_lib.cache_bytes_per_token(cfg) * max_len + serve_lib.state_bytes(cfg)
+    same = bool(torch.equal(runs["eager"]["streams"], runs["graphs"]["streams"]))
+    p_ms = {}
+    for rows in (1, b):
+        sub = {"tokens": tokens[:rows], "frames": frames[:rows]}
+        p_ms[rows] = time_ms(torch, lambda: prefill(params, sub), iters=5, warmup=1)
+    eager, graph = runs["eager"], runs["graphs"]
+    print(f"[serve:whisper] weights {weights} B ({torch.cuda.memory_allocated() / 1e9:.3f}GB "
+          f"allocated with the frames and the caches); per request: cross cache "
+          f"xk+xv {cross} B measured, self cache k+v {self_kv} B at max_len {max_len}, "
+          f"the reference's accounting state_bytes={serve_lib.state_bytes(cfg)} + "
+          f"cache_bytes_per_token x max_len="
+          f"{serve_lib.cache_bytes_per_token(cfg) * max_len} = {acct} B (the cross "
+          f"cache left out); prefill device/call ms B=1 {p_ms[1][0]:.2f}/{p_ms[1][1]:.2f} "
+          f"B={b} {p_ms[b][0]:.2f}/{p_ms[b][1]:.2f}; decode step_ms graphed "
+          f"{graph['step_ms']:.3f} eager {eager['step_ms']:.3f} "
+          f"({eager['step_ms'] / graph['step_ms']:.2f}x); tok/s graphed "
+          f"{b * gen / graph['wall_s']:.1f} eager {b * gen / eager['wall_s']:.1f}; "
+          f"peak_mem graphed {graph['peak'] / 1e9:.3f}GB; streams graphed == eager: "
+          f"{same} | {card}", flush=True)
+    if not same:
+        raise AssertionError("whisper: graphed token streams differ from eager")
+    launches = graph["launches"]
+    fwd_tokens = tokens[:2].repeat(1, 16)
+    del runs, cache, eager, graph, prefill
+    free_cuda(torch)
+    for k, hold in ((1, True), (cfg.n_layers, False)):
+        cfg_k = cfg.with_overrides(n_layers=k, encoder_layers=k)
+        params_k = {**params, "layers": params["layers"][:k],
+                    "encoder": {**params["encoder"],
+                                "blocks": params["encoder"]["blocks"][:k]}}
+        check_forward(torch, cfg_k, Transformer, params_k, fwd_tokens,
+                      RunOpts(attention_impl="kernel"), RunOpts(attention_impl="plain"),
+                      RunOpts(attention_impl="full"),
+                      f"{k} encoder layers, against the plain version, yardstick "
+                      "attend_full", hold=hold, frames=frames[:2])
+    del model, params, params_k
+    free_cuda(torch)
+    # the f32 cut on the same weights: the kernels' path on the card graphed
+    # and eager and on the CPU (the plain versions) for streams; the plain
+    # path on the card and a float64 CPU run for the prefill logits
+    small = cfg.with_overrides(n_layers=2, encoder_layers=2, dtype="float32")
+    nb = WHISPER_CUT_BATCH
+    cut_batch = {"tokens": tokens[:nb], "frames": frames[:nb]}
+    params_c = Transformer(small).init_loaded(
+        torch.Generator(device="cuda").manual_seed(SEED + 61))
+    reads = {}
+    for name, impl, device, dtype, graphs, n_gen in (
+            ("graphs", "kernel", None, "float32", None, WHISPER_CUT_GEN),
+            ("eager", "kernel", None, "float32", False, WHISPER_CUT_GEN),
+            ("cpu", "kernel", "cpu", "float32", False, WHISPER_CUT_GEN),
+            ("plain", "plain", None, "float32", False, 1),
+            ("cpu64", "kernel", "cpu", "float64", False, 1)):
+        m = Transformer(small.with_overrides(dtype=dtype), RunOpts(attention_impl=impl),
+                        device=device)
+        bt = {k: v.to(m.device) for k, v in cut_batch.items()}
+        pre = serve_lib.build_prefill_step(m, None, max_len=max_len, graphs=graphs)
+        dec = serve_lib.build_decode_step(m, None, graphs=graphs)
+        reads[name] = greedy(torch, pre, dec, m.load(params_c), bt, n_gen)
+    off64 = {name: (reads[name]["logits"].double().cpu()
+                    - reads["cpu64"]["logits"]).abs().max().item()
+             for name in ("graphs", "plain", "cpu")}
+    same = [int((reads[k]["streams"] == reads["cpu"]["streams"]).all(1).sum())
+            for k in ("graphs", "eager")]
+    print(f"[check] {small.name} f32 2+2-layer full-width cut, B={nb}, "
+          f"{WHISPER_CUT_GEN} greedy tokens: streams equal to the CPU's for "
+          f"{same[0]}/{nb} graphed and {same[1]}/{nb} eager; prefill logits' max-abs "
+          f"distance from a float64 CPU run: card kernel {off64['graphs']:.3g}, card "
+          f"plain {off64['plain']:.3g} (limit 2x), CPU plain {off64['cpu']:.3g}; "
+          f"max|logits|={reads['cpu64']['logits'].abs().max().item():.4g}", flush=True)
+    if (not math.isfinite(off64["graphs"]) or off64["graphs"] > 2 * off64["plain"]
+            or same != [nb, nb]):
+        raise AssertionError(f"whisper cut: logits {off64}, streams equal {same}/{nb}")
+    del reads, params_c
+    free_cuda(torch)
+    return launches
 
 
 def moe_cases(torch, moe, cfgs: dict) -> dict:
@@ -1285,7 +1497,7 @@ def load_phase(torch, ops, cfg, model, params, cell: str, tag: str, expected,
 
 
 def check_forward(torch, cfg, Transformer, params, tokens, kernel, plain, yardstick,
-                  what: str, *, hold: bool = True, slack: int = 0) -> None:
+                  what: str, *, hold: bool = True, slack: int = 0, frames=None) -> None:
     """Full-width bf16 ``forward`` logits through the kernels (RunOpts
     ``kernel``) and through their plain versions (``plain``).  The two sum
     in other orders, so the f32 kernel outputs differ in the last bits, a
@@ -1297,11 +1509,11 @@ def check_forward(torch, cfg, Transformer, params, tokens, kernel, plain, yardst
     ``slack`` positions, for a near-tie that any rounding can flip).
     ``hold=False`` prints the reading with no limit: where the stack is
     deep enough that the yardstick itself is saturated, there is nothing
-    to hold it to."""
-    want = Transformer(cfg, plain).forward(params, tokens).float()
+    to hold it to.  An encoder-decoder reads ``frames`` too."""
+    want = Transformer(cfg, plain).forward(params, tokens, frames).float()
     read = {}
     for name, opts in (("kernel", kernel), ("yardstick", yardstick)):
-        got = Transformer(cfg, opts).forward(params, tokens).float()
+        got = Transformer(cfg, opts).forward(params, tokens, frames).float()
         read[name] = ((got - want).abs().max().item(),
                       (got.argmax(-1) != want.argmax(-1)).float().mean().item())
         del got
@@ -1698,6 +1910,14 @@ def main() -> int:
                                      c.resolved_head_dim, [
             (dt, sq, 0, 0) for dt in ("bfloat16", "float32") for sq in (37, odd, 512, 1024)],
             SEED + 50 + i)
+    # whisper-small's layout (12 heads over 12, D=64, G = 1): the encoder's
+    # non-causal attention over its 1500 frames at B=1 and at the served
+    # batch, and the decoder's causal one at the prompt and the text context
+    flash_whisper, flash_whisper_worst = flash_cases(torch, ops, ref, 12, 12, 64, [
+        *((dt, 1500, 0, 0, False, bb) for dt in ("bfloat16", "float32")
+          for bb in (1, WHISPER_BATCH)),
+        *((dt, sq, 0, 0, True, WHISPER_BATCH) for dt in ("bfloat16", "float32")
+          for sq in (WHISPER_PROMPT, WHISPER_MAX_LEN))], SEED + 70, iters=10)
     flash_wide, flash_wide_worst = flash_cases(torch, ops, ref, 16, 1, 256, [
         *((dt, sq, 2048, 0) for dt in ("bfloat16", "float32") for sq in (37, 512, 2600)),
         ("bfloat16", 64, 2048, 2500)], SEED + 6, iters=10)
@@ -1770,6 +1990,9 @@ def main() -> int:
     moe_b16 = moe_b16_phase(torch, ops, moe_lib, Transformer, RunOpts, ServeEngine,
                             card)["launches"]
     stamp(t_start, "[serve:granite-moe:b16]")
+    # -- the encoder-decoder: full-width, full-depth whisper-small through serve_lib --
+    whisper = whisper_phase(torch, ops, Transformer, RunOpts, card)
+    stamp(t_start, "[serve:whisper]")
 
     stamp(t_start, "phase 4")
     # -- 5. the mamba2 path: full-width mamba2-130m, gather decode, SSD prefill -------
@@ -1888,6 +2111,10 @@ def main() -> int:
         for (dt, sq, _, _), r in flash_moe[tag][0].items():
             flash_layouts[f"{tag}_d{c.resolved_head_dim}_h{c.n_heads}_kv{c.n_kv_heads}"
                           f"_sq{sq}_{dt}"] = times(r, library_ms=r["sdpa_ms"])
+    for (dt, sq, _, _, causal, bb), r in flash_whisper.items():
+        mask = "causal" if causal else "noncausal"
+        flash_layouts[f"whisper_d64_h12_kv12_b{bb}_sq{sq}_{mask}_{dt}"] = times(
+            r, library_ms=r["sdpa_ms"])
     dense_paged = sum(d["paged_attention"] for d in dense.values())
     dense_flash = sum(d["flash_attention"] for d in dense.values())
     moe_flash = sum(d["flash_attention"] for d in moe_runs.values())
@@ -1913,7 +2140,9 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73",
          "launches": (qwen2["flash_attention"] + phi4["flash_attention"]
-                      + rgemma["flash_attention"] + dense_flash + moe_flash),
+                      + rgemma["flash_attention"] + dense_flash + moe_flash
+                      + whisper["flash_attention"]),
+         "whisper_launches": whisper["flash_attention"],
          "dense_launches": {tag: d["flash_attention"] for tag, d in dense.items()},
          "moe_launches": {tag: d["flash_attention"] for tag, d in moe_runs.items()},
          "moe_b16_launches": moe_b16["flash_attention"],
@@ -1923,7 +2152,8 @@ def main() -> int:
          "max_abs_err": max(flash_worst["bfloat16"], flash128_worst["bfloat16"],
                             flash_wide_worst["bfloat16"],
                             *(w["bfloat16"] for _, w in flash_dense.values()),
-                            *(w["bfloat16"] for _, w in flash_moe.values())),
+                            *(w["bfloat16"] for _, w in flash_moe.values()),
+                            flash_whisper_worst["bfloat16"]),
          "ms": fk["ms"],
          "plain_ms": fk["plain_ms"], "bound_ms": fk["bound_ms"],
          "bound_by": fk["bound_by"], "library_ms": fk["sdpa_ms"],

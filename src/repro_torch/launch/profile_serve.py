@@ -6,10 +6,15 @@ window of engine steps with every request already decoding.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mamba2-130m
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch recurrentgemma-9b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen3-moe-30b-a3b
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch whisper-small \
+      --prompt-len 4 --max-len 448
 
 Attention models decode off the paged pool (``attn_mode="paged"``); models
 with recurrent state and the MoE decoders decode in gather mode, the only
-mode they support.
+mode they support.  The encoder-decoder, which no engine serves, goes
+through ``runtime.serve_lib``'s steps instead: ``--steps`` eager prefills
+of ``--batch`` prompts over seeded frames, then ``--steps`` decode steps
+of the slab step (one CUDA graph on the card), each window profiled.
 
 The engine is profiled as built: on the card its runner replays one CUDA
 graph per bucket.  Prints the host time per step, the device time the
@@ -33,6 +38,7 @@ import time
 import torch
 
 from ..models import RunOpts, Transformer
+from ..runtime import serve_lib
 from ..runtime.serve_lib import Request
 from ..serving import GenRequest, ServeEngine
 from .serve import PRESETS, reduced_config
@@ -58,6 +64,9 @@ def main(argv=None) -> None:
     cfg = reduced_config(args.arch, args.preset)
     model = Transformer(cfg, RunOpts(attention_impl="kernel"), device=args.device)
     params = model.init_loaded(torch.Generator(device=model.device).manual_seed(0))
+    if cfg.is_encoder_decoder:
+        _profile_encoder_decoder(model, params, args)
+        return
     gen_len = 3 * args.steps + 8
     # all requests arrive together, so the planned pool holds them at once
     trace = [Request(rid=i + 1, prompt_len=args.prompt_len, gen_len=gen_len,
@@ -77,28 +86,12 @@ def main(argv=None) -> None:
         eng.step()
     for _ in range(2):
         eng.step()
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if model.device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-        torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            eng.step()
-        if model.device.type == "cuda":
-            torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
-    # kernel records only: an op's own row repeats its kernels' time
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.steps
+    wall_ms, dev_ms, kernels = _profiled(model, eng.step, args.steps)
     print(f"[profile] {cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"attn={eng.attn_mode} graphs={eng.graphs} steps={args.steps} on "
           f"{model.device}: host step_ms={wall_ms:.3f} "
           f"device_ms_per_step={dev_ms:.3f} busy_share={dev_ms / wall_ms:.3f}")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
-        print(f"[profile]   {_device_us(e) / 1e3 / args.steps:8.4f} ms/step "
-              f"x{e.count // args.steps:<4d} {e.key[:90]}")
+    _print_kernels(kernels, args.steps)
     if eng.graphs:
         eng.runner.replay_events = []
         torch.cuda.synchronize()
@@ -116,6 +109,68 @@ def main(argv=None) -> None:
               f"busy_share={rep_ms / wall_ms:.3f}")
     if eng.graphs and eng.prefill_rungs():
         _profile_prefill(eng, args.prompt_len, args.steps, g)
+
+
+def _profiled(model, fn, n: int):
+    """``fn()`` called ``n`` times under ``torch.profiler``: (host ms per
+    call, the device ms per call that the profiler attributes to kernels,
+    the kernel records)."""
+    cuda = model.device.type == "cuda"
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    # kernel records only: an op's own row repeats its kernels' time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall_ms, sum(_device_us(e) for e in kernels) / 1e3 / n, kernels
+
+
+def _print_kernels(kernels, n: int, per: str = "step") -> None:
+    for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
+        print(f"[profile]   {_device_us(e) / 1e3 / n:8.4f} ms/{per} "
+              f"x{e.count // n:<4d} {e.key[:90]}")
+
+
+def _profile_encoder_decoder(model, params, args) -> None:
+    """The encoder-decoder through ``runtime.serve_lib``: eager prefills of
+    ``args.batch`` seeded prompts over seeded frames, then decode steps of
+    the slab step (graphed on the card), each window profiled."""
+    cfg, dev = model.cfg, model.device
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                                     generator=g, device=dev, dtype=torch.int32),
+             "frames": torch.randn(args.batch, cfg.encoder_seq, cfg.d_model,
+                                   generator=g, device=dev)}
+    prefill = serve_lib.build_prefill_step(model, None, max_len=args.max_len)
+    decode = serve_lib.build_decode_step(model, None)
+    logits, cache = prefill(params, batch)
+    wall_ms, dev_ms, kernels = _profiled(model, lambda: prefill(params, batch),
+                                         args.steps)
+    print(f"[profile] {cfg.name} prefill batch={args.batch} prompt={args.prompt_len} "
+          f"frames={cfg.encoder_seq} x{args.steps} on {dev}: host ms={wall_ms:.3f} "
+          f"device_ms={dev_ms:.3f} busy_share={dev_ms / wall_ms:.3f}")
+    _print_kernels(kernels, args.steps, "prefill")
+    tok = [logits.argmax(-1).int()]
+
+    def step():
+        out, _ = decode(params, cache, tok[0])
+        tok[0] = out.argmax(-1).int()
+    for _ in range(2):
+        step()
+    wall_ms, dev_ms, kernels = _profiled(model, step, args.steps)
+    print(f"[profile] {cfg.name} decode batch={args.batch} graphs="
+          f"{dev.type == 'cuda'} steps={args.steps} on {dev}: host step_ms="
+          f"{wall_ms:.3f} device_ms_per_step={dev_ms:.3f} "
+          f"busy_share={dev_ms / wall_ms:.3f}")
+    _print_kernels(kernels, args.steps)
 
 
 def _profile_prefill(eng: ServeEngine, prompt_len: int, n: int, g) -> None:

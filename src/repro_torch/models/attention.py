@@ -40,6 +40,25 @@ def qkv_project(x, p, cfg):
     return q.reshape(b, s, n_kv, g, hd), k, v
 
 
+def _project(x, p, name: str, heads: int, cfg):
+    b, s, d = x.shape
+    y = (x @ p[f"w{name}"].reshape(d, -1)).reshape(b, s, heads, cfg.resolved_head_dim)
+    return y + p[f"b{name}"] if cfg.qkv_bias else y
+
+
+def q_project(x, p, cfg):
+    """``qkv_project``'s q alone (cross-attention's queries)."""
+    q = _project(x, p, "q", cfg.n_heads, cfg)
+    return q.reshape(*q.shape[:2], cfg.n_kv_heads, -1, cfg.resolved_head_dim)
+
+
+def kv_project(x, p, cfg):
+    """``qkv_project``'s k and v alone (cross-attention's keys and values,
+    from the encoder output)."""
+    return (_project(x, p, "k", cfg.n_kv_heads, cfg),
+            _project(x, p, "v", cfg.n_kv_heads, cfg))
+
+
 def out_project(ctx, p, cfg):
     b, s = ctx.shape[:2]
     ctx = ctx.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)

@@ -13,8 +13,12 @@ g + 1), followed by the ``tail`` blocks; every other layout is kept as is
 ``w_gate``, ``w_conv``, ``b_conv``, ``w_out``, ``lru``; ``embed``
 (padded_vocab, D) and, untied, ``lm_head`` of the same shape; every norm
 with all its leaves, a LayerNorm's ``bias`` too; the ungated MLP's
-``b_up``/``b_down``).  Leaves come
-back as f32 CPU tensors; ``Transformer.load`` moves and casts them.
+``b_up``/``b_down``; an xattn block's ``xnorm`` and ``xattn``, the second
+attention's leaves).  An encoder-decoder's ``encoder`` keeps its keys: its
+stacked (encoder_layers, ...) ``blocks`` become a list of one attn block
+dict per encoder layer, in order, and its ``final_norm`` is kept as is.
+Leaves come back as f32 CPU tensors; ``Transformer.load`` moves and casts
+them.
 """
 from __future__ import annotations
 
@@ -59,4 +63,9 @@ def params_from_jax(tree) -> dict:
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"])
     out["layers"] = layers
+    if "encoder" in tree:
+        blocks = tree["encoder"]["blocks"]
+        n_enc = np.asarray(_first_leaf(blocks)).shape[0]
+        out["encoder"] = {"blocks": [_layer(blocks, i) for i in range(n_enc)],
+                          "final_norm": _unstacked(tree["encoder"]["final_norm"])}
     return out

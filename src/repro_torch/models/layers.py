@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -52,6 +53,19 @@ def rope_angles(positions, head_dim: int, theta: float):
         half, dtype=torch.float32, device=positions.device) / half)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def sinusoid(positions, d: int, dtype):
+    """Whisper's encoder position table: ``cat(sin(ang), cos(ang))`` over
+    ``ang = positions * freqs`` in f32, (..., d) in ``dtype``.  The
+    frequencies are made in float64 numpy and cast to f32 before the
+    product, as the reference's f32 positions times its numpy table are:
+    at positions up to 1499 another order of rounding moves sin and cos by
+    ~1e-4."""
+    half = d // 2
+    freqs = np.exp(-math.log(10_000.0) * np.arange(half) / half).astype(np.float32)
+    ang = positions.float()[..., None] * torch.from_numpy(freqs).to(positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 def apply_rope(x, cos, sin):

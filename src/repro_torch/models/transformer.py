@@ -1,8 +1,12 @@
 """Decoder over block patterns (port of ``repro.models.transformer`` for
 ``block_pattern=("attn",)``, the dense GQA decoder and, with ``n_experts``,
-the MoE decoder, ``("mamba2",)``, the attention-free SSD stack, and
+the MoE decoder, ``("mamba2",)``, the attention-free SSD stack,
 ``("rec", "rec", "local")`` with a tail, the Griffin hybrid of RG-LRU blocks
-and local attention).
+and local attention, and ``("xattn",)`` with an encoder, whisper's
+encoder-decoder: non-causal attn blocks over stub frame embeddings plus a
+sinusoid table, then decoder blocks of causal self-attention,
+cross-attention over the encoder output and the MLP, with no RoPE and no
+decoder position embedding, as in the reference).
 
 Entry points, with the reference's contracts:
   * ``loss_fn(params, batch)``        — training forward (+ CE loss, + 0.01
@@ -12,7 +16,7 @@ Entry points, with the reference's contracts:
   * ``decode_step(params, cache, t)`` — one-token step over the contiguous
                                         cache or, when the cache carries
                                         ``block_tables``, the paged pool
-  * ``forward(params, tokens)``       — logits for every position
+  * ``forward(params, tokens[, frames])`` — logits for every position
 
 Parameters are a plain nested dict: ``embed`` (padded_vocab, D), tied with
 the output head unless an ``lm_head`` of the same shape is present,
@@ -25,12 +29,16 @@ and ``b_down`` (D,) when ``qkv_bias`` is set; MoE: ``w_router`` (D,E),
 ``w_gate``/``w_up`` (E,D,F) and ``w_down`` (E,F,D); mamba2: ``w_in`` (D,proj),
 ``w_conv`` (K,conv_dim), ``w_out`` (d_inner,D) and per-head vectors; rec:
 ``w_branch``/``w_gate`` (D,lru), ``w_conv`` (K,lru), ``w_out`` (lru,D), the
-gates ``lru`` and an MLP).  Caches are dicts of tensors with a leading layer
+gates ``lru`` and an MLP; xattn: ``attn``, ``xnorm``, ``xattn`` (the
+attention leaves again), ``mlp_norm`` and ``mlp``), and for an
+encoder-decoder ``encoder``: ``blocks``, one attn block dict per encoder
+layer, and its ``final_norm``.  Caches are dicts of tensors with a leading layer
 axis over the layers of one kind (attention: ``k``/``v`` (L,B,C,kv,hd);
 mamba2: ``conv`` (L,B,K-1,conv_dim) and ``ssm`` (L,B,H,P,N) f32; hybrid:
 ``k``/``v`` over the local layers with C = min(local_window, max_len),
-``conv`` (n_rec,B,K-1,lru) and ``h`` (n_rec,B,lru) f32), so the batch axis
-is 1 for every leaf; decode updates them in place and returns the same
+``conv`` (n_rec,B,K-1,lru) and ``h`` (n_rec,B,lru) f32; xattn: ``k``/``v``
+and the cross cache ``xk``/``xv`` (L,B,encoder_seq,kv,hd)), so the batch
+axis is 1 for every leaf; decode updates them in place and returns the same
 tensors.
 """
 from __future__ import annotations
@@ -51,7 +59,7 @@ from . import moe as moe_lib
 from . import rglru as rglru_lib
 from . import ssm as ssm_lib
 from .layers import (GATED_ACTS, apply_norm, apply_rope, embed_lookup, mlp, rope_angles,
-                     upcast)
+                     sinusoid, upcast)
 from .schema import P, Schema, abstract_params, init_params
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -165,9 +173,13 @@ def _block_schema(kind: str, cfg) -> Schema:
         return _mamba2_schema(cfg)
     if kind == "rec":
         return _rec_schema(cfg)
-    return {"attn": _attn_schema(cfg),
-            "mlp_norm": _norm_schema(cfg),
-            "mlp": _mlp_schema(cfg)}
+    s: Schema = {"attn": _attn_schema(cfg)}
+    if kind == "xattn":                 # cross-attention over the encoder output
+        s["xnorm"] = _norm_schema(cfg)
+        s["xattn"] = _attn_schema(cfg)
+    s["mlp_norm"] = _norm_schema(cfg)
+    s["mlp"] = _mlp_schema(cfg)
+    return s
 
 
 def _unsupported(cfg) -> list[str]:
@@ -182,11 +194,18 @@ def _unsupported(cfg) -> list[str]:
                 or not cfg.lru_width or cfg.lru_width % cfg.n_heads):
             out.append(f"hybrid with act {cfg.act} / rope {cfg.rope} / window "
                        f"{cfg.local_window} / lru {cfg.lru_width}")
-    elif pattern not in (("attn",), ("mamba2",)) or cfg.tail_pattern:
+    elif pattern not in (("attn",), ("mamba2",), ("xattn",)) or cfg.tail_pattern:
         out.append(f"pattern {cfg.block_pattern} + {cfg.tail_pattern}")
-    if cfg.is_encoder_decoder:
-        out.append("encoder-decoder")
     dense = pattern == ("attn",)
+    xattn = pattern == ("xattn",)
+    if cfg.is_encoder_decoder and not xattn:
+        out.append(f"encoder-decoder on pattern {cfg.block_pattern}")
+    if xattn and (not cfg.is_encoder_decoder or not cfg.encoder_seq
+                  or cfg.norm != "layernorm" or cfg.act != "gelu" or cfg.rope
+                  or cfg.local_window or cfg.family == "hybrid"):
+        out.append(f"xattn with {cfg.encoder_layers} encoder layers over "
+                   f"{cfg.encoder_seq} frames / norm {cfg.norm} / act {cfg.act} / "
+                   f"rope {cfg.rope} / window {cfg.local_window} / family {cfg.family}")
     if cfg.n_experts and (not dense or cfg.tail_pattern or cfg.family != "moe"
                           or cfg.norm != "rmsnorm"
                           or not 0 < cfg.top_k <= cfg.n_experts):
@@ -201,7 +220,7 @@ def _unsupported(cfg) -> list[str]:
                                    or not cfg.tie_embeddings):
         out.append(f"mamba2 with rope {cfg.rope} / family {cfg.family} / "
                    f"tied {cfg.tie_embeddings}")
-    if cfg.norm not in (("rmsnorm", "layernorm") if dense else ("rmsnorm",)):
+    if cfg.norm not in (("rmsnorm", "layernorm") if dense or xattn else ("rmsnorm",)):
         out.append(f"norm {cfg.norm}")
     if cfg.dtype not in DTYPES:
         out.append(f"dtype {cfg.dtype}")
@@ -234,8 +253,9 @@ class Transformer:
         unsupported = _unsupported(cfg)
         if unsupported:
             raise ValueError(f"{cfg.name}: the port runs dense and MoE attention "
-                             f"decoders, mamba2 stacks and the rec/rec/local "
-                             f"hybrid only ({'; '.join(unsupported)})")
+                             f"decoders, mamba2 stacks, the rec/rec/local "
+                             f"hybrid and the xattn encoder-decoder only "
+                             f"({'; '.join(unsupported)})")
         self.cfg = cfg
         self.kinds = layer_kinds(cfg)
         self.kind = ("hybrid" if tuple(cfg.block_pattern) == HYBRID_PATTERN
@@ -250,6 +270,11 @@ class Transformer:
                                           dtype=self.compute_dtype,
                                           device=self.device)
                              if cfg.family == "hybrid" else None)
+        # the encoder-decoder's cross-attention position, the last frame's
+        # (every frame valid), made once on the device for the same reason
+        self._enc_last = (torch.tensor(cfg.encoder_seq - 1, dtype=torch.int32,
+                                       device=self.device)
+                          if cfg.is_encoder_decoder else None)
 
     # ---- schema / params ------------------------------------------------------
     def schema(self) -> Schema:
@@ -261,6 +286,10 @@ class Transformer:
         if not cfg.tie_embeddings:
             s["lm_head"] = P((cfg.padded_vocab, cfg.d_model), scale=0.02)
         s["layers"] = [_block_schema(kind, cfg) for kind in self.kinds]
+        if cfg.is_encoder_decoder:
+            s["encoder"] = {"blocks": [_block_schema("attn", cfg)
+                                       for _ in range(cfg.encoder_layers)],
+                            "final_norm": _norm_schema(cfg)}
         return s
 
     def init(self, generator: torch.Generator):
@@ -310,17 +339,58 @@ class Transformer:
         return apply_norm(x, p, self.cfg.norm)
 
     def _rope(self, positions):
+        """(cos, sin) at ``positions``; None without RoPE (whisper), as the
+        reference's ``_rope`` returns."""
+        if not self.cfg.rope:
+            return None
         return rope_angles(positions, self.cfg.resolved_head_dim,
                            self.cfg.rope_theta)
 
     def _attn_qkv(self, x, p, rope_cs):
         h = self._norm(x, p["attn"]["norm"])
         q, k, v = attn.qkv_project(h, p["attn"], self.cfg)
+        if rope_cs is None:
+            return q, k, v
         return apply_rope(q, *rope_cs), apply_rope(k, *rope_cs), v
 
-    def _finish_block(self, x, ctx, p):
+    def _finish_block(self, x, ctx, p, cross=()):
+        """Self-attention's residual, then with ``cross`` (``_cross``'s
+        arguments) cross-attention's, then the MLP's."""
         x = x + attn.out_project(ctx, p["attn"], self.cfg)
+        if cross:
+            x = self._cross(x, p, *cross)
         return self._mlp_residual(x, p)
+
+    def _cross(self, x, p, kx, vx, pos=None):
+        """Cross-attention's residual: ``xnorm`` (the encoder output gets
+        none), queries from the decoder stream over the encoder's keys and
+        values, non-causal: the reference's ``impl="full"`` over a sequence,
+        a plain product outside any kernel, or with ``pos`` (the last
+        frame's position) ``attend_decode`` over the cross cache."""
+        qx = attn.q_project(self._norm(x, p["xnorm"]), p["xattn"], self.cfg)
+        ctx = (attn.attend_full(qx, kx, vx, causal=False) if pos is None
+               else attn.attend_decode(qx, kx, vx, pos))
+        return x + attn.out_project(ctx, p["xattn"], self.cfg)
+
+    def _encode(self, params, frames):
+        """Whisper's encoder over stub frame embeddings (B, F, D): the
+        frames in the compute dtype plus the sinusoid table, the encoder's
+        attn blocks with non-causal self-attention (the flash kernel under
+        ``attention_impl="kernel"``), its final norm."""
+        dt = self.compute_dtype
+        pos = torch.arange(frames.shape[1], device=frames.device)
+        x = frames.to(dt) + sinusoid(pos, self.cfg.d_model, dt)[None]
+        for p in params["encoder"]["blocks"]:
+            q, k, v = self._attn_qkv(x, p, None)
+            ctx = attn.attend(q, k, v, impl=self.opts.attention_impl, causal=False)
+            x = self._finish_block(x, ctx, p)
+        return self._norm(x, params["encoder"]["final_norm"])
+
+    def _frames(self, frames, what: str):
+        if frames is None:
+            raise ValueError(f"{what}: {self.cfg.name} is an encoder-decoder and "
+                             "needs frames (B, encoder_seq, d_model)")
+        return frames
 
     def _mlp_residual(self, x, p):
         """The MLP's residual; with ``n_experts`` the MoE FFN, whose aux term
@@ -421,8 +491,13 @@ class Transformer:
         each layer (the reference's pattern group) runs under
         ``RematPolicy.coerce(remat).wrap``.  No kernel has a backward, in
         either package, so RunOpts naming a kernel path raise ``ValueError``;
-        the mamba2 and hybrid patterns are not ported to training yet."""
+        the mamba2 and hybrid patterns and the encoder-decoder are not ported
+        to training yet."""
         from ..remat.policy import RematPolicy
+        if self.kind == "xattn":
+            raise NotImplementedError(
+                "loss_fn: training the xattn encoder-decoder (whisper-small) is not "
+                "ported yet (ROADMAP queue 1: whisper training)")
         if self.kind != "attn":
             raise NotImplementedError(
                 f"loss_fn: training the {self.kind} pattern is not ported yet "
@@ -459,7 +534,9 @@ class Transformer:
         """{name: (shape, dtype)} of the contiguous decode cache.  Mamba2
         layers hold O(1) state: the conv window and the f32 SSD state; the
         hybrid's local layers a rolling window of K/V and its rec layers the
-        conv window and the f32 RG-LRU state."""
+        conv window and the f32 RG-LRU state; the encoder-decoder's layers
+        also the cross K/V over the encoder's frames, ``xk``/``xv``
+        (L,B,encoder_seq,kv,hd), which prefill fills and decode only reads."""
         cfg = self.cfg
         spec = {"pos": ((batch,), torch.int32)}
         if self.kind == "hybrid":
@@ -483,6 +560,11 @@ class Transformer:
         kvs = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         spec["k"] = (kvs, self.compute_dtype)
         spec["v"] = (kvs, self.compute_dtype)
+        if self.kind == "xattn":
+            xs = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
+                  cfg.resolved_head_dim)
+            spec["xk"] = (xs, self.compute_dtype)
+            spec["xv"] = (xs, self.compute_dtype)
         return spec
 
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -516,7 +598,8 @@ class Transformer:
 
         ``cache["pos"]`` is a (B,) per-slot position vector: each row attends
         and writes at its own offset.  A cache carrying ``block_tables``
-        selects the paged path.  KV leaves are updated in place."""
+        selects the paged path.  KV leaves are updated in place; the cross
+        cache ``xk``/``xv`` is read at every frame and returned as is."""
         if "block_tables" in cache:
             return self._decode_step_paged(params, cache, tokens)
         if self.kind == "mamba2":
@@ -529,15 +612,18 @@ class Transformer:
         rope_cs = self._rope(pos[:, None])
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         slot = pos.clamp(max=k_cache.shape[2] - 1).long()
+        cross = ()
         for i, p in enumerate(params["layers"]):
             q, k, v = self._attn_qkv(x, p, rope_cs)
             k_cache[i, rows, slot] = k[:, 0]
             v_cache[i, rows, slot] = v[:, 0]
             ctx = attn.attend_decode(q, k_cache[i], v_cache[i], pos)
-            x = self._finish_block(x, ctx, p)
+            if self.kind == "xattn":
+                cross = (cache["xk"][i], cache["xv"][i], self._enc_last)
+            x = self._finish_block(x, ctx, p, cross)
         x = self._norm(x, params["final_norm"])
         logits = self.logits(params, x)[:, 0, :]
-        return logits, {"pos": pos + 1, "k": k_cache, "v": v_cache}
+        return logits, {**cache, "pos": pos + 1}
 
     def _decode_step_mamba2(self, params, cache, tokens):
         """One token through every mamba2 layer; the conv windows and SSD
@@ -663,8 +749,12 @@ class Transformer:
     # ---- public: prefill -----------------------------------------------------------
     @torch.no_grad()
     def prefill(self, params, batch, max_len: Optional[int] = None):
-        """batch: {"tokens": (B,S)[, "true_len": int or integer tensor]} ->
-        (last-pos logits, cache).
+        """batch: {"tokens": (B,S)[, "frames": (B,F,D)][, "true_len": int or
+        integer tensor]} -> (last-pos logits, cache).
+
+        An encoder-decoder needs ``frames``, F = ``cfg.encoder_seq`` of them
+        (the cross cache's length): the encoder runs once and each layer's
+        cross K/V over its output fill ``xk``/``xv``.
 
         ``true_len`` supports length-bucketed prompts: tokens beyond it are
         padding — the returned logits are read at position ``true_len - 1``
@@ -707,21 +797,37 @@ class Transformer:
                     cfg.resolved_head_dim)
         k_all = torch.zeros(kv_shape, dtype=self.compute_dtype, device=x.device)
         v_all = torch.zeros_like(k_all)
+        cache = {"pos": pos, "k": k_all, "v": v_all}
+        enc = None
+        if self.kind == "xattn":
+            frames = self._frames(batch.get("frames"), "prefill")
+            if frames.shape[1] != cfg.encoder_seq:
+                raise ValueError(f"prefill: {frames.shape[1]} frames; the cross "
+                                 f"cache holds encoder_seq={cfg.encoder_seq}")
+            enc = self._encode(params, frames)
+            cache["xk"] = torch.empty((cfg.n_layers, b, cfg.encoder_seq) + kv_shape[3:],
+                                      dtype=self.compute_dtype, device=x.device)
+            cache["xv"] = torch.empty_like(cache["xk"])
         n = min(s, max_len)
+        cross = ()
         for i, p in enumerate(params["layers"]):
             q, k, v = self._attn_qkv(x, p, rope_cs)
             ctx = attn.attend(q, k, v, impl=self.opts.attention_impl,
                               causal=True)
-            x = self._finish_block(x, ctx, p)
+            if enc is not None:
+                cross = attn.kv_project(enc, p["xattn"], cfg)
+                cache["xk"][i], cache["xv"][i] = cross
+            x = self._finish_block(x, ctx, p, cross)
             k_all[i, :, :n] = k[:, :n]
             v_all[i, :, :n] = v[:, :n]
-        cache = {"pos": pos, "k": k_all, "v": v_all}
         x = self._norm(x, params["final_norm"])
         return self.logits(params, _last_hidden(x, pos, true_len))[:, 0, :], cache
 
     # ---- public: inference forward (no cache) -----------------------------------------
     @torch.no_grad()
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, frames=None):
+        """Logits at every position; an encoder-decoder reads ``frames``
+        (B, F, D) through its encoder first."""
         x = self._embed_in(params, tokens)
         if self.kind == "hybrid":
             x, _ = self._hybrid_layers(params, x)
@@ -732,10 +838,15 @@ class Transformer:
             return self.logits(params, self._norm(x, params["final_norm"]))
         rope_cs = self._rope(torch.arange(tokens.shape[1],
                                           device=tokens.device)[None, :])
+        enc = (self._encode(params, self._frames(frames, "forward"))
+               if self.kind == "xattn" else None)
+        cross = ()
         for p in params["layers"]:
             q, k, v = self._attn_qkv(x, p, rope_cs)
             ctx = attn.attend(q, k, v, impl=self.opts.attention_impl,
                               causal=True)
-            x = self._finish_block(x, ctx, p)
+            if enc is not None:
+                cross = attn.kv_project(enc, p["xattn"], self.cfg)
+            x = self._finish_block(x, ctx, p, cross)
         x = self._norm(x, params["final_norm"])
         return self.logits(params, x)

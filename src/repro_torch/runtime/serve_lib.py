@@ -52,7 +52,9 @@ class PrefillStep:
     those buffers, so any ``true_len`` of the length replays the same graph
     (the model reads it on the device); the graph returns its static logits
     and cache, which the next replay of that shape overwrites.  A batch
-    without ``true_len`` (an unpadded prompt) runs eagerly.
+    without ``true_len`` (an unpadded prompt) runs eagerly, and so does one
+    with ``frames`` (the encoder-decoder's: no graph holds a frames
+    buffer).
 
     ``trace_hook(batch)`` fires once per capture and, eagerly, once per new
     signature: the reference's jit traces once per such signature.  With
@@ -81,7 +83,7 @@ class PrefillStep:
     def __call__(self, params, batch):
         tokens = batch["tokens"]
         sig = (tuple(tokens.shape), "true_len" in batch)
-        if not (self.graphs and sig[1]):
+        if not (self.graphs and sig[1]) or "frames" in batch:
             if sig not in self._seen:
                 self._seen.add(sig)
                 self._hook(batch)

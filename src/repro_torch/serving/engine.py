@@ -93,7 +93,16 @@ class ServeEngine:
         the model lies on a CUDA device, False runs the same steps eagerly.
 
         ``mesh`` is the reference's sharding option, not ported yet:
-        anything but None raises."""
+        anything but None raises.  So does an encoder-decoder ``model``
+        (``ValueError``): the engine, like the reference's, has no path
+        for encoder frames."""
+        if model.cfg.is_encoder_decoder:
+            raise ValueError(
+                f"ServeEngine: {model.cfg.name} is an encoder-decoder and the "
+                "engine has no path for encoder frames (the reference's prefill "
+                "batch holds tokens only); serve it through runtime.serve_lib's "
+                "build_prefill_step and build_decode_step with a batch of "
+                '{"tokens", "frames"}')
         if mesh is not None:
             raise NotImplementedError(
                 "ServeEngine(mesh=...): sharding is not ported yet (ROADMAP "

@@ -108,6 +108,11 @@ FLASH_CASES = [
     # phi4-mini-3.8b's head dim and grouping
     (1, 40, 2, 3, 128, True, 0, "float32"),
     (1, 33, 1, 3, 128, True, 16, "bfloat16"),
+    # whisper-small's encoder (non-causal) and decoder (causal), one query
+    # head per KV head (G = 1)
+    (2, 40, 3, 1, 64, False, 0, "float32"),
+    (1, 37, 4, 1, 16, False, 0, "bfloat16"),
+    (2, 33, 3, 1, 64, True, 0, "float32"),
 ]
 
 
@@ -360,6 +365,30 @@ def test_flash_tensor_core_kernel_matches_plain_version_on_the_card(
     assert tops.flash_attention.launches == before + 1
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 1e-4)])
+@pytest.mark.parametrize("b,sq,causal", [(1, 1500, False), (8, 1500, False),
+                                         (2, 4, True), (2, 448, True)])
+def test_flash_kernels_at_whisper_layout_match_plain_version_on_the_card(
+        card, dtype, tol, b, sq, causal):
+    """whisper-small's layout (12 heads over 12 KV heads, G = 1, D=64): the
+    encoder's non-causal self-attention over its 1500 frames (the last
+    64-key tile and the last query tile hold 28) and the decoder's causal
+    one at prompt lengths, in both designs, through the model layout's
+    strided views."""
+    g = torch.Generator(device="cuda").manual_seed(b * sq)
+    q = torch.randn(b, sq, 12, 1, 64, generator=g, device="cuda").to(TDT[dtype])
+    k = torch.randn(b, sq, 12, 64, generator=g, device="cuda").to(TDT[dtype])
+    v = torch.randn(b, sq, 12, 64, generator=g, device="cuda").to(TDT[dtype])
+    before = tops.flash_attention.launches
+    got = tops.flash_attention(q, k, v, causal=causal)
+    want = tops.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tops.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert float((got.float() - want.float()).abs().max()) < tol
 
 
 @pytest.mark.cuda

@@ -249,12 +249,16 @@ def test_unported_patterns_are_refused(arch):
             n_experts=cfg.n_experts, top_k=cfg.top_k)
     elif arch == "qwen3-moe-30b-a3b":       # ported; experts with an encoder are not
         cfg = cfg.with_overrides(encoder_layers=2, encoder_seq=16)
+    elif arch == "whisper-small":           # ported; experts on its xattn blocks are not
+        cfg = cfg.with_overrides(n_experts=4, top_k=2)
     with pytest.raises(ValueError, match="the port runs") as err:
         TTransformer(cfg, device="cpu")
     if arch == "granite-moe-1b-a400m":
         assert "experts on pattern ('mamba2',)" in str(err.value)
     elif arch == "qwen3-moe-30b-a3b":
         assert "encoder-decoder" in str(err.value)
+    elif arch == "whisper-small":
+        assert "experts on pattern ('xattn',)" in str(err.value)
 
 
 # --------------------------------------------------------------------------
