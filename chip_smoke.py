@@ -104,33 +104,44 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      that the yardstick itself moves most argmaxes: that reading is
      printed, not held);
   7. train full-width qwen2-0.5b cut to 4 of its 24 layers
-     (``[train:qwen2]``, ``TRAIN_QWEN2_LAYERS``), then full-width,
-     full-depth granite-moe-1b-a400m (``[train:granite-moe]``: 24 layers,
-     32 experts top-8, the reference's ``ce + 0.01 aux``, capacity 1280 at
-     T = 4096), each with bf16 compute over f32 masters, B=8 x S=512, the
+     (``[train:qwen2]``, ``TRAIN_QWEN2_LAYERS``), then full-width
+     granite-moe-1b-a400m cut to 12 of its 24 layers
+     (``[train:granite-moe]``, ``TRAIN_MOE_LAYERS``: 32 experts top-8, the
+     reference's ``ce + 0.01 aux``, capacity 1280 at T = 4096), each at
+     B=8 x S=512, then the patterns beyond the attention decoder
+     (``TRAIN_PATTERNS``): ``[train:whisper]`` whisper-small at 12 + 12
+     layers, B=8 x S=448 over the pipeline's seeded (8, 1500, 768) frames;
+     ``[train:mamba2]`` mamba2-130m cut to 4 of its 24 layers, B=8 x
+     S=512; ``[train:recurrentgemma]`` recurrentgemma-9b at full width cut
+     to one (rec, rec, local) group and its two rec tail layers (3.1 B
+     parameters, 49.6 GB of training state), B=1 x S=2560, past its
+     2048-token window; each with bf16 compute over f32 masters, the
      synthetic pipeline from seed 0, through the paper's loop: a
      ``make_fx`` profile of the grad step on fake tensors (blocks, bytes,
      the liveness lower bound, the best-fit and pool-allocator peaks), the
      closed-loop remat plan and the largest batch that fits 80 GB without
-     remat (up to 256, granite-moe's up to 64), then 5 AdamW steps each
-     under no remat, full remat and the planned policy from the same
-     initial state, with step ms and measured against planned peak memory
-     (granite-moe: ce and aux apart at the first and last step, the
-     dispatch's drop share over the no-remat steps, and the step-1 batch's
-     loss after 5 no-remat steps at two larger learning rates, printed).
-     Each fails unless the no-remat losses are finite, the loss on step
-     1's batch has fallen after the 5 steps (the batch is evaluated again
-     after training: each step draws a fresh batch, and at these depths
-     and learning rates the step losses of fresh batches move less than
-     the batches differ, so their trend is printed, not held), the other
-     two policies' losses match them within 1e-3 relative at every step,
-     and their grad norms at every step and parameters after the 5 steps
+     remat (up to 256; granite-moe, whisper and mamba2 up to 64, the hybrid
+     up to 8), then 5 AdamW steps each under no remat, full remat and the
+     planned policy from the same initial state, with step ms and measured
+     against planned peak memory, the step's and the grad step's alone
+     (the step's also holds the optimizer update's temporaries), and the
+     step-1 batch's loss after 5 no-remat steps at two other learning
+     rates, printed (granite-moe: ce and aux apart at the first and last
+     step, the dispatch's drop share over the no-remat steps).  Each fails
+     unless the no-remat losses are finite, the loss on step 1's batch has
+     fallen after the 5 steps (the batch is evaluated again after
+     training: each step draws a fresh batch, and at these depths and
+     learning rates the step losses of fresh batches move less than the
+     batches differ, so their trend is printed, not held), the other two
+     policies' losses match them within 1e-3 relative at every step, and
+     their grad norms at every step and parameters after the 5 steps
      within 1e-5 relative (L2 over every leaf), no kernel launches, and an
-     f32 2-layer cut of the same width gives the same loss on the card as
-     on the CPU (1e-5 relative) and gradients no further from a float64
-     CPU run than twice the CPU's own f32 gradients (relative L2 over
-     every leaf), TF32 off; granite-moe's cut must first route alike on
-     the card and the CPU (every layer's ``keep`` and ``dest``);
+     f32 cut of the same width (2 layers; whisper's 2 + 2; the hybrid's
+     same 5) gives the same loss on the card as on the CPU (1e-5
+     relative) and gradients no further from a float64 CPU run than twice
+     the CPU's own f32 gradients (relative L2 over every leaf), TF32 off;
+     granite-moe's cut must first route alike on the card and the CPU
+     (every layer's ``keep`` and ``dest``);
   8. print the load phases' launches (``[load] launches``), the kernels
      JSON line, the card line, and the result line.
 
@@ -199,16 +210,37 @@ CHURN_PROFILED_GEN = 8      # the churn trace's profile; live requests ask 32-48
 SHARED_REQUESTS, SHARED_GEN, SHARED_MAX_LEN, SHARED_TRAIN_STEPS = 32, 64, 2048, 2
 HYBRID_MAX_LEN = 4096       # room for the 2100-3000-token prompts
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
-# [train:qwen2] runs 4 of qwen2-0.5b's 24 layers, so that [train:granite-moe]
-# (~480 s, most of it the remat search on the host) fits beside it
+# [train:qwen2] runs 4 of qwen2-0.5b's 24 layers and [train:granite-moe] 12
+# of its 24, so that the five training phases (most of their time the remat
+# searches and the batch searches' profiles on the host) fit the script's time
 TRAIN_QWEN2_LAYERS = 4
+TRAIN_MOE_LAYERS = 12
 TRAIN_MOE_BATCH_HI = 64     # [train:granite-moe]'s largest batch tried without remat
-# AdamW peak learning rates.  granite-moe at full depth (random weights,
-# gradient norms ~1e13) raises its step-1 batch's loss after 5 steps at
-# qwen2's 3e-4 and at 1e-4, and lowers it at 3e-5 and 1e-5; the phase
-# prints the first two beside its own (TRAIN_LR_YARDSTICKS)
-TRAIN_LR = {"qwen2": 3e-4, "granite-moe": 3e-5}
-TRAIN_LR_YARDSTICKS = {"qwen2": (), "granite-moe": (3e-4, 1e-4)}
+# the patterns beyond the attention decoder: (arch, tag, layers (None: all),
+# B, S, largest batch tried without remat, f32 cut's layers).  whisper-small
+# at its 448-token text context over 1500 frames, 12 + 12 layers;
+# mamba2-130m at the other cells' B=8 x S=512 (2 SSD chunks of 256 a layer)
+# cut to 4 of its 24 layers, as qwen2 is, for the script's time (at 24 its
+# remat search alone takes minutes on the host); recurrentgemma-9b at full
+# width cut to one (rec, rec, local) group and its two rec tail layers (full
+# depth would hold 154 GB of training state), B=1 x S=2560 so that the
+# 2048-token window masks keys; its f32 cut is the same 5 layers
+TRAIN_PATTERNS = (("whisper-small", "whisper", None, 8, 448, 64, 2),
+                  ("mamba2-130m", "mamba2", 4, 8, 512, 64, 2),
+                  ("recurrentgemma-9b", "recurrentgemma", 5, 1, 2560, 8, 5))
+# AdamW peak learning rates, each the one of several that lowers the step-1
+# batch's loss after 5 steps (random full-width weights).  granite-moe at 24
+# layers (gradient norms ~1e13) raised it at 3e-4 and 1e-4 and lowered it at
+# 3e-5 and 1e-5; at the 12 layers it runs now it raises it at 3e-4 and 3e-5
+# and lowers it at 1e-4.  whisper-small (gradient norms ~1e17) lowers it at
+# 1e-3, 3e-4, 1e-4, 3e-5 and 1e-5, most at 1e-5; mamba2-130m (at 24 layers)
+# at all five, most at 1e-3, then 3e-4; recurrentgemma-9b's 5 layers most at
+# 1e-4, and raise it at 1e-3.  Each phase prints two others beside its own
+# (TRAIN_LR_YARDSTICKS)
+TRAIN_LR = {"qwen2": 3e-4, "granite-moe": 1e-4, "whisper": 1e-5, "mamba2": 3e-4,
+            "recurrentgemma": 1e-4}
+TRAIN_LR_YARDSTICKS = {"qwen2": (), "granite-moe": (3e-4, 3e-5), "whisper": (3e-4, 3e-5),
+                       "mamba2": (1e-3, 3e-5), "recurrentgemma": (1e-3, 3e-5)}
 # the reference's own plan_remat_policy / plan_with_remat parameters; a
 # smaller max_evict than the default 256 bounds the search's time (each
 # trial repacks ~4400 blocks by best fit)
@@ -1543,13 +1575,18 @@ def first_groups(cfg, params, groups: int):
 
 
 def train_phase(torch, ops, card: str, arch: str, short: str, *,
-                n_layers: int | None = None, batch_hi: int = 256) -> dict:
+                n_layers: int | None = None, batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ, batch_hi: int = 256, cut_layers: int = 2) -> dict:
     """The training path on full-width ``arch`` (at ``n_layers`` when given,
-    else full depth): profile, plan, train under three policies, check.  An
-    MoE model also prints ce and aux apart at the first and last step and
-    the no-remat run's drop share, and its f32 cut holds the routing on the
-    card against the CPU's.  Returns the kernel launches counted during the
-    phase (all must be 0)."""
+    else full depth) at ``batch`` x ``seq`` tokens: profile, plan, train
+    under three policies, check.  An encoder-decoder's profiles and steps
+    take the pipeline's seeded frames (B, encoder_seq, d_model) f32 beside
+    the tokens.  An MoE model also prints ce and aux apart at the first and
+    last step and the no-remat run's drop share, and its f32 cut holds the
+    routing on the card against the CPU's.  The f32 cut has ``cut_layers``
+    layers (the hybrid's first group and its tail: 5) and an
+    encoder-decoder's 2 encoder layers.  Returns the kernel launches counted
+    during the phase (all must be 0)."""
     import statistics
 
     from torch.utils._pytree import tree_leaves, tree_map
@@ -1569,14 +1606,22 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = cfg.with_overrides(n_layers=n_layers)
-    moe = bool(cfg.n_experts)
+    moe, enc = bool(cfg.n_experts), cfg.is_encoder_decoder
     opts = RunOpts(attention_impl="full", use_kernels=False)
     model = Transformer(cfg, opts)
-    bsds = {"tokens": ((TRAIN_BATCH, TRAIN_SEQ + 1), torch.int32)}
+
+    def batch_sds(b):
+        out = {"tokens": ((b, seq + 1), torch.int32)}
+        if enc:
+            out["frames"] = ((b, cfg.encoder_seq, cfg.d_model), torch.float32)
+        return out
+    bsds = batch_sds(batch)
     planner = MemoryPlanner()
-    tag = f"[train:{short}] B={TRAIN_BATCH} S={TRAIN_SEQ} {cfg.n_layers} layers"
+    tag = f"[train:{short}] B={batch} S={seq} {cfg.n_layers} layers"
+    if enc:
+        tag += f" + {cfg.encoder_layers} encoder layers over {cfg.encoder_seq} frames"
     if moe:
-        cap = moe_lib.capacity(TRAIN_BATCH * TRAIN_SEQ, cfg.top_k, cfg.n_experts,
+        cap = moe_lib.capacity(batch * seq, cfg.top_k, cfg.n_experts,
                                cfg.capacity_factor)
         tag += f" E={cfg.n_experts} k={cfg.top_k} C={cap}"
 
@@ -1603,8 +1648,7 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     max_b = planner.max_feasible_batch_planned(
-        lambda b: train_lib.profile_step(model, {"tokens": ((b, TRAIN_SEQ + 1), torch.int32)}),
-        HBM_BYTES, hi=batch_hi)
+        lambda b: train_lib.profile_step(model, batch_sds(b)), HBM_BYTES, hi=batch_hi)
     print(f"{tag} max_feasible_batch_planned (no remat, {HBM_BYTES / 1e9:.0f}GB, "
           f"batches 1-{batch_hi}) = {max_b} in {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
@@ -1614,12 +1658,29 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
     planned_peak = {"none": rep.plan.peak, "full": full_peak, "planned": ev.peak}
 
     # -- 3. train: 5 steps per policy from the same initial state and batches -------------
+    t_train = time.perf_counter()
     acfg = AdamWConfig(lr=TRAIN_LR[short], warmup_steps=2, total_steps=TRAIN_STEPS)
-    pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                                        global_batch=TRAIN_BATCH, seed=0))
-    batches = [{"tokens": torch.from_numpy(pipe.batch_at(i)["tokens"]).cuda()}
+    pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                        global_batch=batch, seed=0,
+                                        frames=cfg.encoder_seq if enc else 0,
+                                        frame_dim=cfg.d_model if enc else 0))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(i).items()}
                for i in range(TRAIN_STEPS)]
-    losses, gnorms, finals = {}, {}, {}
+    losses, gnorms, param_errs = {}, {}, {}
+    none_final = None
+
+    def param_err(params, base):
+        """(relative L2, max abs) difference of ``params`` from ``base``"""
+        d2 = w2 = dmax = 0.0
+        with torch.no_grad():
+            for a, b in zip(params, base):
+                b = b.to(a.device)
+                d = a - b
+                d2 += float(torch.linalg.vector_norm(d, dtype=torch.float64)) ** 2
+                w2 += float(torch.linalg.vector_norm(b, dtype=torch.float64)) ** 2
+                dmax = max(dmax, float(d.abs().max()))
+                del b, d
+        return math.sqrt(d2 / w2), dmax
     drops: dict = {}
     for name, remat in (("none", False), ("full", True), ("planned", policy)):
         free_cuda(torch)
@@ -1644,8 +1705,23 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
                 ls.append(float(m["loss"]))
                 gn.append(float(m["grad_norm"]))
                 parts.append((float(m["ce"]), float(m["aux"])))
+        # the grad step alone (what the plan packs): the step's peak also
+        # holds the optimizer update's temporaries
+        free_cuda(torch)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = train_lib.grad_step(model, remat)(state["params"], batches[0])
+        torch.cuda.synchronize()
+        grad_peak = torch.cuda.max_memory_allocated() - before
+        del grads
         losses[name], gnorms[name] = ls, gn
-        finals[name] = tree_leaves(state["params"])
+        # no remat's final parameters wait on the host (the hybrid's would not
+        # fit on the card beside another run's training state); each other
+        # run is compared with them on the card, a leaf at a time
+        if name == "none":
+            none_final = [t.detach().cpu() for t in tree_leaves(state["params"])]
+        else:
+            param_errs[name] = param_err(tree_leaves(state["params"]), none_final)
         if name == "none":
             with torch.no_grad():
                 held = float(model.loss_fn(state["params"], batches[0], remat=False)[0])
@@ -1659,7 +1735,9 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
               f"grad_norms={[round(x, 6) for x in gn]} "
               f"step_ms={[round(x, 1) for x in ms]} median_step_ms={statistics.median(ms):.1f} "
               f"measured_peak={peak / 1e9:.3f}GB planned_peak={planned_peak[name] / 1e9:.3f}GB "
-              f"measured/planned={peak / planned_peak[name]:.3f} | {card}", flush=True)
+              f"measured/planned={peak / planned_peak[name]:.3f} grad_step_peak="
+              f"{grad_peak / 1e9:.3f}GB grad_step/planned="
+              f"{grad_peak / planned_peak[name]:.3f} | {card}", flush=True)
         del state, step
     for lr in TRAIN_LR_YARDSTICKS[short]:
         free_cuda(torch)
@@ -1680,28 +1758,18 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
     if moe:
         (calls, n, dropped), = drops.values()
         dropped = int(dropped.item())
-        print(f"{tag} remat=none dispatch drops at T={TRAIN_BATCH * TRAIN_SEQ}, C={cap}: "
+        print(f"{tag} remat=none dispatch drops at T={batch * seq}, C={cap}: "
               f"{dropped}/{n} assignments ({dropped / n:.4f}) over {calls} calls "
               f"({TRAIN_STEPS} steps x {cfg.n_layers} layers) | {card}", flush=True)
 
-    def state_err(name):
-        """(max relative grad-norm difference over the steps, relative L2
-        and max abs difference of the parameters after them), against no
-        remat"""
-        g = max(abs(x - y) / abs(y) for x, y in zip(gnorms[name], gnorms["none"]))
-        d2 = w2 = dmax = 0.0
-        with torch.no_grad():
-            for a, b in zip(finals[name], finals["none"]):
-                d = a.double() - b.double()
-                d2 += float((d * d).sum())
-                w2 += float(b.double().square().sum())
-                dmax = max(dmax, float(d.abs().max()))
-        return g, math.sqrt(d2 / w2), dmax
-    state_errs = {name: state_err(name) for name in ("full", "planned")}
+    state_errs = {name: (max(abs(x - y) / abs(y) for x, y in zip(gnorms[name], gnorms["none"])),
+                         *param_errs[name]) for name in ("full", "planned")}
     for name, (g, p, dmax) in state_errs.items():
         print(f"{tag} remat={name} against none: grad norms' max rel diff {g:.3g}; parameters after {TRAIN_STEPS} steps rel L2 {p:.3g} "
               f"max_abs {dmax:.3g} (tol {TRAIN_STATE_TOL} relative)", flush=True)
-    del finals
+    del none_final
+    print(f"{tag} training, yardsticks and comparisons took "
+          f"{time.perf_counter() - t_train:.1f}s", flush=True)
 
     # -- 4. check ----------------------------------------------------------------------------
     base = losses["none"]
@@ -1728,23 +1796,55 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
     # gradients by ~1e-3 (scores of the reference's init are large), so the
     # card must be at most twice as far from float64 as the CPU is.  An MoE
     # cut must route alike on the card and the CPU first (keep and dest of
-    # every layer), or the two compute different functions.
-    cut = get_config(arch).with_overrides(n_layers=2, dtype="float32")
-    cut_tokens = torch.from_numpy(pipe.batch_at(0)["tokens"][:2, :65].copy())
+    # every layer), or the two compute different functions.  The gradients
+    # are compared leaf by leaf, the card's copied to the host one at a time
+    # and the float64 ones kept, so that the hybrid's 3.1 B-parameter cut
+    # holds no three whole gradient vectors on the host at once.
+    t_cut = time.perf_counter()
+    cut = get_config(arch).with_overrides(n_layers=cut_layers, dtype="float32",
+                                          **({"encoder_layers": 2} if enc else {}))
+    first = pipe.batch_at(0)
+    cut_batch = {"tokens": torch.from_numpy(first["tokens"][:2, :65].copy())}
+    if enc:
+        cut_batch["frames"] = torch.from_numpy(first["frames"][:2].copy())
     init = Transformer(cut, opts, device="cpu").init(torch.Generator().manual_seed(SEED + 11))
-    out, routing = {}, {}
+    losses_cut, grads_cut, routing = {}, {}, {}
+    sq = {"card-float64": 0.0, "cpu-float64": 0.0, "card-cpu": 0.0}
+    norm2 = {"float64": 0.0, "cpu": 0.0}
     for label, dev, dt in (("float64", "cpu", torch.float64), ("cpu", "cpu", torch.float32),
                            ("card", "cuda", torch.float32)):
         m = Transformer(cut.with_overrides(dtype=str(dt).removeprefix("torch.")), opts,
                         device=dev)
-        params = tree_map(lambda t: t.to(dev, dt).requires_grad_(), init)
+        params = tree_map(lambda t: t.to(dev, dt).detach().requires_grad_(), init)
+        if label == "card":
+            init = None
         seen = routing.setdefault(label, [])
         with watching_dispatch(moe_lib, lambda xg, d: seen.append((d.keep.cpu(),
                                                                    d.dest.cpu()))):
-            loss, _ = m.loss_fn(params, {"tokens": cut_tokens.to(dev)}, remat=False)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
-        out[label] = (float(loss.detach()),
-                      torch.cat([g.detach().double().cpu().flatten() for g in grads]))
+            loss, _ = m.loss_fn(params, {k: v.to(dev) for k, v in cut_batch.items()},
+                                remat=False)
+        grads = train_lib.leaf_grads(loss, tree_leaves(params))
+        losses_cut[label] = float(loss.detach())
+        del params, loss, m
+        if label == "float64":
+            grads_cut["float64"] = [g.detach() for g in grads]
+            norm2["float64"] = sum(float(torch.linalg.vector_norm(g)) ** 2
+                                   for g in grads_cut["float64"])
+            continue
+        for i, g in enumerate(grads):
+            d = g.detach().to("cpu", torch.float64)
+            if label == "cpu":
+                norm2["cpu"] += float(torch.linalg.vector_norm(d)) ** 2
+            else:
+                sq["card-cpu"] += float(torch.linalg.vector_norm(d - grads_cut["cpu"][i])) ** 2
+            d.sub_(grads_cut["float64"][i])
+            sq[f"{label}-float64"] += float(torch.linalg.vector_norm(d)) ** 2
+            del d
+        if label == "cpu":
+            grads_cut["cpu"] = [g.detach() for g in grads]
+        del grads
+    del grads_cut
+    free_cuda(torch)
 
     def same_routes(a, b):
         return len(routing[a]) == len(routing[b]) and all(
@@ -1761,15 +1861,18 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
             raise AssertionError(f"train: the f32 cut of {arch} routes differently on the "
                                  "card and on the CPU (keep or dest differ)")
 
-    def grad_err(a, b):
-        return float((out[a][1] - out[b][1]).norm() / out[b][1].norm())
-    loss_err = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    err_card, err_cpu = grad_err("card", "float64"), grad_err("cpu", "float64")
-    print(f"[check] {arch} f32 2-layer full-width train step (2 x 64 tokens, TF32 off): "
-          f"loss card {out['card'][0]:.6f} CPU {out['cpu'][0]:.6f} rel_err={loss_err:.3g} "
-          f"(tol {CUT_LOSS_TOL}); gradients' rel L2 distance from float64: card "
-          f"{err_card:.3g}, CPU {err_cpu:.3g} (tol {CUT_GRAD_YARDSTICK}x the CPU's), card "
-          f"against CPU {grad_err('card', 'cpu'):.3g}", flush=True)
+    def grad_err(pair, ref):
+        return math.sqrt(sq[pair] / norm2[ref])
+    loss_err = abs(losses_cut["card"] - losses_cut["cpu"]) / abs(losses_cut["cpu"])
+    err_card, err_cpu = grad_err("card-float64", "float64"), grad_err("cpu-float64", "float64")
+    what = f"{cut.n_layers}-layer" + (f" + {cut.encoder_layers}-encoder-layer" if enc else "")
+    print(f"[check] {arch} f32 {what} full-width train step (2 x 64 tokens"
+          f"{f' over 2 x {cut.encoder_seq} frames' if enc else ''}, TF32 off): "
+          f"loss card {losses_cut['card']:.6f} CPU {losses_cut['cpu']:.6f} "
+          f"rel_err={loss_err:.3g} (tol {CUT_LOSS_TOL}); gradients' rel L2 distance from "
+          f"float64: card {err_card:.3g}, CPU {err_cpu:.3g} (tol {CUT_GRAD_YARDSTICK}x the "
+          f"CPU's), card against CPU {grad_err('card-cpu', 'cpu'):.3g}; "
+          f"{time.perf_counter() - t_cut:.1f}s", flush=True)
     if not (loss_err <= CUT_LOSS_TOL and err_card <= CUT_GRAD_YARDSTICK * err_cpu):
         raise AssertionError("train: the f32 cut's loss or gradients on the card are "
                              "further from the CPU's / float64's than allowed")
@@ -2075,13 +2178,18 @@ def main() -> int:
                  max_len=HYBRID_MAX_LEN, long_rids=(2,))
 
     stamp(t_start, "phase 6")
-    # -- 7. the training paths: qwen2-0.5b cut to 4 layers, granite-moe at full depth ----
+    # -- 7. the training paths: qwen2-0.5b, granite-moe, then the other patterns --------
     train_q = train_phase(torch, ops, card, ARCH, "qwen2", n_layers=TRAIN_QWEN2_LAYERS)
     stamp(t_start, "phase 7 qwen2")
     train_m = train_phase(torch, ops, card, MOE_ARCHS[0][0], MOE_ARCHS[0][1],
-                          batch_hi=TRAIN_MOE_BATCH_HI)
-    train = {k: train_q[k] + train_m[k] for k in train_q}
-    stamp(t_start, "phase 7")
+                          n_layers=TRAIN_MOE_LAYERS, batch_hi=TRAIN_MOE_BATCH_HI)
+    stamp(t_start, "phase 7 granite-moe")
+    runs = [train_q, train_m]
+    for arch, short, depth, b, s, hi, cut_layers in TRAIN_PATTERNS:
+        runs.append(train_phase(torch, ops, card, arch, short, n_layers=depth, batch=b,
+                                seq=s, batch_hi=hi, cut_layers=cut_layers))
+        stamp(t_start, f"phase 7 {short}")
+    train = {k: sum(r[k] for r in runs) for k in train_q}
     # -- 8. records ------------------------------------------------------------------------
     pk = paged[("bfloat16", MAX_BATCH)]
     pk128 = paged128[("bfloat16", MAX_BATCH)]

@@ -15,6 +15,11 @@ Examples:
       --ckpt-dir ckpt --fail-at 150 --resume
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
       --preset 100m --steps 50 --remat planned
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+      --device cpu --preset tiny --steps 4   # also mamba2-130m, recurrentgemma-9b
+
+Every registered config trains; an encoder-decoder's batches carry the
+pipeline's seeded frames (B, encoder_seq, d_model) beside the tokens.
 """
 from __future__ import annotations
 
@@ -127,6 +132,9 @@ def main(argv=None) -> None:
     # paper's planner: activation plan for this exact step, and the
     # profile-guided remat policy that replaces the boolean flag
     batch_sds = {"tokens": ((batch, seq + 1), torch.int32)}
+    enc = cfg.is_encoder_decoder
+    if enc:
+        batch_sds["frames"] = ((batch, cfg.encoder_seq, cfg.d_model), torch.float32)
     prof = train_lib.profile_step(model, batch_sds, grad=False)
     rep = MemoryPlanner().report(prof)
     print(f"memory plan: peak={rep.plan.peak / 1e6:.1f}MB "
@@ -179,7 +187,9 @@ def main(argv=None) -> None:
 
     step_fn, _ = train_lib.build_train_step(model, None, acfg, topts)
     pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                        global_batch=batch, seed=args.seed))
+                                        global_batch=batch, seed=args.seed,
+                                        frames=cfg.encoder_seq if enc else 0,
+                                        frame_dim=cfg.d_model if enc else 0))
     with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as tmp:
         ckpt = Checkpointer(args.ckpt_dir or tmp)
         ctl = TrainController(

@@ -11,7 +11,7 @@ decoder position embedding, as in the reference).
 Entry points, with the reference's contracts:
   * ``loss_fn(params, batch)``        — training forward (+ CE loss, + 0.01
                                         x the MoE aux term) over f32 master
-                                        parameters (the attention pattern)
+                                        parameters, every pattern
   * ``prefill(params, batch)``        — inference forward, builds the cache
   * ``decode_step(params, cache, t)`` — one-token step over the contiguous
                                         cache or, when the cache carries
@@ -263,12 +263,13 @@ class Transformer:
         self.opts = opts
         self.device = resolve_device(device)
         self.compute_dtype = DTYPES[cfg.dtype]
-        # gemma-style embed scaling by bf16(sqrt(d)), the reference's
-        # numerics; made once on the device, since a host-built tensor
-        # cannot be copied in while a CUDA graph is being captured
-        self._embed_scale = (torch.tensor(math.sqrt(cfg.d_model),
-                                          dtype=self.compute_dtype,
-                                          device=self.device)
+        # gemma-style embed scaling by sqrt(d) rounded to the compute dtype,
+        # the reference's numerics (a product of two bf16 values rounds once
+        # either way); a Python number, so that no host tensor is copied in
+        # while a CUDA graph is captured and fake tensors (profiles) mix
+        # with it
+        self._embed_scale = (float(torch.tensor(math.sqrt(cfg.d_model),
+                                                dtype=self.compute_dtype))
                              if cfg.family == "hybrid" else None)
         # the encoder-decoder's cross-attention position, the last frame's
         # (every frame valid), made once on the device for the same reason
@@ -376,11 +377,15 @@ class Transformer:
         """Whisper's encoder over stub frame embeddings (B, F, D): the
         frames in the compute dtype plus the sinusoid table, the encoder's
         attn blocks with non-causal self-attention (the flash kernel under
-        ``attention_impl="kernel"``), its final norm."""
+        ``attention_impl="kernel"``), its final norm.  Each block's leaves go
+        through ``load`` first: a no-op over loaded parameters, the casts of
+        the f32 masters in training, which the encoder runs unwrapped by
+        remat, as the reference's ``_encode`` does."""
         dt = self.compute_dtype
         pos = torch.arange(frames.shape[1], device=frames.device)
         x = frames.to(dt) + sinusoid(pos, self.cfg.d_model, dt)[None]
         for p in params["encoder"]["blocks"]:
+            p = self.load(p)
             q, k, v = self._attn_qkv(x, p, None)
             ctx = attn.attend(q, k, v, impl=self.opts.attention_impl, causal=False)
             x = self._finish_block(x, ctx, p)
@@ -402,7 +407,11 @@ class Transformer:
         return x + mlp(h, p["mlp"], self.cfg.act)
 
     def _embed_in(self, params, tokens):
-        x = embed_lookup(params["embed"], tokens)
+        """The rows of ``tokens`` in the compute dtype, times ``sqrt(d_model)``
+        in that dtype for the hybrid: the reference's ``_embed_in``
+        order, so over f32 masters the scale reaches the embedding's
+        gradient as it does there (over loaded rows the cast is a no-op)."""
+        x = embed_lookup(params["embed"], tokens).to(self.compute_dtype)
         if self._embed_scale is not None:
             x = x * self._embed_scale
         return x
@@ -411,22 +420,61 @@ class Transformer:
         return x @ params.get("lm_head", params["embed"]).t()
 
     # ---- training -----------------------------------------------------------------
-    def _train_layer(self, x, p, cos, sin):
-        """One attention block over f32 master leaves, cast to the compute
-        dtype here, inside the layer's checkpointed region: the casts are
-        saved or recomputed with the layer, and gradients reach the f32
-        masters through them, as through the reference's per-use ``cdt``.
-        Returns ``(x, aux)``: the MoE FFN's Switch aux term with
-        ``n_experts``, else None (the reference's ``co.get("aux", 0.0)``)."""
+    def _train_block(self, kind, x, p, rope_cs, enc):
+        """One block of ``kind`` over f32 master leaves, cast to the compute
+        dtype here, inside the checkpointed region of its group: the casts
+        are saved or recomputed with the group, and gradients reach the f32
+        masters through them, as through the reference's per-use ``cdt``
+        (its ``_apply_block``).  Returns ``(x, aux)``: the MoE FFN's Switch
+        aux term with ``n_experts``, else None (the reference's
+        ``co.get("aux", 0.0)``)."""
+        cfg, opts, cdt = self.cfg, self.opts, self.compute_dtype
         p = self.load(p)
-        q, k, v = self._attn_qkv(x, p, (cos, sin))
-        ctx = attn.attend(q, k, v, impl=self.opts.attention_impl, causal=True)
-        if not self.cfg.n_experts:
+        if kind == "mamba2":
+            h = self._norm(x, p["norm"])
+            return x + ssm_lib.mamba2_block(h, p, cfg, cdt, chunk=opts.ssd_chunk,
+                                            use_kernel=False), None
+        if kind == "rec":
+            h = self._norm(x, p["norm"])
+            x = x + rglru_lib.recurrent_block(h, p, cfg, cdt, use_kernel=False,
+                                              block=opts.rglru_block)
+            return self._mlp_residual(x, p), None
+        q, k, v = self._attn_qkv(x, p, rope_cs)
+        ctx = attn.attend(q, k, v, impl=opts.attention_impl, causal=True,
+                          window=cfg.local_window if kind == "local" else 0)
+        if kind == "xattn":
+            return self._finish_block(x, ctx, p, attn.kv_project(enc, p["xattn"], cfg)), None
+        if not cfg.n_experts:
             return self._finish_block(x, ctx, p), None
-        x = x + attn.out_project(ctx, p["attn"], self.cfg)
-        y, aux = moe_lib.moe_mlp(self._norm(x, p["mlp_norm"]), p["mlp"], self.cfg,
-                                 self.compute_dtype, need_aux=True)
+        x = x + attn.out_project(ctx, p["attn"], cfg)
+        y, aux = moe_lib.moe_mlp(self._norm(x, p["mlp_norm"]), p["mlp"], cfg, cdt,
+                                 need_aux=True)
         return x + y, aux
+
+    def _train_group(self, x, aux, group, rope_cs, enc):
+        """The blocks of ``group`` ((kind, leaves) pairs) in order, adding
+        their aux terms to ``aux`` (None until the first) in layer order."""
+        for kind, p in group:
+            x, a = self._train_block(kind, x, p, rope_cs, enc)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
+
+    def _run_stack(self, params, x, rope_cs, enc, remat):
+        """The reference's ``_run_stack``: each group of ``len(block_pattern)``
+        layers under ``RematPolicy.coerce(remat).wrap`` (the hybrid's rec,
+        rec, local in one checkpointed region), then the ``tail_pattern``
+        layers unwrapped -> (x, the aux terms summed in order, or None: the
+        reference's 0 + aux_0 + aux_1 + ..., less the 0)."""
+        from ..remat.policy import RematPolicy
+        n_pat = len(self.cfg.block_pattern)
+        n_body = len(self.kinds) - len(self.cfg.tail_pattern)
+        pairs = list(zip(self.kinds, params["layers"]))
+        wrapped = RematPolicy.coerce(remat).wrap(self._train_group)
+        aux = None
+        for i in range(0, n_body, n_pat):
+            x, aux = wrapped(x, aux, pairs[i:i + n_pat], rope_cs, enc)
+        return self._train_group(x, aux, pairs[n_body:], rope_cs, enc)
 
     def _train_logits(self, params, x):
         table = params.get("lm_head", params["embed"])
@@ -481,44 +529,33 @@ class Transformer:
         return tot / mask.sum().clamp(min=1.0)
 
     def loss_fn(self, params, batch, *, remat=True):
-        """batch: {"tokens": (B, S+1) int32[, "mask": (B, S+1)]} over f32
-        master ``params`` (``init`` or ``params_from_jax``, not ``load``'s
-        cast copies) -> (loss, {"ce", "aux"}), with ``loss = ce + 0.01 *
-        aux`` and ``aux`` the layers' MoE aux terms summed in layer order
-        (zero without experts), as the reference's ``_run_stack`` carries it.
+        """batch: {"tokens": (B, S+1) int32[, "mask": (B, S+1)][, "frames":
+        (B, F, D)]} over f32 master ``params`` (``init`` or
+        ``params_from_jax``, not ``load``'s cast copies) -> (loss, {"ce",
+        "aux"}), with ``loss = ce + 0.01 * aux`` and ``aux`` the layers' MoE
+        aux terms summed in layer order (zero without experts), as the
+        reference's ``_run_stack`` carries it.  An encoder-decoder needs
+        ``frames``: its encoder runs first, outside any remat wrap, and every
+        decoder layer's cross-attention reads its output.
 
         ``remat`` is the legacy bool or a ``repro_torch.remat.RematPolicy``:
-        each layer (the reference's pattern group) runs under
-        ``RematPolicy.coerce(remat).wrap``.  No kernel has a backward, in
-        either package, so RunOpts naming a kernel path raise ``ValueError``;
-        the mamba2 and hybrid patterns and the encoder-decoder are not ported
-        to training yet."""
-        from ..remat.policy import RematPolicy
-        if self.kind == "xattn":
-            raise NotImplementedError(
-                "loss_fn: training the xattn encoder-decoder (whisper-small) is not "
-                "ported yet (ROADMAP queue 1: whisper training)")
-        if self.kind != "attn":
-            raise NotImplementedError(
-                f"loss_fn: training the {self.kind} pattern is not ported yet "
-                "(ROADMAP queue 1: training the mamba2 and hybrid patterns)")
+        each pattern group runs under ``RematPolicy.coerce(remat).wrap``, the
+        tail and the encoder unwrapped.  No kernel has a backward, in either
+        package, so RunOpts naming a kernel path raise ``ValueError``: the
+        SSD and RG-LRU blocks take their plain scans."""
         if self.opts.attention_impl == "kernel" or self.opts.use_kernels:
             raise ValueError("loss_fn: the CUDA kernels have no backward; train with "
                              "RunOpts(attention_impl='full', use_kernels=False)")
-        cdt = self.compute_dtype
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         mask = batch.get("mask")
         mask = (torch.ones(targets.shape, dtype=torch.float32, device=tokens.device)
                 if mask is None else mask[:, 1:].float())
-        x = embed_lookup(params["embed"], inputs).to(cdt)
-        cos, sin = self._rope(torch.arange(inputs.shape[1], device=tokens.device)[None, :])
-        layer = RematPolicy.coerce(remat).wrap(self._train_layer)
-        aux = None              # the reference's 0 + aux_0 + aux_1 + ..., less the 0
-        for p in params["layers"]:
-            x, layer_aux = layer(x, p, cos, sin)
-            if layer_aux is not None:
-                aux = layer_aux if aux is None else aux + layer_aux
+        x = self._embed_in(params, inputs)
+        rope_cs = self._rope(torch.arange(inputs.shape[1], device=tokens.device)[None, :])
+        enc = (self._encode(params, self._frames(batch.get("frames"), "loss_fn"))
+               if self.kind == "xattn" else None)
+        x, aux = self._run_stack(params, x, rope_cs, enc, remat)
         x = self._norm(x, params["final_norm"])
         ce = self._loss_from_h(params, x, targets, mask)
         if aux is None:

@@ -71,11 +71,18 @@ def _fake_batch(mode: FakeTensorMode, batch_sds: dict, device) -> dict:
                 for k, (shape, dt) in batch_sds.items()}
 
 
+def leaf_grads(loss, leaves):
+    """The gradient of ``loss`` for every leaf, zeros for a leaf the loss
+    does not read (the ``norm`` of whisper's cross-attention, which its
+    ``xnorm`` replaces), as ``jax.grad`` gives them."""
+    return torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+
+
 def grad_step(model: Transformer, remat):
     """``(params, batch) -> grads``: the step the remat planner profiles."""
     def step(params, batch):
         loss, _ = model.loss_fn(params, batch, remat=remat)
-        return torch.autograd.grad(loss, tree_leaves(params))
+        return leaf_grads(loss, tree_leaves(params))
     return step
 
 
@@ -223,7 +230,7 @@ def build_train_step(model: Transformer, mesh, adamw_cfg: adamw.AdamWConfig,
 
     def grads_of(params, leaves, mb):
         loss, metrics = model.loss_fn(params, mb, remat=opts.remat)
-        return loss.detach(), metrics, torch.autograd.grad(loss, leaves)
+        return loss.detach(), metrics, leaf_grads(loss, leaves)
 
     def step_fn(state, batch):
         params = state["params"]

@@ -254,9 +254,12 @@ def test_abstract_state_is_fake_and_shaped_like_the_real_one(setup):
 
 
 def test_unported_training_paths_raise():
+    """Every pattern trains; the kernels have no backward, so a model whose
+    RunOpts name them refuses to train (mamba2 here: the SSD kernel), and a
+    mesh is refused."""
     cfg = get_config("mamba2-130m").smoke()
-    m = Transformer(cfg, RunOpts(attention_impl="full", use_kernels=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    m = Transformer(cfg, RunOpts(), device="cpu")
+    with pytest.raises(ValueError, match="no backward"):
         m.loss_fn(m.init(torch.Generator().manual_seed(0)),
                   {"tokens": torch.zeros(1, 9, dtype=torch.int32)})
     q = Transformer(get_config("qwen2-0.5b").smoke(),

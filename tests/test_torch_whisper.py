@@ -306,12 +306,17 @@ def test_prefill_refuses_missing_or_misshapen_frames(pair):
 
 def test_engine_loss_and_device_refusals(pair):
     """The engine has no path for frames (the reference's fails at its first
-    prefill, with a KeyError); training is queued; no card, no model."""
+    prefill, with a KeyError); training needs frames and the plain paths
+    (the kernels have no backward); no card, no model."""
     *_, tm, tp = pair
     with pytest.raises(ValueError, match="encoder frames"):
         ServeEngine(tm, tp, sample_trace=[Request(1, 8, 4, 0)], max_len=32, max_batch=2)
     toks = torch.zeros(1, 5, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="whisper training"):
+    train = Transformer(tm.cfg, RunOpts(attention_impl="full", use_kernels=False),
+                        device="cpu")
+    with pytest.raises(ValueError, match="needs frames"):
+        train.loss_fn(train.init(torch.Generator().manual_seed(0)), {"tokens": toks})
+    with pytest.raises(ValueError, match="no backward"):
         tm.loss_fn(tp, {"tokens": toks, "frames": torch.zeros(1, 16, 64)})
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
