@@ -142,7 +142,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the CPU's own f32 gradients (relative L2 over every leaf), TF32 off;
      granite-moe's cut must first route alike on the card and the CPU
      (every layer's ``keep`` and ``dest``);
-  8. print the load phases' launches (``[load] launches``), the kernels
+  8. the paper's own nets at their registered sizes, f32, TF32 off
+     (``paper_cnn_phase``, ``paper_s2s_phase``, through ``launch/paper.py``):
+     ``[paper:alexnet]``, ``[paper:resnet50]`` (224x224) and
+     ``[paper:inception-resnet]`` (299x299), each profiled (the SGD step's
+     Fig. 2 row, naive / pool / DSA, and B=1 inference's), trained 3 SGD
+     steps at the largest of 8, 16, 32, 64 whose retained + DSA peak fits
+     the card's free memory (Inception-ResNet cut to 4 for the script's
+     time) with the measured allocated and reserved peaks over the plan,
+     the largest batch each allocator fits in 80 GB (DSA's boundary traced
+     at b and b + 1), and a 64x64 B=2 cut held against the CPU; ``[paper:seq2seq]`` (vocab 40,000, d 512, 2
+     layers) at B=64 over lengths 10, 30 and 50, a profile per length
+     replayed through a signature-mode arena before each step (its replans
+     stop once every length has been seen), 100 greedy tokens at B=1, and a
+     small cut's greedy tokens on the card and the CPU;
+  9. ``[chunked]`` (``chunked_phase``): ``attend_chunked`` against
+     ``attend_full`` at qwen2-0.5b's layout over 16384 bf16 tokens, with
+     each one's peak, then a grad step of full-width qwen2-0.5b cut to 2
+     layers under ``attention_impl="auto"`` (chunked past 8192) against
+     ``"full"``, without and with full remat, at the largest S of 16384,
+     12288, 10240 whose no-remat plans fit the card: losses and gradients;
+     then the chunked backward over 8448 tokens held against float64 in
+     f32 and bf16 (``chunked_witness``);
+  10. print the load phases' launches (``[load] launches``), the kernels
      JSON line, the card line, and the result line.
 
 Every serving path runs twice on the same trace and weights, first with the
@@ -249,6 +271,37 @@ TRAIN_LOSS_TOL = 1e-3       # full / planned against no remat, relative
 TRAIN_STATE_TOL = 1e-5      # their per-step grad norms and final parameters, relative
 CUT_LOSS_TOL = 1e-5         # f32 cut, card against CPU, relative
 CUT_GRAD_YARDSTICK = 2.0    # card's gradient distance from float64, over the CPU's
+# [paper:*]: the paper's own nets at their registered sizes, each trained at
+# the largest of PAPER_BATCHES whose retained + DSA peak fits the card's free
+# memory, cut to PAPER_BATCH_CAP for the script's time (Inception-ResNet:
+# ~25.6 TFLOP of f32 a sample and step); PAPER_STEPS SGD steps each, at
+# ``launch.paper.sgd_lr``'s rate
+PAPER_CNNS = (("paper-alexnet", "alexnet"), ("paper-resnet50", "resnet50"),
+              ("paper-inception-resnet", "inception-resnet"))
+PAPER_BATCHES = (8, 16, 32, 64)
+PAPER_BATCH_CAP = {"inception-resnet": 4}
+PAPER_STEPS = 3
+PAPER_CUT_IMG, PAPER_CUT_BATCH = 64, 2        # the card-against-CPU cut
+PAPER_LOGIT_TOL = 1e-4      # of max|logits|, f32, TF32 off
+PAPER_PARAM_TOL = 1e-5      # relative L2 of all parameters after one SGD step
+# [paper:seq2seq]: B=64 over the three length buckets, then the arena's
+# replans; a small cut's greedy tokens on the card and the CPU
+S2S_BATCH, S2S_LENGTHS, S2S_STEPS = 64, (10, 30, 50), 6
+S2S_CUT = dict(vocab=1000, d_model=128, infer_len=20)
+# [chunked]: attention at qwen2-0.5b's layout over 16384 bf16 tokens, then a
+# training step of full-width qwen2 cut to 2 layers at the largest of
+# CHUNK_SEQS whose no-remat planned peaks fit (auto takes chunked past 8192)
+CHUNK_SEQ, CHUNK_SEQS, CHUNK_LAYERS, CHUNK_TOL = 16384, (16384, 12288, 10240), 2, 2e-2
+# auto's bf16 gradients (chunked) against full's at that S, relative L2 over
+# every leaf, with every wq / wk at std 1/sqrt(d_model): twice the bf16
+# witness's distance from float64 (8.3e-3 chunked, 7.4e-3 full), rounded up;
+# read 6.8e-3 (one H100, 700 W)
+CHUNK_GRAD_TOL = 2e-2
+# the witness: the same 2 layers with the vocabulary cut to 8192, at 8448
+# tokens (8 chunks of 1024 and a padded one of 256), in float64 (full, the
+# yardstick), f32 and bf16 (chunked and full); chunked's gradients may be at
+# most CUT_GRAD_YARDSTICK times as far from float64's as full's are
+CHUNK_WITNESS_SEQ, CHUNK_WITNESS_VOCAB = 8448, 8192
 
 
 def card_line() -> str:
@@ -1647,8 +1700,11 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
           f"{ev.reached_target}) rounds={ev.meta['rounds']} "
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
+    # the search starts where the packing peak, scaled with the batch, meets
+    # the budget: the same boundary as a bisection from 1, fewer profiles
     max_b = planner.max_feasible_batch_planned(
-        lambda b: train_lib.profile_step(model, batch_sds(b)), HBM_BYTES, hi=batch_hi)
+        lambda b: train_lib.profile_step(model, batch_sds(b)), HBM_BYTES, hi=batch_hi,
+        guess=batch * (HBM_BYTES - prof.retained_bytes) // rep.plan.peak)
     print(f"{tag} max_feasible_batch_planned (no remat, {HBM_BYTES / 1e9:.0f}GB, "
           f"batches 1-{batch_hi}) = {max_b} in {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
@@ -1878,6 +1934,364 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
                              "further from the CPU's / float64's than allowed")
     print(f"{tag} launches during training {launches}; phase "
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    return launches
+
+
+def cudnn_line(torch) -> str:
+    c = torch.backends.cudnn
+    return (f"cudnn {c.version()} enabled={c.enabled} benchmark={c.benchmark} "
+            f"deterministic={c.deterministic} allow_tf32={c.allow_tf32}; "
+            f"matmul allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+
+def rel_l2(got, want) -> float:
+    """Relative L2 distance of two lists of tensors (pairs on one device),
+    over every element, in float64 a leaf at a time."""
+    d2 = w2 = 0.0
+    for a, b in zip(got, want):
+        b = b.detach().double()
+        d2 += float((a.detach().double() - b).norm()) ** 2
+        w2 += float(b.norm()) ** 2
+    return math.sqrt(d2 / w2)
+
+
+def paper_cnn_phase(torch, ops, card: str, arch: str, short: str) -> dict:
+    """``[paper:<net>]``: one of the paper's CNNs at its registered size
+    (224, 224 or 299 pixels, f32, TF32 off) through ``launch.paper.run_cnn``:
+    the train step's profile at the largest of ``PAPER_BATCHES`` whose
+    retained + DSA peak fits the card's free memory (profiled from the
+    largest down), trained at that batch or, for Inception-ResNet, at 4
+    (``PAPER_BATCH_CAP``: its 16 would take ~11 s a step), at
+    ``paper.sgd_lr``'s rate (the reference's 0.01, Inception-ResNet's 1e-6),
+    the Fig. 2 rows of the step and of B=1 inference, the largest batch naive, pool and DSA each
+    fit in 80 GB, ``PAPER_STEPS`` SGD steps with the measured allocated and
+    reserved peaks over the plan, then a card-against-CPU cut of the same
+    widths at 64x64 pixels and B=2.  Fails unless the losses are finite, the
+    step-1 batch's loss has fallen after the steps, the B=1 logits are
+    finite, the cut's logits agree within ``PAPER_LOGIT_TOL`` of their scale
+    and its parameters after one SGD step within ``PAPER_PARAM_TOL``, and no
+    kernel launched."""
+    import dataclasses
+
+    from repro_torch.launch import paper
+    from repro_torch.models import cnn
+
+    free_cuda(torch)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = paper.config(arch)
+    free, _ = torch.cuda.mem_get_info()
+    fit = None
+    for b in sorted(PAPER_BATCHES, reverse=True):
+        r = paper.row(paper.cnn_profile(cfg, b, dev))
+        print(f"[paper:{short}] B={b}: retained+DSA {(r['retained'] + r['dsa']) / 1e9:.3f}GB "
+              f"against {free / 1e9:.3f}GB free", flush=True)
+        if r["retained"] + r["dsa"] <= free:
+            fit = b
+            break
+    if fit is None:
+        raise AssertionError(f"paper:{short}: no batch of {PAPER_BATCHES} fits the card")
+    batch = min(fit, PAPER_BATCH_CAP.get(short, fit))
+    print(f"[paper:{short}] trains at B={batch} (largest of {PAPER_BATCHES} that fits: "
+          f"{fit}{'; cut for the script time' if batch < fit else ''}) | {cudnn_line(torch)}",
+          flush=True)
+    res = paper.run_cnn(cfg, batch=batch, steps=PAPER_STEPS, device=dev, seed=SEED,
+                        log=lambda line: print(line, flush=True))
+    steps = res["steps"]
+    if not (all(math.isfinite(x) for x in steps["loss"])
+            and steps["first_batch_loss_after"] < steps["loss"][0]
+            and res["inference"]["finite"]):
+        raise AssertionError(f"paper:{short}: losses {steps['loss']} not finite, the step-1 "
+                             f"batch's loss did not fall (-> {steps['first_batch_loss_after']})"
+                             f" or B=1 logits not finite")
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    del res, steps
+    free_cuda(torch)
+
+    # the cut: the same parameters (drawn on the CPU) and inputs on both
+    cut = dataclasses.replace(cfg, img=PAPER_CUT_IMG)
+    init = cnn.init_cnn(cut, torch.Generator().manual_seed(SEED + 3))
+    x, labels = paper.cnn_batch(cut, PAPER_CUT_BATCH, SEED + 4, torch.device("cpu"))
+    out = {}
+    for where in ("cpu", "cuda"):
+        params = paper.requiring_grad({k: v.to(where) for k, v in init.items()})
+        with torch.no_grad():
+            logits = cnn.cnn_forward(params, x.to(where), cut).cpu()
+        loss, new = cnn.train_step_fn(cut, paper.sgd_lr(cut))(params, x.to(where),
+                                                             labels.to(where))
+        out[where] = (logits, float(loss), [t.detach().cpu() for t in new.values()])
+    scale = float(out["cpu"][0].abs().max())
+    logit_err = float((out["cuda"][0] - out["cpu"][0]).abs().max()) / scale
+    param_err = rel_l2(out["cuda"][2], out["cpu"][2])
+    print(f"[check] {arch} f32 cut {PAPER_CUT_IMG}x{PAPER_CUT_IMG} B={PAPER_CUT_BATCH}: "
+          f"logits card vs CPU max-abs {logit_err:.3g} of max|logits| {scale:.4g} "
+          f"(tol {PAPER_LOGIT_TOL}); loss {out['cuda'][1]:.6f} / {out['cpu'][1]:.6f}; "
+          f"parameters after one SGD step rel L2 {param_err:.3g} (tol {PAPER_PARAM_TOL})",
+          flush=True)
+    if not (logit_err <= PAPER_LOGIT_TOL and param_err <= PAPER_PARAM_TOL):
+        raise AssertionError(f"paper:{short}: the card's cut disagrees with the CPU's")
+    if any(launches.values()):
+        raise AssertionError(f"paper:{short}: kernels launched: {launches}")
+    print(f"[paper:{short}] launches {launches}; phase {time.perf_counter() - t0:.1f}s | "
+          f"{card}", flush=True)
+    return launches
+
+
+def paper_s2s_phase(torch, ops, card: str) -> dict:
+    """``[paper:seq2seq]``: the LSTM seq2seq at its registered size (vocab
+    40,000, d 512, 2 layers, ``infer_len`` 100) through
+    ``launch.paper.run_seq2seq``: one train-step profile per length of
+    ``S2S_LENGTHS`` at B=64 (profile and plan seconds printed), the largest
+    batches at the longest, ``S2S_STEPS`` SGD steps over a seeded order of
+    the lengths (every length in the first three), each length's profile
+    replayed through one signature-mode arena before its step, with plan and
+    measured peaks, then 100 greedy tokens at B=1, timed; then a small cut
+    (``S2S_CUT``) whose greedy tokens on the card must equal the CPU's.
+    Fails unless the losses are finite, the arena's replans stop once every
+    length has been seen (the count after the first three steps' resets is
+    len(S2S_LENGTHS) - 1 and stays there) and no kernel launched."""
+    import dataclasses
+
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.launch import paper
+    from repro_torch.models import seq2seq
+
+    free_cuda(torch)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cfg = paper.config("paper-seq2seq")
+    res = paper.run_seq2seq(cfg, batch=S2S_BATCH, lengths=S2S_LENGTHS, steps=S2S_STEPS,
+                            device=torch.device("cuda"), seed=SEED,
+                            log=lambda line: print(line, flush=True))
+    reopt = [s["n_reopt"] for s in res["steps"]]
+    n = len(S2S_LENGTHS)
+    if not (all(math.isfinite(s["loss"]) for s in res["steps"])
+            and reopt[n:] == [n - 1] * (len(reopt) - n)
+            and tuple(res["tokens"].shape) == (1, cfg.infer_len)):
+        raise AssertionError(f"paper:seq2seq: losses not finite, replans {reopt} did not "
+                             f"stop at {n - 1}, or tokens {tuple(res['tokens'].shape)}")
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    del res
+    free_cuda(torch)
+    cut = dataclasses.replace(cfg, **S2S_CUT)
+    init = seq2seq.init_seq2seq(cut, torch.Generator().manual_seed(SEED + 5))
+    src, _ = paper.s2s_batch(cut, 4, 10, SEED + 6, torch.device("cpu"))
+    toks = {}
+    for where in ("cpu", "cuda"):
+        params = paper.requiring_grad(tree_map(lambda t: t.to(where), init))
+        toks[where] = seq2seq.infer_fn(cut)(params, src.to(where)).cpu()
+    same = torch.equal(toks["cpu"], toks["cuda"])
+    print(f"[check] paper-seq2seq f32 cut (vocab {cut.vocab}, d {cut.d_model}, B=4, "
+          f"10 source tokens, {cut.infer_len} greedy): tokens card = CPU: {same}", flush=True)
+    if not same:
+        raise AssertionError("paper:seq2seq: the card's greedy tokens differ from the CPU's")
+    if any(launches.values()):
+        raise AssertionError(f"paper:seq2seq: kernels launched: {launches}")
+    print(f"[paper:seq2seq] launches {launches}; phase {time.perf_counter() - t0:.1f}s | "
+          f"{card}", flush=True)
+    return launches
+
+
+def contraction_scaled_qk(torch, params: dict, d_model: int, gen) -> dict:
+    """``params`` with every layer's wq and wk redrawn in place to std
+    1/sqrt(d_model), the fan-in of their contraction, as the port's tests
+    redraw them.  The reference's init takes the heads axis as the fan-in:
+    at qwen2-0.5b's layout q and k are ~8 and ~21 an element and the
+    scores ~170, a near one-hot softmax whose near ties make bf16
+    gradients noise (1.3x their norm away from float64's at 2 layers over
+    1152 tokens on the CPU, under full and chunked alike)."""
+    with torch.no_grad():
+        for layer in params["layers"]:
+            for name in ("wq", "wk"):
+                w = layer["attn"][name]
+                w.copy_(torch.randn(w.shape, generator=gen, device=w.device) / d_model ** 0.5)
+    return params
+
+
+def chunked_witness(torch, cfg, device, seq: int, chunk: int, vocab: int) -> dict:
+    """One grad step of ``cfg`` (qwen2-0.5b's layout at its phase depth) with
+    its vocabulary cut to ``vocab``, at ``seq`` tokens, under ``"full"`` in
+    float64 (the yardstick) and under ``"chunked"`` (``chunk`` keys a
+    chunk) and ``"full"`` in f32 and bf16, from one f32 draw: each one's
+    loss and the relative L2 distance of its gradients (every leaf) from
+    float64's, and chunked's from full's at each dtype.  Raises unless
+    chunked's distance from float64 is at most ``CUT_GRAD_YARDSTICK`` times
+    full's at each dtype."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.models import RunOpts, Transformer
+    from repro_torch.runtime import train_lib
+
+    cut = cfg.with_overrides(vocab_size=vocab)
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    init = contraction_scaled_qk(torch, Transformer(
+        cut.with_overrides(dtype="float32"), RunOpts(use_kernels=False),
+        device=device).init(gen), cut.d_model, gen)
+    tokens = torch.randint(0, vocab, (1, seq + 1), device=device, dtype=torch.int32,
+                           generator=torch.Generator(device=device).manual_seed(SEED + 10))
+    losses, grads = {}, {}
+    for dt, impl in (("float64", "full"), ("float32", "chunked"), ("float32", "full"),
+                     ("bfloat16", "chunked"), ("bfloat16", "full")):
+        m = Transformer(cut.with_overrides(dtype=dt),
+                        RunOpts(attention_impl=impl, attn_chunk=chunk, use_kernels=False),
+                        device=device)
+        master = torch.float64 if dt == "float64" else torch.float32
+        params = tree_map(lambda t: t.to(device, master).detach().requires_grad_(), init)
+        loss, _ = m.loss_fn(params, {"tokens": tokens}, remat=False)
+        grads[(dt, impl)] = [g.detach() for g in
+                             train_lib.leaf_grads(loss, tree_leaves(params))]
+        losses[(dt, impl)] = float(loss.detach())
+        del m, params, loss
+        if device.type == "cuda":
+            free_cuda(torch)
+    ref = grads[("float64", "full")]
+    out = {"losses": losses}
+    for dt in ("float32", "bfloat16"):
+        out[dt] = {impl: rel_l2(grads[(dt, impl)], ref) for impl in ("chunked", "full")}
+        out[dt]["chunked_vs_full"] = rel_l2(grads[(dt, "chunked")], grads[(dt, "full")])
+        print(f"[chunked] witness S={seq} (chunks of {chunk}) vocab {vocab} {dt}: loss "
+              f"chunked {losses[(dt, 'chunked')]:.6f} full {losses[(dt, 'full')]:.6f} "
+              f"float64 {losses[('float64', 'full')]:.6f}; gradients' rel L2 from float64: "
+              f"chunked {out[dt]['chunked']:.4g}, full {out[dt]['full']:.4g} (tol "
+              f"{CUT_GRAD_YARDSTICK}x full's); chunked vs full {out[dt]['chunked_vs_full']:.4g}",
+              flush=True)
+        if not out[dt]["chunked"] <= CUT_GRAD_YARDSTICK * out[dt]["full"]:
+            raise AssertionError(f"chunked: at {dt} the chunked gradients are "
+                                 f"{out[dt]['chunked']:.3g} from float64's, full's "
+                                 f"{out[dt]['full']:.3g}")
+    return out
+
+
+def chunked_phase(torch, ops, card: str) -> dict:
+    """``[chunked]``: the reference's chunked attention on the card.  At
+    qwen2-0.5b's layout (14 heads over 2, D=64), bf16, B=1 x S=16384,
+    ``attend_chunked`` (chunks of 1024) against ``attend_full`` (max-abs
+    within 2e-2), each call's host ms and peak memory; then one grad step of
+    full-width qwen2-0.5b cut to 2 layers (every wq / wk redrawn by
+    ``contraction_scaled_qk``) at the largest S of ``CHUNK_SEQS`` whose
+    no-remat planned peaks (chunked and full) fit the card's free memory,
+    under ``"auto"`` (which takes chunked past 8192) and ``"full"``, each
+    without and with full remat: the loss under auto
+    must equal full's within 2e-2 and its gradients full's within
+    ``CHUNK_GRAD_TOL`` (relative L2) at each remat setting, with the
+    measured peaks and the planned ones of the no-remat steps printed; then
+    ``chunked_witness`` at ``CHUNK_WITNESS_SEQ`` tokens, which holds the
+    chunked backward against float64 in f32 and bf16.  No kernel may
+    launch."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import MemoryPlanner
+    from repro_torch.models import RunOpts, Transformer
+    from repro_torch.models import attention as attn
+    from repro_torch.runtime import train_lib
+
+    free_cuda(torch)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q = torch.randn((1, CHUNK_SEQ, kv, g, hd), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((1, CHUNK_SEQ, kv, hd), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    outs, peaks = {}, {}
+    for impl in ("full", "chunked"):
+        free_cuda(torch)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs[impl] = attn.attend(q, k, v, impl=impl, causal=True)
+        torch.cuda.synchronize()
+        peaks[impl] = (torch.cuda.max_memory_allocated() - before,
+                       1e3 * (time.perf_counter() - t1))
+    err = float((outs["chunked"].float() - outs["full"].float()).abs().max())
+    print(f"[chunked] attend H={cfg.n_heads} KV={kv} D={hd} bf16 B=1 S={CHUNK_SEQ}: chunked "
+          f"(chunk 1024) vs full max_abs_err {err:.3g} (tol {CHUNK_TOL}); peak above the "
+          f"inputs full {peaks['full'][0] / 1e9:.3f}GB in {peaks['full'][1]:.1f}ms, chunked "
+          f"{peaks['chunked'][0] / 1e9:.3f}GB in {peaks['chunked'][1]:.1f}ms", flush=True)
+    if not err <= CHUNK_TOL:
+        raise AssertionError(f"chunked: attend_chunked against attend_full {err} > {CHUNK_TOL}")
+    del q, k, v, outs
+
+    # the training step: S decided by the no-remat profiles
+    small = cfg.with_overrides(n_layers=CHUNK_LAYERS)
+    models = {impl: Transformer(small, RunOpts(attention_impl=impl, use_kernels=False))
+              for impl in ("auto", "full")}
+    free_cuda(torch)
+    free, _ = torch.cuda.mem_get_info()
+    planned = {}
+    for seq in CHUNK_SEQS:
+        planned = {}
+        for impl, m in models.items():              # auto first: the larger plan
+            prof = train_lib.profile_step(m, {"tokens": ((1, seq + 1), torch.int32)})
+            planned[impl] = prof.retained_bytes + MemoryPlanner().plan(prof).peak
+            if planned[impl] > free:
+                break
+        print(f"[chunked] train S={seq}: planned no-remat retained+DSA " + ", ".join(
+            f"{impl} ({models[impl]._attn_impl(seq)}) {v / 1e9:.3f}GB"
+            for impl, v in planned.items()) + f" against {free / 1e9:.3f}GB free",
+            flush=True)
+        if len(planned) == len(models) and max(planned.values()) <= free:
+            break
+    else:
+        raise AssertionError(f"chunked: no S of {CHUNK_SEQS} fits the card without remat")
+    if models["auto"]._attn_impl(seq) != "chunked":
+        raise AssertionError(f"chunked: auto takes {models['auto']._attn_impl(seq)} at {seq}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = contraction_scaled_qk(torch, models["auto"].init(gen), small.d_model, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq + 1), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 8),
+                           dtype=torch.int32)
+    losses, grad_err = {}, {}
+    for remat in (False, True):
+        auto_grads = None
+        for impl, m in models.items():              # auto first, then full
+            free_cuda(torch)
+            leaves = [t.requires_grad_() for t in tree_leaves(params)]
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss, _ = m.loss_fn(params, {"tokens": tokens}, remat=remat)
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1)
+            losses[(impl, remat)] = float(loss.detach())
+            gnorm = math.sqrt(sum(float(gr.double().norm()) ** 2 for gr in grads))
+            peak = torch.cuda.max_memory_allocated()
+            plan = (f", planned {planned[impl] / 1e9:.3f}GB "
+                    f"({peak / planned[impl]:.3f}x)" if not remat else "")
+            print(f"[chunked] train S={seq} {CHUNK_LAYERS} layers attention_impl={impl} "
+                  f"({m._attn_impl(seq)}) remat={'full' if remat else 'none'}: loss "
+                  f"{losses[(impl, remat)]:.5f} grad norm {gnorm:.6g} in {ms:.1f}ms, "
+                  f"peak {peak / 1e9:.3f}GB{plan}", flush=True)
+            if auto_grads is None:
+                auto_grads = grads
+            else:
+                grad_err[remat] = rel_l2(auto_grads, grads)
+            del loss, grads, leaves
+        del auto_grads
+    for remat in (False, True):
+        diff = abs(losses[("auto", remat)] - losses[("full", remat)])
+        print(f"[chunked] train S={seq} remat={'full' if remat else 'none'}: auto vs full "
+              f"loss {diff:.3g} (tol {CHUNK_TOL}), gradients rel L2 {grad_err[remat]:.4g} "
+              f"(tol {CHUNK_GRAD_TOL})", flush=True)
+        if not (diff <= CHUNK_TOL and grad_err[remat] <= CHUNK_GRAD_TOL):
+            raise AssertionError(f"chunked: auto's loss {losses[('auto', remat)]} or "
+                                 f"gradients (rel L2 {grad_err[remat]:.3g}) against full's "
+                                 f"{losses[('full', remat)]} (remat {remat})")
+    del params, models
+    free_cuda(torch)
+    chunked_witness(torch, small, torch.device("cuda"), CHUNK_WITNESS_SEQ, 1024,
+                    CHUNK_WITNESS_VOCAB)
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    if any(launches.values()):
+        raise AssertionError(f"chunked: kernels launched: {launches}")
+    print(f"[chunked] launches {launches}; phase {time.perf_counter() - t0:.1f}s | {card}",
+          flush=True)
     return launches
 
 
@@ -2190,7 +2604,17 @@ def main() -> int:
                                 seq=s, batch_hi=hi, cut_layers=cut_layers))
         stamp(t_start, f"phase 7 {short}")
     train = {k: sum(r[k] for r in runs) for k in train_q}
-    # -- 8. records ------------------------------------------------------------------------
+    # -- 8. the paper's own nets at their registered sizes, then the chunked attention ------
+    paper_runs = []
+    for arch, short in PAPER_CNNS:
+        paper_runs.append(paper_cnn_phase(torch, ops, card, arch, short))
+        stamp(t_start, f"phase 8 {short}")
+    paper_runs.append(paper_s2s_phase(torch, ops, card))
+    stamp(t_start, "phase 8 seq2seq")
+    paper = {k: sum(r[k] for r in paper_runs) for k in train_q}
+    chunked = chunked_phase(torch, ops, card)
+    stamp(t_start, "phase 9 chunked")
+    # -- 10. records -----------------------------------------------------------------------
     pk = paged[("bfloat16", MAX_BATCH)]
     pk128 = paged128[("bfloat16", MAX_BATCH)]
     fk = flash[("bfloat16", 512, 0, 0)]
@@ -2236,6 +2660,8 @@ def main() -> int:
          "churn_launches": churn["launches"]["paged_attention"],
          "shared_launches": shared["launches"]["paged_attention"],
          "train_launches": train["paged_attention"],
+         "paper_launches": paper["paged_attention"],
+         "chunked_launches": chunked["paged_attention"],
          "max_abs_err": max(paged_worst["bfloat16"], paged128_worst["bfloat16"],
                             *(w["bfloat16"] for _, w in paged_dense.values())),
          "ms": pk["ms"],
@@ -2257,6 +2683,8 @@ def main() -> int:
          "churn_launches": churn["launches"]["flash_attention"],
          "shared_launches": shared["launches"]["flash_attention"],
          "train_launches": train["flash_attention"],
+         "paper_launches": paper["flash_attention"],
+         "chunked_launches": chunked["flash_attention"],
          "max_abs_err": max(flash_worst["bfloat16"], flash128_worst["bfloat16"],
                             flash_wide_worst["bfloat16"],
                             *(w["bfloat16"] for _, w in flash_dense.values()),
@@ -2277,6 +2705,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:64",
          "launches": mamba2["ssd_scan"], "train_launches": train["ssd_scan"],
+         "paper_launches": paper["ssd_scan"], "chunked_launches": chunked["ssd_scan"],
          "max_abs_err": ssd_worst["bfloat16"], "ms": sk["ms"],
          "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
          "bound_by": sk["bound_by"], "library_ms": None,
@@ -2285,6 +2714,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:40",
          "launches": rgemma["rglru_scan"], "train_launches": train["rglru_scan"],
+         "paper_launches": paper["rglru_scan"], "chunked_launches": chunked["rglru_scan"],
          "max_abs_err": rglru_worst, "ms": rk["ms"],
          "plain_ms": rk["plain_ms"], "bound_ms": rk["bound_ms"],
          "bound_by": rk["bound_by"], "library_ms": None,

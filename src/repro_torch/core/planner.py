@@ -128,12 +128,19 @@ class MemoryPlanner:
 
     def max_feasible_batch(self, bytes_at_batch: Callable[[int], int],
                            hbm_budget: int = HBM_BYTES,
-                           lo: int = 1, hi: int = 65536) -> int:
+                           lo: int = 1, hi: int = 65536,
+                           guess: int | None = None) -> int:
         """Largest batch whose planned per-device peak fits the HBM budget.
 
         ``bytes_at_batch(b)`` must be monotone in ``b`` (it typically wraps a
-        profile-and-plan of the step at mini-batch ``b``).
+        profile-and-plan of the step at mini-batch ``b``).  With a ``guess``
+        the search gallops away from it until the answer is bracketed, then
+        bisects: a close guess costs a few calls, and the answer has been
+        evaluated at b (fits) and b + 1 (does not) unless b is ``hi``.
         """
+        if guess is not None:
+            return self._gallop(bytes_at_batch, hbm_budget, lo, hi,
+                                min(max(guess, lo), hi))
         if bytes_at_batch(lo) > hbm_budget:
             return 0
         while lo < hi:
@@ -143,6 +150,35 @@ class MemoryPlanner:
             else:
                 hi = mid - 1
         return lo
+
+    @staticmethod
+    def _gallop(fits_bytes: Callable[[int], int], budget: int, lo: int, hi: int,
+                b: int) -> int:
+        def fits(n: int) -> bool:
+            return fits_bytes(n) <= budget
+        if fits(b):                                # gallop up to a miss (or hi)
+            good, step = b, 1
+            while good < hi and fits(min(good + step, hi)):
+                good, step = min(good + step, hi), 2 * step
+            if good == hi:
+                return hi
+            bad = min(good + step, hi)
+        else:                                      # gallop down to a fit (or lo)
+            bad, step = b, 1
+            while bad - step >= lo and not fits(bad - step):
+                bad, step = bad - step, 2 * step
+            good = bad - step
+            if good < lo:
+                if bad == lo or not fits(lo):
+                    return 0
+                good = lo
+        while bad - good > 1:                      # good fits, bad misses
+            mid = (good + bad) // 2
+            if fits(mid):
+                good = mid
+            else:
+                bad = mid
+        return good
 
     # -- remat-aware planning (repro_torch.remat) ----------------------------------
     def plan_with_remat(self, profile: MemoryProfile, *,
@@ -210,7 +246,7 @@ class MemoryPlanner:
                                    profile_at_batch: Callable[[int], MemoryProfile],
                                    hbm_budget: int = HBM_BYTES,
                                    lo: int = 1, hi: int = 65536, *,
-                                   remat=None) -> int:
+                                   remat=None, guess: int | None = None) -> int:
         """Remat-aware ``max_feasible_batch`` over actual profiles.
 
         ``profile_at_batch(b)`` profiles the training step at mini-batch
@@ -220,7 +256,8 @@ class MemoryPlanner:
         "larger mini-batch" benefit with the planner in the loop.  A compiled
         ``RematPolicy`` (mode "policy") constrains the search to blocks its
         recompute/offload sets can actually evict; ``True`` / mode "full"
-        searches unconstrained.
+        searches unconstrained.  ``guess`` starts the search there, as in
+        ``max_feasible_batch``: a close one profiles fewer batches.
         """
         use_remat = bool(remat) and getattr(remat, "mode", "x") != "none"
         cand_filter = None
@@ -250,4 +287,4 @@ class MemoryPlanner:
                 peak = self.plan(prof).peak
             return peak + prof.retained_bytes
 
-        return self.max_feasible_batch(bytes_at, hbm_budget, lo, hi)
+        return self.max_feasible_batch(bytes_at, hbm_budget, lo, hi, guess)

@@ -18,8 +18,12 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
       --device cpu --preset tiny --steps 4   # also mamba2-130m, recurrentgemma-9b
 
-Every registered config trains; an encoder-decoder's batches carry the
-pipeline's seeded frames (B, encoder_seq, d_model) beside the tokens.
+Every registered decoder config trains; an encoder-decoder's batches carry
+the pipeline's seeded frames (B, encoder_seq, d_model) beside the tokens.
+Attention takes ``RunOpts(attention_impl="auto")``: full up to 8192 tokens,
+the chunked scan past them.  The paper's own nets (``paper-cnn``,
+``paper-rnn`` families) train through ``launch/paper.py``; this CLI
+refuses them.
 """
 from __future__ import annotations
 
@@ -123,8 +127,12 @@ def main(argv=None) -> None:
     if tracer is not None:
         trace_enable(tracer)
 
+    if get_config(args.arch).family.startswith("paper-"):   # paper-cnn, paper-rnn
+        raise SystemExit(f"launch.train: {args.arch} is one of the paper's own nets; "
+                         "train and profile it with python -m repro_torch.launch.paper")
     cfg, seq, batch = reduced_config(args.arch, args.preset)
-    model = Transformer(cfg, RunOpts(attention_impl="full", use_kernels=False),
+    # "auto": full attention up to 8192 tokens, the chunked scan past them
+    model = Transformer(cfg, RunOpts(attention_impl="auto", use_kernels=False),
                         device=args.device)
     acfg = AdamWConfig(lr=args.lr, warmup_steps=max(2, args.steps // 20),
                        total_steps=args.steps)

@@ -2,6 +2,9 @@
 
 Implementations for full sequences (selected via ``impl``):
   * "full"   — materialized scores, plain PyTorch (the reference's default);
+  * "chunked" — the online-softmax loop over KV chunks (``attend_chunked``),
+               O(Sq * chunk) live scores: what the reference's ``"auto"``
+               takes past 8192 tokens;
   * "kernel" — the flash-attention kernel wrapper (``kernels.ops``), the
                counterpart of the reference's ``impl="pallas"``;
   * "plain"  — the flash kernel's plain version (scores in f32) on any
@@ -17,6 +20,7 @@ repeat of K/V.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from .layers import upcast
@@ -85,13 +89,56 @@ def attend_full(q, k, v, *, causal=True, window=0, q_offset=0):
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
 
 
-def attend(q, k, v, *, impl="kernel", causal=True, window=0, q_offset=0):
+def attend_chunked(q, k, v, *, causal=True, window=0, q_offset=0, chunk=1024):
+    """The reference's online-softmax scan over KV chunks, a Python loop in
+    place of its ``lax.scan``.  K/V are padded to a multiple of ``chunk`` and
+    the padded keys masked (``k_pos < sk``) whatever the masks; m, l and acc
+    stay f32, P·V runs in q's dtype.  A row whose chunks are all masked so
+    far keeps m at NEG_INF: the ``exp(m - m_new)`` of its first unmasked
+    chunk wipes what they summed, as in the reference."""
+    b, sq, n_kv, g, hd = q.shape
+    sk = k.shape[1]
+    chunk = min(chunk, sk)
+    pad = (-sk) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    scale = hd ** -0.5
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((b, n_kv, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, n_kv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, n_kv, g, sq, hd), dtype=torch.float32, device=q.device)
+    for start in range(0, k.shape[1], chunk):
+        kb, vb = k[:, start:start + chunk], v[:, start:start + chunk]
+        k_pos = start + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bqkgh,bskh->bkgqs", q, kb).float() * scale
+        ok = (k_pos < sk)[None, :]
+        if causal:
+            ok = ok & (k_pos[None, :] <= q_pos[:, None])
+        if window:
+            ok = ok & (k_pos[None, :] > (q_pos[:, None] - window))
+        s = s + torch.where(ok, 0.0, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskh->bkgqh", p.to(q.dtype), vb).float()
+        m = m_new
+    ctx = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return ctx.permute(0, 3, 1, 2, 4)                  # (B,Sq,kv,g,hd)
+
+
+def attend(q, k, v, *, impl="kernel", causal=True, window=0, q_offset=0, chunk=1024):
     if impl == "kernel":
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset)
     if impl == "full":
         return attend_full(q, k, v, causal=causal, window=window,
                            q_offset=q_offset)
+    if impl == "chunked":
+        return attend_chunked(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, chunk=chunk)
     if impl == "plain":
         return kops.flash_attention_plain(q, k, v, causal=causal, window=window,
                                           q_offset=q_offset)

@@ -69,3 +69,28 @@ def params_from_jax(tree) -> dict:
         out["encoder"] = {"blocks": [_layer(blocks, i) for i in range(n_enc)],
                           "final_norm": _unstacked(tree["encoder"]["final_norm"])}
     return out
+
+
+def cnn_params_from_jax(tree) -> dict:
+    """The reference's CNN parameters (``repro.models.cnn.init_cnn``, as
+    numpy arrays) -> the port's: conv kernels HWIO -> OIHW, ``fc1``/``fc2``
+    kept (in, out)."""
+    out = {}
+    for name, a in tree.items():
+        a = np.asarray(a)
+        out[name] = _tensor(a.transpose(3, 2, 0, 1) if a.ndim == 4 else a)
+    return out
+
+
+def seq2seq_params_from_jax(tree) -> dict:
+    """The reference's seq2seq parameters (``repro.models.seq2seq.
+    init_seq2seq``, as numpy arrays) -> the port's, layouts kept: both
+    embeddings (vocab, d), ``enc``/``dec`` lists of ``{wx, wh, b}``,
+    ``out`` (d, vocab)."""
+    return {
+        "embed_src": _tensor(tree["embed_src"]),
+        "embed_tgt": _tensor(tree["embed_tgt"]),
+        "enc": [_unstacked(layer) for layer in tree["enc"]],
+        "dec": [_unstacked(layer) for layer in tree["dec"]],
+        "out": _tensor(tree["out"]),
+    }

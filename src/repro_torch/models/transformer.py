@@ -73,12 +73,16 @@ F32_LEAVES = frozenset({"scale", "bias", "norm_scale", "dt_bias", "a_log", "d_sk
                         "w_conv", "b_conv", "w_a", "b_a", "w_x", "b_x", "lam",
                         "w_router"})
 HYBRID_PATTERN = ("rec", "rec", "local")
+AUTO_FULL_MAX = 8192                  # "auto": the longest sequence "full" takes
 
 
 @dataclass(frozen=True)
 class RunOpts:
     """Runtime knobs independent of the architecture spec."""
-    attention_impl: str = "kernel"    # kernel (flash CUDA kernel) | full | plain
+    # kernel (flash CUDA kernel) | full | chunked | plain | auto (the
+    # reference's rule: full up to AUTO_FULL_MAX tokens, chunked past them)
+    attention_impl: str = "kernel"
+    attn_chunk: int = 1024            # KV chunk of the chunked attention
     use_kernels: bool = True          # SSD / RG-LRU scans through the CUDA kernels
     ssd_chunk: int = 256              # chunk length of the plain SSD path
     rglru_block: int = 256            # block length of the plain RG-LRU scan
@@ -347,6 +351,21 @@ class Transformer:
         return rope_angles(positions, self.cfg.resolved_head_dim,
                            self.cfg.rope_theta)
 
+    def _attn_impl(self, seq_len: int) -> str:
+        """``RunOpts.attention_impl``, with ``"auto"`` resolved as the
+        reference's ``_attn_impl`` resolves it: ``"full"`` up to
+        ``AUTO_FULL_MAX`` tokens, ``"chunked"`` past them."""
+        impl = self.opts.attention_impl
+        if impl != "auto":
+            return impl
+        return "full" if seq_len <= AUTO_FULL_MAX else "chunked"
+
+    def _attend(self, q, k, v, **masks):
+        """Attention over a whole sequence (training, prefill, forward and
+        the encoder) by ``_attn_impl`` of its length."""
+        return attn.attend(q, k, v, impl=self._attn_impl(q.shape[1]),
+                           chunk=self.opts.attn_chunk, **masks)
+
     def _attn_qkv(self, x, p, rope_cs):
         h = self._norm(x, p["attn"]["norm"])
         q, k, v = attn.qkv_project(h, p["attn"], self.cfg)
@@ -387,7 +406,7 @@ class Transformer:
         for p in params["encoder"]["blocks"]:
             p = self.load(p)
             q, k, v = self._attn_qkv(x, p, None)
-            ctx = attn.attend(q, k, v, impl=self.opts.attention_impl, causal=False)
+            ctx = self._attend(q, k, v, causal=False)
             x = self._finish_block(x, ctx, p)
         return self._norm(x, params["encoder"]["final_norm"])
 
@@ -440,8 +459,8 @@ class Transformer:
                                               block=opts.rglru_block)
             return self._mlp_residual(x, p), None
         q, k, v = self._attn_qkv(x, p, rope_cs)
-        ctx = attn.attend(q, k, v, impl=opts.attention_impl, causal=True,
-                          window=cfg.local_window if kind == "local" else 0)
+        ctx = self._attend(q, k, v, causal=True,
+                           window=cfg.local_window if kind == "local" else 0)
         if kind == "xattn":
             return self._finish_block(x, ctx, p, attn.kv_project(enc, p["xattn"], cfg)), None
         if not cfg.n_experts:
@@ -542,10 +561,12 @@ class Transformer:
         each pattern group runs under ``RematPolicy.coerce(remat).wrap``, the
         tail and the encoder unwrapped.  No kernel has a backward, in either
         package, so RunOpts naming a kernel path raise ``ValueError``: the
-        SSD and RG-LRU blocks take their plain scans."""
+        SSD and RG-LRU blocks take their plain scans, and attention takes
+        ``"auto"`` (the trainer's: full up to 8192 tokens, chunked past
+        them), ``"full"``, ``"chunked"`` or ``"plain"``."""
         if self.opts.attention_impl == "kernel" or self.opts.use_kernels:
             raise ValueError("loss_fn: the CUDA kernels have no backward; train with "
-                             "RunOpts(attention_impl='full', use_kernels=False)")
+                             "RunOpts(attention_impl='auto', use_kernels=False)")
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         mask = batch.get("mask")
@@ -728,8 +749,7 @@ class Transformer:
         for kind, p in zip(self.kinds, params["layers"]):
             if kind == "local":
                 q, k, v = self._attn_qkv(x, p, rope_cs)
-                ctx = attn.attend(q, k, v, impl=self.opts.attention_impl,
-                                  causal=True, window=cfg.local_window)
+                ctx = self._attend(q, k, v, causal=True, window=cfg.local_window)
                 x = self._finish_block(x, ctx, p)
                 if max_len is not None:
                     c = min(self._local_len(max_len), s)
@@ -849,8 +869,7 @@ class Transformer:
         cross = ()
         for i, p in enumerate(params["layers"]):
             q, k, v = self._attn_qkv(x, p, rope_cs)
-            ctx = attn.attend(q, k, v, impl=self.opts.attention_impl,
-                              causal=True)
+            ctx = self._attend(q, k, v, causal=True)
             if enc is not None:
                 cross = attn.kv_project(enc, p["xattn"], cfg)
                 cache["xk"][i], cache["xv"][i] = cross
@@ -880,8 +899,7 @@ class Transformer:
         cross = ()
         for p in params["layers"]:
             q, k, v = self._attn_qkv(x, p, rope_cs)
-            ctx = attn.attend(q, k, v, impl=self.opts.attention_impl,
-                              causal=True)
+            ctx = self._attend(q, k, v, causal=True)
             if enc is not None:
                 cross = attn.kv_project(enc, p["xattn"], self.cfg)
             x = self._finish_block(x, ctx, p, cross)

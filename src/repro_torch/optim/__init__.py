@@ -1,5 +1,5 @@
 """repro_torch.optim — AdamW and int8 gradient compression (port of
-``repro.optim``)."""
-from . import adamw, grad_compress
+``repro.optim``), and the paper nets' plain SGD."""
+from . import adamw, grad_compress, sgd
 
-__all__ = ["adamw", "grad_compress"]
+__all__ = ["adamw", "grad_compress", "sgd"]

@@ -67,6 +67,24 @@ def test_arena_and_baselines_exact():
             == jcore.MemoryPlanner().max_feasible_batch(budget, 10 ** 7))
 
 
+
+def test_max_feasible_batch_gallops_from_any_guess():
+    """With a guess the search gallops then bisects: the same boundary as
+    the bisection from ``lo``, evaluated at b and b + 1, within [lo, hi]."""
+    planner, calls = tcore.MemoryPlanner(), []
+
+    def bytes_at(b):
+        calls.append(b)
+        return 10 + 3 * b
+    for guess in (1, 9, 10, 11, 500):
+        calls.clear()
+        assert planner.max_feasible_batch(bytes_at, 40, guess=guess) == 10
+        assert 10 in calls and 11 in calls
+    assert planner.max_feasible_batch(bytes_at, 40, hi=7, guess=3) == 7
+    assert planner.max_feasible_batch(bytes_at, 12, guess=4) == 0
+    assert planner.max_feasible_batch(bytes_at, 13, guess=4) == 1
+    assert planner.max_feasible_batch(bytes_at, 40, lo=12, guess=20) == 0
+
 def test_configs_are_copies():
     assert tconfigs.list_configs() == jconfigs.list_configs()
     for name in jconfigs.list_configs():

@@ -110,6 +110,19 @@ def test_max_feasible_batch_planned_equals_the_reference(remat):
     assert got == want > 0
 
 
+@pytest.mark.parametrize("remat", [None, True])
+@pytest.mark.parametrize("guess", [1, 9, 64])
+def test_max_feasible_batch_planned_from_a_guess_equals_the_reference(remat, guess):
+    """A guess changes where the search starts, not the batch it finds."""
+    budget = 128 << 20
+    want = JPlanner().max_feasible_batch_planned(
+        lambda b: _profile_at_batch(jmake_profile, b), budget, hi=64, remat=remat)
+    got = MemoryPlanner().max_feasible_batch_planned(
+        lambda b: _profile_at_batch(make_profile, b), budget, hi=64, remat=remat,
+        guess=guess)
+    assert got == want > 0
+
+
 def test_measured_step_reads_only_card_results():
     from pathlib import Path
     bench = Path(__file__).resolve().parents[1] / "BENCH_remat.json"
