@@ -141,7 +141,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      relative) and gradients no further from a float64 CPU run than twice
      the CPU's own f32 gradients (relative L2 over every leaf), TF32 off;
      granite-moe's cut must first route alike on the card and the CPU
-     (every layer's ``keep`` and ``dest``);
+     (every layer's ``keep`` and ``dest``); after each cell a
+     after the five cells, one ``[roofline:<tag>]`` line each
+     (``roofline_phase``): ``launch/roofline``'s model FLOPs of the cell,
+     the dry run's aten dot FLOPs and HBM bytes of the same whole step
+     (gradient and AdamW, traced on fake tensors, ``roofline_trace``: one
+     worker process a cell, all started once the cells' steps are timed, so
+     that nothing runs beside a timed phase) under no and full remat, their compute and memory terms and bound on
+     the H100, the measured median step of each policy, MFU (model FLOPs
+     over the step time at the compute dtype's peak), measured over bound,
+     and the dry run's retained + DSA against the measured peak of the
+     same policy;
   8. the paper's own nets at their registered sizes, f32, TF32 off
      (``paper_cnn_phase``, ``paper_s2s_phase``, through ``launch/paper.py``):
      ``[paper:alexnet]``, ``[paper:resnet50]`` (224x224) and
@@ -158,7 +168,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      small cut's greedy tokens on the card and the CPU;
   9. ``[chunked]`` (``chunked_phase``): ``attend_chunked`` against
      ``attend_full`` at qwen2-0.5b's layout over 16384 bf16 tokens, with
-     each one's peak, then a grad step of full-width qwen2-0.5b cut to 2
+     each one's peak, and ``attend_full`` with ``softmax_dtype="bfloat16"``
+     (bf16 score storage) against its f32 path, with its peak; then a grad step of full-width qwen2-0.5b cut to 2
      layers under ``attention_impl="auto"`` (chunked past 8192) against
      ``"full"``, without and with full remat, at the largest S of 16384,
      12288, 10240 whose no-remat plans fit the card: losses and gradients;
@@ -302,6 +313,10 @@ CHUNK_GRAD_TOL = 2e-2
 # yardstick), f32 and bf16 (chunked and full); chunked's gradients may be at
 # most CUT_GRAD_YARDSTICK times as far from float64's as full's are
 CHUNK_WITNESS_SEQ, CHUNK_WITNESS_VOCAB = 8448, 8192
+
+
+# what each [train:*] cell hands to its [roofline:*] line
+TRAIN_CELLS: list = []
 
 
 def card_line() -> str:
@@ -1638,8 +1653,8 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
     last step and the no-remat run's drop share, and its f32 cut holds the
     routing on the card against the CPU's.  The f32 cut has ``cut_layers``
     layers (the hybrid's first group and its tail: 5) and an
-    encoder-decoder's 2 encoder layers.  Returns the kernel launches counted
-    during the phase (all must be 0)."""
+    encoder-decoder's 2 encoder layers.  Appends what the cell's
+    ``[roofline:<short>]`` line needs to ``TRAIN_CELLS``.  Returns the kernel launches counted during the phase (all must be 0)."""
     import statistics
 
     from torch.utils._pytree import tree_leaves, tree_map
@@ -1663,11 +1678,8 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
     opts = RunOpts(attention_impl="full", use_kernels=False)
     model = Transformer(cfg, opts)
 
-    def batch_sds(b):
-        out = {"tokens": ((b, seq + 1), torch.int32)}
-        if enc:
-            out["frames"] = ((b, cfg.encoder_seq, cfg.d_model), torch.float32)
-        return out
+    def batch_sds(b):       # the pipeline's frames are f32
+        return train_lib.batch_specs(cfg, b, seq, torch.float32)
     bsds = batch_sds(batch)
     planner = MemoryPlanner()
     tag = f"[train:{short}] B={batch} S={seq} {cfg.n_layers} layers"
@@ -1723,6 +1735,7 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
     batches = [{k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(i).items()}
                for i in range(TRAIN_STEPS)]
     losses, gnorms, param_errs = {}, {}, {}
+    medians, peaks_abs, peaks_above = {}, {}, {}
     none_final = None
 
     def param_err(params, base):
@@ -1744,7 +1757,7 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
                                      acfg)
         step, _ = train_lib.build_train_step(model, None, acfg,
                                              train_lib.TrainOpts(remat=remat))
-        ls, gn, ms, mem, parts = [], [], [], [], []
+        ls, gn, ms, mem, mem_abs, parts = [], [], [], [], [], []
         # the no-remat run counts the dispatch's drops (a recompute would count twice)
         counting = (counting_drops(torch, moe_lib, drops) if moe and name == "none"
                     else contextlib.nullcontext())
@@ -1758,6 +1771,7 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
                 torch.cuda.synchronize()
                 ms.append(1e3 * (time.perf_counter() - t0))
                 mem.append(torch.cuda.max_memory_allocated() - before)
+                mem_abs.append(torch.cuda.max_memory_allocated())
                 ls.append(float(m["loss"]))
                 gn.append(float(m["grad_norm"]))
                 parts.append((float(m["ce"]), float(m["aux"])))
@@ -1785,6 +1799,8 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
                   f"training, {held:.5f} after {TRAIN_STEPS} steps; step losses fall from "
                   f"step 1 to {TRAIN_STEPS}: {ls[-1] < ls[0]}", flush=True)
         peak = max(mem)
+        medians[name], peaks_abs[name], peaks_above[name] = (statistics.median(ms),
+                                                             max(mem_abs), peak)
         split = (f"ce/aux step 1 {parts[0][0]:.5f}/{parts[0][1]:.5f} step {TRAIN_STEPS} "
                  f"{parts[-1][0]:.5f}/{parts[-1][1]:.5f} " if moe else "")
         print(f"{tag} remat={name} losses={[round(x, 5) for x in ls]} {split}"
@@ -1932,9 +1948,104 @@ def train_phase(torch, ops, card: str, arch: str, short: str, *,
     if not (loss_err <= CUT_LOSS_TOL and err_card <= CUT_GRAD_YARDSTICK * err_cpu):
         raise AssertionError("train: the f32 cut's loss or gradients on the card are "
                              "further from the CPU's / float64's than allowed")
+    TRAIN_CELLS.append({"arch": arch, "n_layers": n_layers, "short": short, "tag": tag,
+                        "cfg": cfg, "batch": batch, "seq": seq, "medians": medians,
+                        "peaks_abs": peaks_abs, "peaks_above": peaks_above})
     print(f"{tag} launches during training {launches}; phase "
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
     return launches
+
+
+def roofline_trace(arch: str, n_layers, batch: int, seq: int) -> dict:
+    """The dry run of one ``[train:*]`` cell, in a worker process:
+    ``dryrun.trace_train`` of the phase's whole step (the gradient and AdamW
+    over the f32 state and the same batch specs, f32 frames) on fake CPU
+    tensors under no and full remat (the counts do not depend on the
+    device), each read by ``dryrun.analyze_cell`` -> ``{"none": meta,
+    "full": meta, "seconds": s}``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import RunOpts, Transformer
+    from repro_torch.runtime import train_lib
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.with_overrides(n_layers=n_layers)
+    model = Transformer(cfg, RunOpts(attention_impl="full", use_kernels=False), device="cpu")
+    bsds = train_lib.batch_specs(cfg, batch, seq, torch.float32)
+    out = {name: dryrun.analyze_cell(dryrun.trace_train(model, bsds, remat), {})
+           for name, remat in (("none", False), ("full", True))}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def roofline_phase(card: str) -> None:
+    """The ``[roofline:*]`` lines of ``TRAIN_CELLS``, after every cell's
+    steps are timed: each cell's ``roofline_trace`` in a spawned worker
+    process of its own (all at once; the card and the main process wait),
+    then ``roofline_line`` in cell order, and a ``[roofline]`` line with
+    the phase's seconds on the script's clock."""
+    import concurrent.futures
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            len(TRAIN_CELLS), mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(roofline_trace, c["arch"], c["n_layers"], c["batch"], c["seq"])
+                for c in TRAIN_CELLS]
+        for c, job in zip(TRAIN_CELLS, jobs):
+            roofline_line(card, job.result(), c)
+    took = time.perf_counter() - t0
+    print(f"[roofline] {len(TRAIN_CELLS)} lines took {took:.1f}s of the script "
+          f"({len(TRAIN_CELLS)} worker processes, nothing else running) | {card}", flush=True)
+
+
+def roofline_line(card: str, traced: dict, cell: dict) -> None:
+    """``[roofline:<short>]`` for a training cell of ``TRAIN_CELLS``:
+    ``launch/roofline``'s model FLOPs of its config at its batch x seq; for
+    no and full remat,
+    from the cell's ``roofline_trace`` (``traced``), the aten dot FLOPs and
+    HBM bytes of the whole step, their compute and memory terms and bound
+    on the H100, the measured median step, MFU (model FLOPs over the step
+    time at the compute dtype's peak), measured over bound, and retained +
+    DSA against the measured peak of the same policy (allocated, the step's
+    inputs included) beside DSA against the peak above the inputs.  Fails
+    unless 0 < MFU < 1."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline as rl
+
+    cfg, short, medians = cell["cfg"], cell["short"], cell["medians"]
+    peaks_abs, peaks_above = cell["peaks_abs"], cell["peaks_above"]
+    batch, seq = cell["batch"], cell["seq"]
+    mf = rl.model_flops(cfg, ShapeConfig("train", seq, batch, "train"))["model_flops"]
+    peak = rl.peak_flops(cfg.dtype)
+    parts = []
+    for name in ("none", "full"):
+        h, ma = traced[name]["aten"], traced[name]["memory_analysis"]
+        compute_s, memory_s = h["dot_flops"] / peak, h["hbm_bytes"] / rl.HBM_BW
+        bound_s, step_s = max(compute_s, memory_s), medians[name] / 1e3
+        mfu = mf / (step_s * peak)
+        planned = traced[name]["fits"]["retained_plus_dsa"]
+        parts.append(
+            f"remat={name} aten_flops={h['dot_flops']:.6g} model/aten="
+            f"{mf / h['dot_flops']:.4f} hbm={h['hbm_bytes'] / 1e9:.3f}GB "
+            f"compute={1e3 * compute_s:.3f}ms memory={1e3 * memory_s:.3f}ms "
+            f"bound={1e3 * bound_s:.3f}ms ({'compute' if compute_s >= memory_s else 'memory'}) "
+            f"step={medians[name]:.1f}ms mfu={mfu:.4f} measured/bound={step_s / bound_s:.3f} "
+            f"retained+dsa={planned / 1e9:.3f}GB measured_peak={peaks_abs[name] / 1e9:.3f}GB "
+            f"planned/measured={planned / peaks_abs[name]:.3f} dsa={ma['temp_bytes'] / 1e9:.3f}GB "
+            f"above_inputs={peaks_above[name] / 1e9:.3f}GB "
+            f"dsa/above={ma['temp_bytes'] / peaks_above[name]:.3f}")
+        if not 0 < mfu < 1:
+            raise AssertionError(f"roofline: {short} remat={name} MFU {mfu} outside (0, 1)")
+    print(f"[roofline:{short}] {cell['tag'].split('] ', 1)[1]} {cfg.dtype} model_flops={mf:.6g} "
+          f"peak={peak / 1e12:g}TFLOP/s hbm_bw={rl.HBM_BW / 1e12:g}TB/s | "
+          + " | ".join(parts) + f" | traced and planned in a worker in "
+          f"{traced['seconds']:.1f}s | {card}", flush=True)
 
 
 def cudnn_line(torch) -> str:
@@ -2215,7 +2326,27 @@ def chunked_phase(torch, ops, card: str) -> dict:
           f"{peaks['chunked'][0] / 1e9:.3f}GB in {peaks['chunked'][1]:.1f}ms", flush=True)
     if not err <= CHUNK_TOL:
         raise AssertionError(f"chunked: attend_chunked against attend_full {err} > {CHUNK_TOL}")
-    del q, k, v, outs
+    del outs["chunked"]
+    # full attention with bf16 score storage (RunOpts.softmax_dtype) against its f32 path
+    free_cuda(torch)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stored = attn.attend(q, k, v, impl="full", causal=True, softmax_dtype="bfloat16")
+    torch.cuda.synchronize()
+    peak_bf16, ms_bf16 = (torch.cuda.max_memory_allocated() - before,
+                          1e3 * (time.perf_counter() - t1))
+    err_bf16 = float((stored.float() - outs["full"].float()).abs().max())
+    print(f"[chunked] attend H={cfg.n_heads} KV={kv} D={hd} bf16 B=1 S={CHUNK_SEQ}: full "
+          f"softmax_dtype=bfloat16 vs the f32 path max_abs_err {err_bf16:.3g} (tol "
+          f"{CHUNK_TOL}); peak above the inputs {peak_bf16 / 1e9:.3f}GB in {ms_bf16:.1f}ms, "
+          f"f32 path {peaks['full'][0] / 1e9:.3f}GB ({peak_bf16 / peaks['full'][0]:.3f}x)",
+          flush=True)
+    if not err_bf16 <= CHUNK_TOL:
+        raise AssertionError(f"chunked: bf16 score storage against the f32 path {err_bf16} "
+                             f"> {CHUNK_TOL}")
+    del q, k, v, outs, stored
 
     # the training step: S decided by the no-remat profiles
     small = cfg.with_overrides(n_layers=CHUNK_LAYERS)
@@ -2604,6 +2735,12 @@ def main() -> int:
                                 seq=s, batch_hi=hi, cut_layers=cut_layers))
         stamp(t_start, f"phase 7 {short}")
     train = {k: sum(r[k] for r in runs) for k in train_q}
+    roofline_phase(card)
+    stamp(t_start, "phase 7 roofline")
+    from repro_torch.launch.roofline import HBM_BYTES
+    print(f"[roofline] the card's total_memory "
+          f"{torch.cuda.get_device_properties(0).total_memory} B, roofline.HBM_BYTES "
+          f"{HBM_BYTES} B | {card}", flush=True)
     # -- 8. the paper's own nets at their registered sizes, then the chunked attention ------
     paper_runs = []
     for arch, short in PAPER_CNNS:

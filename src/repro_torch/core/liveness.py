@@ -71,6 +71,13 @@ def _node_flops(node) -> float:
     return float(out_elems)
 
 
+def _ret(node, idx: int):
+    """The schema return of ``node``'s output ``idx`` (a list return, as
+    ``split``'s, covers every index), or None for a schema with none."""
+    rets = node.target._schema.returns
+    return rets[min(idx, len(rets) - 1)] if rets else None
+
+
 def _aliased_input(node, ret) -> object | None:
     """The input node whose buffer return ``ret`` of ``node`` aliases, or
     None when the return is a new buffer."""
@@ -98,18 +105,18 @@ def profile_graph(gm: torch.fx.GraphModule, *,
     n_eqns = len(calls)
     tick = {n: t for t, n in enumerate(calls)}
 
-    retained = 0
-    # value key (node, output index) -> owning buffer: a block key, or None
-    # for retained memory
+    # value key (node, output index) -> owning buffer: a block key, or the
+    # key of a retained input (a placeholder's or a get_attr's value)
     owner: dict = {}
+    inputs: dict = {}                   # retained key -> (node op, bytes)
     for n in gm.graph.nodes:
         if n.op in ("placeholder", "get_attr"):
             val = n.meta.get("val")
             if val is None and n.op == "get_attr":
                 val = getattr(gm, n.target, None)
             for i, t in _outputs(val):
-                retained += _nbytes(t)
-                owner[(n, i)] = None
+                owner[(n, i)] = (n, i)
+                inputs[(n, i)] = (n.op, _nbytes(t))
 
     sizes: dict = {}
     produced_at: dict = {}
@@ -136,10 +143,9 @@ def profile_graph(gm: torch.fx.GraphModule, *,
             continue
         if not isinstance(n.target, torch._ops.OpOverload):
             raise TypeError(f"profile_graph: unexpected call target {n.target!r}")
-        rets = n.target._schema.returns
         cost = None
         for i, val in _outputs(n.meta.get("val")):
-            ret = rets[min(i, len(rets) - 1)] if rets else None
+            ret = _ret(n, i)
             base = _aliased_input(n, ret) if ret is not None else None
             if base is not None:
                 key = owner_of(base)
@@ -158,10 +164,12 @@ def profile_graph(gm: torch.fx.GraphModule, *,
             flops[key] = cost
     # Outputs of the graph live to the very end.
     out_node = next(n for n in gm.graph.nodes if n.op == "output")
+    returned: dict = {}                 # distinct buffers the graph returns
     for a in out_node.all_input_nodes:
         for key in owners(a):
             if key is not None:
                 last_use[key] = n_eqns
+                returned[key] = inputs[key] if key in inputs else ("block", sizes[key])
 
     blocks: list[Block] = []
     block_flops: dict[int, float] = {}
@@ -179,11 +187,17 @@ def profile_graph(gm: torch.fx.GraphModule, *,
 
     return MemoryProfile(
         blocks=blocks,
-        retained_bytes=retained,
+        retained_bytes=sum(size for _, size in inputs.values()),
         clock_end=2 * n_eqns + 1,
         meta={"n_eqns": n_eqns, "source": "fx", "block_flops": block_flops,
               "block_steps": {},
-              "op_edges": sorted([u, v] for u, v in op_edges)},
+              "op_edges": sorted([u, v] for u, v in op_edges),
+              # retained bytes by kind of input, and each buffer the graph
+              # returns as [kind, bytes]: "block" for a new buffer, else the
+              # input's kind (a buffer the step hands back, in place or not)
+              "input_bytes": {op: sum(size for k, size in inputs.values() if k == op)
+                              for op in ("placeholder", "get_attr")},
+              "returned": [list(v) for v in returned.values()]},
     )
 
 

@@ -139,10 +139,8 @@ def main(argv=None) -> None:
 
     # paper's planner: activation plan for this exact step, and the
     # profile-guided remat policy that replaces the boolean flag
-    batch_sds = {"tokens": ((batch, seq + 1), torch.int32)}
+    batch_sds = train_lib.batch_specs(cfg, batch, seq, torch.float32)  # the pipeline's frames
     enc = cfg.is_encoder_decoder
-    if enc:
-        batch_sds["frames"] = ((batch, cfg.encoder_seq, cfg.d_model), torch.float32)
     prof = train_lib.profile_step(model, batch_sds, grad=False)
     rep = MemoryPlanner().report(prof)
     print(f"memory plan: peak={rep.plan.peak / 1e6:.1f}MB "

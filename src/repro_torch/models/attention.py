@@ -69,9 +69,18 @@ def out_project(ctx, p, cfg):
     return ctx @ p["wo"].reshape(-1, p["wo"].shape[-1])
 
 
-def attend_full(q, k, v, *, causal=True, window=0, q_offset=0):
+def attend_full(q, k, v, *, causal=True, window=0, q_offset=0,
+                softmax_dtype="float32"):
     """q: (B,Sq,kv,g,hd); k/v: (B,Sk,kv,hd).  Scores in the compute dtype,
-    softmax in f32 (the reference's ``softmax_dtype=float32``)."""
+    softmax in f32 (``softmax_dtype="float32"``).
+
+    ``softmax_dtype="bfloat16"`` is the reference's score storage policy:
+    the S² scores, the mask bias and ``exp(s - m)`` stay in the scores'
+    dtype (bf16 in a bf16 model), the row max ``m`` is taken detached (its
+    ``stop_gradient``), the row sum accumulates in f32 and the
+    probabilities are ``p / l`` in ``p``'s dtype."""
+    if softmax_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"softmax_dtype {softmax_dtype!r}: float32 or bfloat16")
     hd = q.shape[-1]
     scale = hd ** -0.5
     scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * scale
@@ -85,7 +94,18 @@ def attend_full(q, k, v, *, causal=True, window=0, q_offset=0):
     if window:
         ok = ok & (k_pos[None, :] > (q_pos[:, None] - window))
     bias = torch.where(ok, 0.0, NEG_INF)
-    probs = torch.softmax(upcast(scores) + bias, dim=-1).to(q.dtype)
+    if softmax_dtype == "float32":
+        probs = torch.softmax(upcast(scores) + bias, dim=-1).to(q.dtype)
+    else:
+        # each S² tensor is dropped once the next exists: this path is there
+        # to hold fewer bytes (autograd keeps what its backward needs)
+        s = scores + bias.to(scores.dtype)
+        del scores
+        p = torch.exp(s - s.detach().amax(dim=-1, keepdim=True))
+        del s
+        l = p.sum(dim=-1, keepdim=True, dtype=torch.float32)
+        probs = (p / l.to(p.dtype)).to(q.dtype)
+        del p
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
 
 
@@ -129,13 +149,15 @@ def attend_chunked(q, k, v, *, causal=True, window=0, q_offset=0, chunk=1024):
     return ctx.permute(0, 3, 1, 2, 4)                  # (B,Sq,kv,g,hd)
 
 
-def attend(q, k, v, *, impl="kernel", causal=True, window=0, q_offset=0, chunk=1024):
+def attend(q, k, v, *, impl="kernel", causal=True, window=0, q_offset=0, chunk=1024,
+           softmax_dtype="float32"):
+    """``softmax_dtype`` reaches ``"full"`` only, as in the reference."""
     if impl == "kernel":
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset)
     if impl == "full":
         return attend_full(q, k, v, causal=causal, window=window,
-                           q_offset=q_offset)
+                           q_offset=q_offset, softmax_dtype=softmax_dtype)
     if impl == "chunked":
         return attend_chunked(q, k, v, causal=causal, window=window,
                               q_offset=q_offset, chunk=chunk)

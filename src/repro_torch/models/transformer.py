@@ -88,6 +88,10 @@ class RunOpts:
     rglru_block: int = 256            # block length of the plain RG-LRU scan
     loss_impl: str = "full"           # full | chunked (training CE)
     loss_chunk: int = 512             # sequence chunk of the chunked CE
+    # float32 | bfloat16: score storage of "full" attention where the
+    # reference passes it (training, forward and the encoder; not prefill's
+    # self-attention nor cross-attention)
+    softmax_dtype: str = "float32"
 
 
 def _norm_schema(cfg) -> Schema:
@@ -360,11 +364,15 @@ class Transformer:
             return impl
         return "full" if seq_len <= AUTO_FULL_MAX else "chunked"
 
-    def _attend(self, q, k, v, **masks):
+    def _attend(self, q, k, v, prefill=False, **masks):
         """Attention over a whole sequence (training, prefill, forward and
-        the encoder) by ``_attn_impl`` of its length."""
+        the encoder) by ``_attn_impl`` of its length.  ``prefill`` (a
+        decoder's self-attention in ``prefill``) keeps f32 scores whatever
+        ``softmax_dtype`` says, as the reference's prefill does."""
         return attn.attend(q, k, v, impl=self._attn_impl(q.shape[1]),
-                           chunk=self.opts.attn_chunk, **masks)
+                           chunk=self.opts.attn_chunk,
+                           softmax_dtype="float32" if prefill else self.opts.softmax_dtype,
+                           **masks)
 
     def _attn_qkv(self, x, p, rope_cs):
         h = self._norm(x, p["attn"]["norm"])
@@ -386,7 +394,9 @@ class Transformer:
         none), queries from the decoder stream over the encoder's keys and
         values, non-causal: the reference's ``impl="full"`` over a sequence,
         a plain product outside any kernel, or with ``pos`` (the last
-        frame's position) ``attend_decode`` over the cross cache."""
+        frame's position) ``attend_decode`` over the cross cache.  Its
+        scores stay f32 whatever ``softmax_dtype`` says: the reference's
+        cross-attention does not pass it."""
         qx = attn.q_project(self._norm(x, p["xnorm"]), p["xattn"], self.cfg)
         ctx = (attn.attend_full(qx, kx, vx, causal=False) if pos is None
                else attn.attend_decode(qx, kx, vx, pos))
@@ -749,7 +759,8 @@ class Transformer:
         for kind, p in zip(self.kinds, params["layers"]):
             if kind == "local":
                 q, k, v = self._attn_qkv(x, p, rope_cs)
-                ctx = self._attend(q, k, v, causal=True, window=cfg.local_window)
+                ctx = self._attend(q, k, v, prefill=max_len is not None, causal=True,
+                                   window=cfg.local_window)
                 x = self._finish_block(x, ctx, p)
                 if max_len is not None:
                     c = min(self._local_len(max_len), s)
@@ -869,7 +880,7 @@ class Transformer:
         cross = ()
         for i, p in enumerate(params["layers"]):
             q, k, v = self._attn_qkv(x, p, rope_cs)
-            ctx = self._attend(q, k, v, causal=True)
+            ctx = self._attend(q, k, v, prefill=True, causal=True)
             if enc is not None:
                 cross = attn.kv_project(enc, p["xattn"], cfg)
                 cache["xk"][i], cache["xv"][i] = cross

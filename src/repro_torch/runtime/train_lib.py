@@ -64,6 +64,16 @@ def abstract_state(model: Transformer, mode: FakeTensorMode,
     return state
 
 
+def batch_specs(cfg, batch: int, seq: int, frames_dtype: torch.dtype) -> dict:
+    """A training batch as ``{name: (shape, dtype)}``: ``(batch, seq + 1)``
+    int32 tokens and, for an encoder-decoder, ``(batch, encoder_seq,
+    d_model)`` frames in ``frames_dtype`` (the data pipeline's are f32)."""
+    specs = {"tokens": ((batch, seq + 1), torch.int32)}
+    if cfg.is_encoder_decoder:
+        specs["frames"] = ((batch, cfg.encoder_seq, cfg.d_model), frames_dtype)
+    return specs
+
+
 def _fake_batch(mode: FakeTensorMode, batch_sds: dict, device) -> dict:
     """``{name: (shape, dtype)}`` -> fake tensors of ``mode``."""
     with mode:

@@ -491,6 +491,49 @@ def test_loaded_profile_is_of_the_replica_dtype():
         t.numel() * 2 for t in tree_leaves(weights) if t.dtype == torch.bfloat16) > 0
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
+def test_fine_tune_tenant_matches_the_reference_sgd_step(arch, monkeypatch):
+    """The ``--share-hbm`` tenant of the recurrent patterns: the port's
+    ``make_train_step`` against the reference's at smoke size on the same
+    tokens (the reference's ``jax.random.randint`` draw is replaced by the
+    batch the port's step draws from its seed), 3 SGD steps at lr 0.01:
+    each loss and the final replica within 1e-5 relative.  wq and wk are redrawn at 1/sqrt(d_model)
+    as in the pattern-training tests: under the reference's init the
+    hybrid's one-head local attention is near one-hot, and f32 rounding of
+    either package moves its SGD losses by ~1e-3 at the third step."""
+    import inspect
+
+    from repro.launch import serve as jserve_cli
+    from repro_torch.models import params_from_jax
+    from test_torch_pattern_train import _redraw_qk
+    from torch_port_utils import ref_params
+    jcfg, tcfg = jget_config(arch).smoke(), get_config(arch).smoke()
+    _, np_tree = ref_params(jcfg)
+    _redraw_qk(np_tree, jcfg.d_model)
+    jparams = jax.tree.map(jnp.asarray, np_tree)
+    seq, batch, lr = 16, 2, 0.01
+    # the batch the port's step draws from its seed (0)
+    tokens = torch.randint(0, tcfg.vocab_size, (batch, seq + 1), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(7)).numpy()
+    with monkeypatch.context() as m:
+        m.setattr(jax.random, "randint", lambda *a, **k: jnp.asarray(tokens))
+        jstep = jserve_cli.make_train_step(JTransformer(jcfg), jparams, seq, batch, lr=lr)
+    model = Transformer(tcfg, RunOpts(attention_impl="kernel"), device="cpu")
+    tstep = tserve.make_train_step(tserve.finetune_model(model),
+                                   model.load(params_from_jax(np_tree)), seq, batch, lr=lr)
+    for _ in range(3):
+        jl, tl = float(jstep()), float(tstep())
+        assert np.isfinite(tl) and abs(tl - jl) <= 1e-5 * abs(jl)
+    final = inspect.getclosurevars(jstep).nonlocals["state"]["p"]
+    want = torch.cat([torch.as_tensor(np.asarray(t, np.float64)).flatten() for t in
+                      tree_leaves(params_from_jax(jax.tree.map(np.asarray, final)))])
+    got = torch.cat([t.detach().double().flatten() for t in tree_leaves(tstep.replica)])
+    start = torch.cat([torch.as_tensor(np.asarray(t, np.float64)).flatten()
+                       for t in tree_leaves(params_from_jax(np_tree))])
+    assert float((got - want).norm() / want.norm()) <= 1e-5
+    assert float((want - start).norm()) > 0
+
+
 def _cli(module, *args):
     r = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
                        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
@@ -508,6 +551,18 @@ def test_serve_cli_share_hbm_runs_fine_tune_steps():
     assert int(line.split("train_steps=")[1].split()[0]) >= 1
     assert "completed 4/4 requests" in out
     assert "feasible=True" in out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
+def test_serve_cli_share_hbm_runs_recurrent_fine_tune_steps(arch):
+    out = _cli("repro_torch.launch.serve", "--arch", arch, "--device", "cpu",
+               "--share-hbm", "1", "--train-steps", "2", "--requests", "4")
+    assert "[shared arena] budget=1.07GB" in out and "feasible=True" in out
+    line = next(x for x in out.splitlines() if x.startswith("[colocated]"))
+    assert int(line.split("train_steps=")[1].split()[0]) >= 1
+    loss = float(line.split(" loss=")[1].split()[0])
+    assert np.isfinite(loss)
+    assert "completed 4/4 requests" in out
 
 
 def test_train_cli_share_hbm_plans_remat_against_the_split():
