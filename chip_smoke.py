@@ -175,7 +175,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      12288, 10240 whose no-remat plans fit the card: losses and gradients;
      then the chunked backward over 8448 tokens held against float64 in
      f32 and bf16 (``chunked_witness``);
-  10. print the load phases' launches (``[load] launches``), the kernels
+  10. ``[mesh:*]`` (``mesh_phase``): the sharded path on the one-card
+     mesh (``launch.mesh.one_card_mesh``: a (data=1, model=1)
+     ``DeviceMesh`` over a world-size-1 NCCL group that meets through a
+     ``HashStore``), where every placement is local and no collective moves
+     data: ``[mesh:train]`` runs 3 AdamW steps of qwen2-0.5b at full width,
+     4 of its 24 layers, B=8 x S=512, bf16 over f32 masters, full remat,
+     through ``build_train_step(model, mesh)`` over DTensor state and the
+     same through ``mesh=None`` from the same parameters, and prints both
+     median step times, the largest relative loss difference (fails above
+     1e-3, bf16's resolution), the parameters' relative L2 difference and
+     whether the two are bit-identical; ``[mesh:serve]`` serves qwen2-0.5b
+     at full width and depth (the phase-4 trace: 12 requests, 32 generated
+     tokens each, max_batch 8, the paged pool) eagerly through
+     ``ServeEngine(mesh=...)`` (DTensor parameters and pool, the kernels
+     through ``local_map``), with the launch counters set to 0 just before
+     it, beside phase 4's eager run without a mesh on the same weights and
+     trace, and fails unless the greedy streams are identical and the run
+     launched the paged and flash kernels;
+  11. print the load phases' launches (``[load] launches``), the kernels
      JSON line, the card line, and the result line.
 
 Every serving path runs twice on the same trace and weights, first with the
@@ -308,6 +326,9 @@ CHUNK_SEQ, CHUNK_SEQS, CHUNK_LAYERS, CHUNK_TOL = 16384, (16384, 12288, 10240), 2
 # witness's distance from float64 (8.3e-3 chunked, 7.4e-3 full), rounded up;
 # read 6.8e-3 (one H100, 700 W)
 CHUNK_GRAD_TOL = 2e-2
+# [mesh:train]: 3 AdamW steps on the one-card mesh against the same unsharded
+MESH_TRAIN_STEPS = 3
+MESH_LOSS_TOL = 1e-3        # relative, bf16's resolution
 # the witness: the same 2 layers with the vocabulary cut to 8192, at 8448
 # tokens (8 chunks of 1024 and a padded one of 256), in float64 (full, the
 # yardstick), f32 and bf16 (chunked and full); chunked's gradients may be at
@@ -793,7 +814,8 @@ def graph_ab(torch, ops, make_engine, live, expected, card, tag: str,
     of the prompt ladder, on the same trace and weights: print both runs'
     decode step ms, tokens/s, prefill ms, graph pools' bytes and compile
     count, and fail unless every request's token stream is the same.
-    Returns the graph run (``serve_path``'s dict)."""
+    Returns the graph run (``serve_path``'s dict), the eager run's under
+    ``"eager"``."""
     eager = serve_path(torch, ops, make_engine(graphs=False), live, expected, card,
                        f"{tag}:eager", around_eager)
     free_cuda(torch)
@@ -813,7 +835,7 @@ def graph_ab(torch, ops, make_engine, live, expected, card, tag: str,
         rid, i = where
         raise AssertionError(f"graph:{tag}: rid {rid} diverges at token {i}: eager "
                              f"{eager['completed'][rid]} graphs {graph['completed'].get(rid)}")
-    return graph
+    return dict(graph, eager=eager)
 
 
 def free_cuda(torch) -> None:
@@ -2426,6 +2448,126 @@ def chunked_phase(torch, ops, card: str) -> dict:
     return launches
 
 
+def mesh_phase(torch, ops, card: str, eager: dict) -> dict:
+    """``[mesh:train]`` and ``[mesh:serve]`` (the module's docstring, phase
+    10) over the one-card mesh; the process group ends with the phase.
+    ``eager`` is phase 4's eager unsharded run of the same qwen2 path (same
+    seeded weights and trace, ``graph_ab``'s ``"eager"``): the mesh run's
+    streams must equal it.  Returns the ``[mesh:serve]`` run's kernel
+    launches."""
+    import statistics
+
+    import torch.distributed as dist
+    from torch.utils._pytree import tree_flatten_with_path, tree_map
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch.mesh import describe, one_card_mesh
+    from repro_torch.models import RunOpts, Transformer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import sharding_rules, train_lib
+    from repro_torch.serving import ServeEngine
+
+    free_cuda(torch)
+    t_phase = time.perf_counter()
+    mesh = one_card_mesh()
+    try:
+        print(f"[mesh] {describe(mesh)} {mesh} in {time.perf_counter() - t_phase:.1f}s",
+              flush=True)
+        # -- [mesh:train] ----------------------------------------------------------
+        t0 = time.perf_counter()
+        cfg = get_config(ARCH).with_overrides(n_layers=TRAIN_QWEN2_LAYERS)
+        model = Transformer(cfg, RunOpts(attention_impl="full", use_kernels=False))
+        acfg = AdamWConfig(lr=TRAIN_LR["qwen2"], warmup_steps=2, total_steps=TRAIN_STEPS)
+        pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                            global_batch=TRAIN_BATCH, seed=0))
+        batches = [{k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(i).items()}
+                   for i in range(MESH_TRAIN_STEPS)]
+        topts = train_lib.TrainOpts(remat=True)
+        init = train_lib.init_state(model, torch.Generator(device="cuda").manual_seed(SEED),
+                                    acfg)
+        runs = {}
+        ops.reset_launches()
+        for name, m in (("unsharded", None), ("mesh", mesh)):
+            state = tree_map(lambda t: t.detach().clone(), init)
+            step, placed = train_lib.build_train_step(model, m, acfg, topts)
+            if m is not None:
+                state = sharding_rules.distribute_tree(state, placed[0], m)
+            losses, ms = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, met = step(state, b)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t1))
+                losses.append(float(met["loss"]))
+            leaves = tree_flatten_with_path(state["params"])[0]
+            runs[name] = (losses, ms, [t.to_local() if hasattr(t, "to_local") else t
+                                       for _, t in leaves])
+            paths = ["/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp)
+                     for kp, _ in leaves]
+            del state
+        if any(fn.launches for fn in ops.WRAPPERS):
+            raise AssertionError("mesh:train: a kernel launched in training")
+        (lu, msu, pu), (lm, msm, pm) = runs["unsharded"], runs["mesh"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lm, lu))
+        param_rel = rel_l2(pm, pu)
+        differ = [p for p, a, b in zip(paths, pm, pu) if not torch.equal(a, b)]
+        same = lu == lm and not differ
+        print(f"[mesh:train] {ARCH} {cfg.n_layers} layers B={TRAIN_BATCH} S={TRAIN_SEQ} "
+              f"bf16 over f32 masters, full remat, {MESH_TRAIN_STEPS} AdamW steps: median "
+              f"step unsharded {statistics.median(msu):.1f}ms mesh "
+              f"{statistics.median(msm):.1f}ms (steps {[round(x, 1) for x in msu]} / "
+              f"{[round(x, 1) for x in msm]}); losses {lu} / {lm}; max relative loss "
+              f"difference {loss_rel:.3e} (limit {MESH_LOSS_TOL:g}); parameters' "
+              f"relative L2 difference {param_rel:.3e}; bit-identical {same}"
+              f"{'' if same else f' ({len(differ)} of {len(paths)} leaves differ: {differ})'} "
+              f"in {time.perf_counter() - t0:.1f}s | {card}", flush=True)
+        if not loss_rel <= MESH_LOSS_TOL:
+            raise AssertionError(f"mesh:train: loss differs by {loss_rel:.3e} relative")
+        del runs, init, pu, pm
+        free_cuda(torch)
+        # -- [mesh:serve] ----------------------------------------------------------
+        t0 = time.perf_counter()
+        cfg = get_config(ARCH)
+        trace, live = serve_trace(cfg, torch, N_REQUESTS, SEED)
+        model, params = load_model(torch, Transformer, cfg, RunOpts(attention_impl="kernel"),
+                                   SEED, "mesh:serve")
+
+        def expected(steps, prefills):
+            return {"flash_attention": cfg.n_layers * prefills,
+                    "paged_attention": cfg.n_layers * steps, "ssd_scan": 0,
+                    "rglru_scan": 0}
+        eng = ServeEngine(model, params, sample_trace=trace, max_len=MAX_LEN,
+                          max_batch=MAX_BATCH, attn_mode="paged", graphs=False, mesh=mesh)
+        res = {"eager": eager, "mesh": serve_path(torch, ops, eng, live, expected, card,
+                                                  "mesh")}
+        del eng
+        where = first_divergence(res["eager"]["completed"], res["mesh"]["completed"])
+        la = res["mesh"]["launches"]
+        print(f"[mesh:serve] {ARCH} {cfg.n_layers} layers, {len(live)} requests x "
+              f"{GEN_LEN} tokens, max_batch {MAX_BATCH}, paged pool, eager: decode step "
+              f"{res['eager']['step_ms']:.2f}ms without the mesh (phase 4's "
+              f"[serve:qwen2:eager]), "
+              f"{res['mesh']['step_ms']:.2f}ms with it "
+              f"({res['mesh']['step_ms'] / res['eager']['step_ms']:.2f}x), prefill "
+              f"{res['eager']['prefill_ms']:.2f} / {res['mesh']['prefill_ms']:.2f}ms; "
+              f"launches under the mesh [paged] {la['paged_attention']} [flash] "
+              f"{la['flash_attention']}; greedy streams identical {where is None} "
+              f"in {time.perf_counter() - t0:.1f}s | {card}", flush=True)
+        if where is not None:
+            rid, i = where
+            raise AssertionError(f"mesh:serve: rid {rid} diverges at token {i}")
+        if not (la["paged_attention"] > 0 and la["flash_attention"] > 0):
+            raise AssertionError(f"mesh:serve: launches {la}")
+        del model, params
+    finally:
+        dist.destroy_process_group()
+    free_cuda(torch)
+    print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return la
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2581,12 +2723,13 @@ def main() -> int:
     # -- 4. the qwen2 path: full-width qwen2-0.5b, paged decode, flash prefill -------
     model, params = load_model(torch, Transformer, cfg, RunOpts(attention_impl="kernel"),
                                SEED, "qwen2")
-    qwen2 = graph_ab(torch, ops, lambda graphs: ServeEngine(
+    qwen2_run = graph_ab(torch, ops, lambda graphs: ServeEngine(
         model, params, sample_trace=trace, max_len=MAX_LEN, max_batch=MAX_BATCH,
         attn_mode="paged", graphs=graphs), live, lambda steps, prefills: {
         "flash_attention": cfg.n_layers * prefills,
         "paged_attention": cfg.n_layers * steps, "ssd_scan": 0,
-        "rglru_scan": 0}, card, "qwen2")["launches"]
+        "rglru_scan": 0}, card, "qwen2")
+    qwen2, qwen2_eager = qwen2_run["launches"], qwen2_run["eager"]
     stamp(t_start, "[graph:qwen2]")
     churn = churn_phase(torch, ops, cfg, model, params, card)
     stamp(t_start, "[serve:churn]")
@@ -2751,7 +2894,9 @@ def main() -> int:
     paper = {k: sum(r[k] for r in paper_runs) for k in train_q}
     chunked = chunked_phase(torch, ops, card)
     stamp(t_start, "phase 9 chunked")
-    # -- 10. records -----------------------------------------------------------------------
+    mesh = mesh_phase(torch, ops, card, qwen2_eager)
+    stamp(t_start, "phase 10 mesh")
+    # -- 11. records -----------------------------------------------------------------------
     pk = paged[("bfloat16", MAX_BATCH)]
     pk128 = paged128[("bfloat16", MAX_BATCH)]
     fk = flash[("bfloat16", 512, 0, 0)]
@@ -2799,6 +2944,7 @@ def main() -> int:
          "train_launches": train["paged_attention"],
          "paper_launches": paper["paged_attention"],
          "chunked_launches": chunked["paged_attention"],
+         "mesh_launches": mesh["paged_attention"],
          "max_abs_err": max(paged_worst["bfloat16"], paged128_worst["bfloat16"],
                             *(w["bfloat16"] for _, w in paged_dense.values())),
          "ms": pk["ms"],
@@ -2822,6 +2968,7 @@ def main() -> int:
          "train_launches": train["flash_attention"],
          "paper_launches": paper["flash_attention"],
          "chunked_launches": chunked["flash_attention"],
+         "mesh_launches": mesh["flash_attention"],
          "max_abs_err": max(flash_worst["bfloat16"], flash128_worst["bfloat16"],
                             flash_wide_worst["bfloat16"],
                             *(w["bfloat16"] for _, w in flash_dense.values()),
@@ -2843,6 +2990,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/ssd_scan.py:64",
          "launches": mamba2["ssd_scan"], "train_launches": train["ssd_scan"],
          "paper_launches": paper["ssd_scan"], "chunked_launches": chunked["ssd_scan"],
+         "mesh_launches": mesh["ssd_scan"],
          "max_abs_err": ssd_worst["bfloat16"], "ms": sk["ms"],
          "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
          "bound_by": sk["bound_by"], "library_ms": None,
@@ -2852,6 +3000,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/rglru_scan.py:40",
          "launches": rgemma["rglru_scan"], "train_launches": train["rglru_scan"],
          "paper_launches": paper["rglru_scan"], "chunked_launches": chunked["rglru_scan"],
+         "mesh_launches": mesh["rglru_scan"],
          "max_abs_err": rglru_worst, "ms": rk["ms"],
          "plain_ms": rk["plain_ms"], "bound_ms": rk["bound_ms"],
          "bound_by": rk["bound_by"], "library_ms": None,

@@ -9,7 +9,13 @@ checkpoint; ``latest_step`` scans completed manifests only.  Saving runs on a
 background thread with a ``wait()`` barrier; the host snapshot is taken on
 the caller's thread, since the optimizer updates the state in place right
 after.  Restore places each leaf on the device and dtype of the matching
-leaf of ``like``.
+leaf of ``like``, and a DTensor leaf of ``like`` on its mesh and
+placements: checkpoints hold full tensors, so a state saved on one mesh
+restores onto another (the reference's N -> M restore).  Under a mesh
+every rank calls ``save``: each leaf is gathered whole on every rank, one
+at a time, and only the mesh's first rank keeps a host copy and writes.
+``blocking=True`` then ends on every rank of the mesh once the write is
+done, and raises on every rank if it failed.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten_with_path, tree_unflatten
 
+from ..runtime.mesh_ctx import is_dtensor, whole
+
 
 def _flatten(tree):
     leaves, spec = tree_flatten_with_path(tree)
@@ -36,12 +44,27 @@ def _flatten(tree):
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t``, never a view of it; numpy has no bf16, so bf16
-    leaves are stored as f32 (``restore`` casts back to ``like``'s dtype)."""
-    t = t.detach()
+    """A host copy of ``t`` (a plain tensor), never a view of it; numpy has
+    no bf16, so bf16 leaves are stored as f32 (``restore`` casts back to
+    ``like``'s dtype)."""
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.to("cpu", copy=True).numpy()
+
+
+def _mesh_of(flat: dict):
+    """The mesh of the first DTensor leaf, or None."""
+    return next((v.device_mesh for v in flat.values() if is_dtensor(v)), None)
+
+
+def _any_failed(mesh, failed: bool) -> bool:
+    """Whether ``failed`` holds on any rank of ``mesh``: a max over each of
+    its dims in turn, which no rank leaves before every rank has come."""
+    import torch.distributed as dist
+    flag = torch.tensor([float(failed)], device=mesh.device_type)
+    for j in range(mesh.ndim):
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.get_group(j))
+    return bool(flag.item())
 
 
 class Checkpointer:
@@ -57,7 +80,22 @@ class Checkpointer:
              blocking: bool = False) -> None:
         self.wait()
         flat, _ = _flatten(tree)
-        host = {k: _to_host(v) for k, v in flat.items()}
+        mesh = _mesh_of(flat)
+        # under a mesh every rank takes part in each leaf's gather (a DTensor
+        # is written whole, so a checkpoint does not depend on the mesh it
+        # was saved from) and the mesh's first rank keeps and writes it
+        writes = mesh is None or not any(mesh.get_coordinate())
+        host = {}
+        for k, v in flat.items():
+            t = whole(v.detach())
+            if writes:
+                host[k] = _to_host(t)
+            del t
+        if not writes:
+            if blocking and _any_failed(mesh, False):
+                raise RuntimeError(f"checkpoint step {step}: the mesh's first rank "
+                                   "failed to write it")
+            return
 
         def work():
             try:
@@ -83,8 +121,17 @@ class Checkpointer:
 
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
-        if blocking:
+        if not blocking:
+            return
+        if mesh is None:
             self.wait()
+            return
+        try:
+            self.wait()
+        except BaseException:
+            _any_failed(mesh, True)
+            raise
+        _any_failed(mesh, False)
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -125,7 +172,11 @@ class Checkpointer:
         leaves = []
         for key, ref in flat_like.items():
             arr = np.load(os.path.join(path, key.replace("/", "__") + ".npy"))
-            leaves.append(torch.from_numpy(arr).to(device=ref.device, dtype=ref.dtype))
+            leaf = torch.from_numpy(arr).to(device=ref.device, dtype=ref.dtype)
+            if is_dtensor(ref):                 # N -> M: onto like's mesh
+                from torch.distributed.tensor import distribute_tensor
+                leaf = distribute_tensor(leaf, ref.device_mesh, ref.placements)
+            leaves.append(leaf)
         return tree_unflatten(leaves, spec)
 
     def meta(self, step: int) -> dict:

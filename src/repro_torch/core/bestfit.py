@@ -27,11 +27,13 @@ from .events import MemoryProfile
 class _Line:
     """One offset line (mutable; dead lines are flagged and skipped)."""
 
-    __slots__ = ("t0", "t1", "h", "alive")
+    __slots__ = ("t0", "t1", "h", "alive", "prev", "nxt")
 
     def __init__(self, t0: int, t1: int, h: int):
         self.t0, self.t1, self.h = t0, t1, h
         self.alive = True
+        self.prev: _Line | None = None      # the skyline's neighbours
+        self.nxt: _Line | None = None
 
 
 def best_fit(profile: MemoryProfile, *,
@@ -58,16 +60,16 @@ def best_fit(profile: MemoryProfile, *,
     tmin = min(b.start for b in blocks)
     tmax = max(b.end for b in blocks)
 
-    # Start-sorted index over unplaced blocks for fast candidate lookup.
+    # The unplaced blocks in start order, as parallel lists (start, end, rank
+    # key (lifetime, size, -bid), block) for fast candidate lookup; a placed
+    # block is deleted from all four.
     by_start = sorted(blocks, key=lambda b: (b.start, -(b.end - b.start), -b.size))
-    starts = [b.start for b in by_start]
-    placed = [False] * len(by_start)
-    n_unplaced = len(by_start)
+    u_start = [b.start for b in by_start]
+    u_end = [b.end for b in by_start]
+    u_key = [(b.end - b.start, b.size, -b.bid) for b in by_start]
 
     # Doubly-linked skyline of offset lines + lazy min-heap keyed (h, t0).
     head = _Line(tmin, tmax, 0)
-    prev: dict[int, _Line | None] = {id(head): None}
-    nxt: dict[int, _Line | None] = {id(head): None}
     heap: list[tuple[int, int, int, _Line]] = [(0, tmin, 0, head)]
     counter = 1
     lifted = 0
@@ -77,80 +79,58 @@ def best_fit(profile: MemoryProfile, *,
     n_alive = 1
     lines_peak = 1
     heap_pushes = 1
+    heappush, heappop = heapq.heappush, heapq.heappop
 
-    def push(line: _Line) -> None:
-        nonlocal counter, heap_pushes
-        heapq.heappush(heap, (line.h, line.t0, counter, line))
-        counter += 1
-        heap_pushes += 1
-
-    def pop_lowest() -> _Line:
+    while by_start:
         while True:
-            h, t0, _, line = heapq.heappop(heap)
+            h, t0, _, line = heappop(heap)
             if line.alive and line.h == h and line.t0 == t0:
-                return line
-
-    def find_candidate(line: _Line):
-        """Longest-lifetime unplaced block with lifetime inside [t0, t1)."""
-        lo = bisect_left(starts, line.t0)
-        hi = bisect_right(starts, line.t1 - 1)
-        best = None
-        best_key = None
-        for k in range(lo, hi):
-            if placed[k]:
-                continue
-            b = by_start[k]
-            if b.end <= line.t1:
-                key = (b.end - b.start, b.size, -b.bid)
-                if best_key is None or key > best_key:
-                    best, best_key = (k, b), key
-        return best
-
-    while n_unplaced:
-        line = pop_lowest()
-        cand = find_candidate(line)
-        if cand is None:
+                break
+        # the longest-lifetime unplaced block whose lifetime lies inside
+        # the line's [t0, t1), if any
+        t1 = line.t1
+        fits = [j for j in range(bisect_left(u_start, t0), bisect_right(u_start, t1 - 1))
+                if u_end[j] <= t1]
+        k = max(fits, key=u_key.__getitem__) if fits else -1
+        if k < 0:
             # Lift up: merge into the lowest adjacent line (both if equal).
             lifted += 1
-            p, q = prev[id(line)], nxt[id(line)]
-            ph = p.h if p is not None else None
-            qh = q.h if q is not None else None
+            p, q = line.prev, line.nxt
             assert p is not None or q is not None, "single full-span line must fit any block"
-            if q is None or (p is not None and ph <= qh):
-                target_h = ph
+            if q is None or (p is not None and p.h <= q.h):
+                target_h = p.h
             else:
-                target_h = qh
+                target_h = q.h
             new_t0 = line.t0
             new_t1 = line.t1
             if p is not None and p.h == target_h:
                 p.alive = False
                 n_alive -= 1
                 new_t0 = p.t0
-                p = prev[id(p)]
+                p = p.prev
             if q is not None and q.h == target_h:
                 q.alive = False
                 n_alive -= 1
                 new_t1 = q.t1
-                q = nxt[id(q)]
+                q = q.nxt
             line.alive = False
             merged = _Line(new_t0, new_t1, target_h)
-            prev[id(merged)] = p
-            nxt[id(merged)] = q
+            merged.prev, merged.nxt = p, q
             if p is not None:
-                nxt[id(p)] = merged
+                p.nxt = merged
             if q is not None:
-                prev[id(q)] = merged
-            push(merged)
+                q.prev = merged
+            heappush(heap, (target_h, new_t0, counter, merged))
+            counter += 1
+            heap_pushes += 1
             continue
 
-        k, b = cand
-        placed[k] = True
-        n_unplaced -= 1
+        b = by_start.pop(k)
+        del u_start[k], u_end[k], u_key[k]
         offsets[b.bid] = line.h
 
         # Split the line into up to three pieces around the placed block.
         line.alive = False
-        p, q = prev[id(line)], nxt[id(line)]
         pieces: list[_Line] = []
         if b.start > line.t0:
             pieces.append(_Line(line.t0, b.start, line.h))
@@ -158,22 +138,21 @@ def best_fit(profile: MemoryProfile, *,
         if b.end < line.t1:
             pieces.append(_Line(b.end, line.t1, line.h))
         n_alive += len(pieces) - 1
-        lines_peak = max(lines_peak, n_alive)
-        for piece in pieces:
-            prev[id(piece)] = None
-            nxt[id(piece)] = None
+        if n_alive > lines_peak:
+            lines_peak = n_alive
         for a, c in zip(pieces, pieces[1:]):
-            nxt[id(a)] = c
-            prev[id(c)] = a
+            a.nxt = c
+            c.prev = a
         first, last = pieces[0], pieces[-1]
-        prev[id(first)] = p
-        nxt[id(last)] = q
-        if p is not None:
-            nxt[id(p)] = first
-        if q is not None:
-            prev[id(q)] = last
+        first.prev, last.nxt = line.prev, line.nxt
+        if line.prev is not None:
+            line.prev.nxt = first
+        if line.nxt is not None:
+            line.nxt.prev = last
         for piece in pieces:
-            push(piece)
+            heappush(heap, (piece.h, piece.t0, counter, piece))
+            counter += 1
+            heap_pushes += 1
 
     peak = max((offsets[b.bid] + b.size for b in blocks), default=0)
     return AllocationPlan(

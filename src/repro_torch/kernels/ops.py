@@ -7,7 +7,10 @@ to the CUDA kernel, and any other device raises.  There is no fallback from
 the kernel to the plain version.  No kernel has a backward, so a wrapper
 refuses (``ValueError``) a tensor that requires grad while grad mode is on,
 on every device: its output would come back detached and the gradient would
-be lost without an error.  ``<wrapper>.launches`` counts kernel
+be lost without an error.  A wrapper refuses a DTensor (``TypeError``): it
+never gathers one nor runs the plain version in its place; under a mesh
+the model calls it through ``local_map``, which hands it each rank's
+plain shards.  ``<wrapper>.launches`` counts kernel
 launches (plain-version calls do not count), so a run can show that its main
 path went through the kernels; a launch captured into a CUDA graph counts
 once per replay (``CapturedLaunches``).
@@ -38,6 +41,14 @@ def _refuse_autograd(what: str, *tensors) -> None:
                          "RunOpts(attention_impl='full', use_kernels=False)")
 
 
+def _refuse_dtensor(what: str, *tensors) -> None:
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{what}: a DTensor argument; call the kernel on each rank's "
+                        "local shards (torch.distributed.tensor.experimental.local_map, "
+                        "as runtime.mesh_ctx.run_local does)")
+
+
 def _device_type(t) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel or plain version for device {t.device}")
@@ -55,6 +66,7 @@ def _in_model_layout(fn, q, k, v, **kw):
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Model layout q: (B,S,KV,G,hd); k/v: (B,S,KV,hd) -> ctx (B,S,KV,G,hd)."""
+    _refuse_dtensor("flash_attention", q, k, v)
     _refuse_autograd("flash_attention", q, k, v)
     _check_smem(_fa.smem_blocks(q.shape[-1], q.dtype), "flash attention")
     kw = dict(causal=causal, window=window, q_offset=q_offset)
@@ -77,6 +89,7 @@ def paged_attention(q, k_pages, v_pages, tables, positions):
     """Decode layout q: (B,KV,G,hd); pools (P,pt,KV,hd); tables (B,maxp);
     positions (B,) -> ctx (B,KV,G,hd).  The page table is consumed inside
     the kernel — no gather, no contiguous copy."""
+    _refuse_dtensor("paged_attention", q, k_pages, v_pages, tables, positions)
     _refuse_autograd("paged_attention", q, k_pages, v_pages)
     _, kv, g, hd = q.shape
     _check_smem(_pa.smem_blocks(g, hd, q.dtype), "paged attention")
@@ -97,6 +110,7 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=128):
     version's chunk length; the kernels scan in chunks of their own
     (``ssd_scan.CHUNK``), which changes the result only by rounding.  One
     call is three launches and counts one in ``ssd_scan.launches``."""
+    _refuse_dtensor("ssd_scan", x, dt, a_log, b_mat, c_mat, d_skip)
     _refuse_autograd("ssd_scan", x, dt, a_log, b_mat, c_mat, d_skip)
     for launch in _ssd.LAUNCHES:
         _check_smem(_ssd.smem_blocks(launch), f"ssd scan ({launch})")
@@ -119,6 +133,7 @@ def rglru_scan(a, b, h0=None, *, block=256):
     per warp), folds their aggregates in order and re-walks each from its
     carry (``ref.ref_rglru_segmented``), which changes the result only by
     rounding."""
+    _refuse_dtensor("rglru_scan", a, b, h0)
     _refuse_autograd("rglru_scan", a, b, h0)
     _check_smem(_rg.smem_blocks(), "rglru scan")
     if _device_type(a) == "cpu":

@@ -29,8 +29,10 @@ the plain paths are traced: the CUDA kernels do not run on fake tensors.
 
 The reference's ``single`` mesh is 256 TPU chips; the port's is one H100
 (``launch.mesh``), so per-device numbers differ from the reference's by
-design.  ``multi``/``both`` and the mesh-only knobs raise until the
-sharding is ported.
+design.  ``multi``/``both`` and the mesh-only knobs raise until the dry
+run traces a mesh of several devices (ROADMAP queue 1: the dry run over a
+mesh); the sharded steps themselves run over a ``DeviceMesh``
+(``runtime.mesh_ctx``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all \\
@@ -58,10 +60,9 @@ from ..models.transformer import DTYPES
 from ..optim.adamw import AdamWConfig
 from ..runtime import serve_lib, train_lib
 from . import aten_analysis
-from .mesh import describe, make_production_mesh
+from .mesh import MESH_DRYRUN, describe, make_production_mesh
 from . import roofline
 
-SHARDING = "ROADMAP queue 1: sharding"
 MESH_ONLY = ("cp_attention", "moe_grouped", "sp_residual", "ssd_shard_p",
              "shard_cache_len")
 
@@ -88,7 +89,7 @@ def run_opts_for(shape: ShapeConfig, args) -> RunOpts:
     on = [k for k in MESH_ONLY if getattr(args, k)]
     if on:
         raise NotImplementedError(f"--{on[0].replace('_', '-')} needs a mesh over "
-                                  f"several cards ({SHARDING})")
+                                  f"several cards ({MESH_DRYRUN})")
     if args.attn_impl in ("kernel", "pallas"):
         raise ValueError(f"--attn-impl {args.attn_impl}: the dry run traces the plain "
                          "paths (auto, full or chunked); the CUDA kernels do not "
@@ -204,8 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arch", default="all")
     p.add_argument("--shape", default="all")
     p.add_argument("--mesh", default="single", choices=["single", "multi", "both"],
-                   help="single: one H100; multi and both need the sharding "
-                        f"({SHARDING})")
+                   help="single: one H100; multi and both need a dry run over "
+                        f"several devices ({MESH_DRYRUN})")
     p.add_argument("--out", default="results/dryrun_torch")
     p.add_argument("--device", default="cuda",
                    help="device of the fake tensors (cuda needs a visible card, "

@@ -15,14 +15,25 @@ contiguous per-slot batch cache, and ``attend_paged_decode`` straight off the
 paged pool (per-request page tables consumed inside the CUDA kernel).
 
 GQA is computed with separate (kv_heads, group) axes — no materialized
-repeat of K/V.
+repeat of K/V, so the kv_heads axis can be model-sharded.
+
+Under a mesh (``runtime.mesh_ctx.use_mesh``) q, k and v are sharded by
+their logical axes, and attention over a sequence (every impl, the flash
+kernel among them) and the paged kernel run under ``local_map`` on the
+heads (and rows) each rank holds: heads are independent, so each rank's
+call is the whole computation for its heads.  A q split over the
+sequence (context parallelism, or the sequence-parallel residual) passes
+each rank's global ``q_offset``, with k and v whole along the sequence.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
+from ..runtime import mesh_ctx
 from .layers import upcast
 
 NEG_INF = -1e30
@@ -41,7 +52,15 @@ def qkv_project(x, p, cfg):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    return q.reshape(b, s, n_kv, g, hd), k, v
+    return _shard_q(q.reshape(b, s, n_kv, g, hd)), _shard_kv(k), _shard_kv(v)
+
+
+def _shard_q(q):
+    return mesh_ctx.shard(q, "batch", "seq", "kv_heads", None, "head_dim")
+
+
+def _shard_kv(k):
+    return mesh_ctx.shard(k, "batch", "seq", "kv_heads", "head_dim")
 
 
 def _project(x, p, name: str, heads: int, cfg):
@@ -53,14 +72,14 @@ def _project(x, p, name: str, heads: int, cfg):
 def q_project(x, p, cfg):
     """``qkv_project``'s q alone (cross-attention's queries)."""
     q = _project(x, p, "q", cfg.n_heads, cfg)
-    return q.reshape(*q.shape[:2], cfg.n_kv_heads, -1, cfg.resolved_head_dim)
+    return _shard_q(q.reshape(*q.shape[:2], cfg.n_kv_heads, -1, cfg.resolved_head_dim))
 
 
 def kv_project(x, p, cfg):
     """``qkv_project``'s k and v alone (cross-attention's keys and values,
     from the encoder output)."""
-    return (_project(x, p, "k", cfg.n_kv_heads, cfg),
-            _project(x, p, "v", cfg.n_kv_heads, cfg))
+    return (_shard_kv(_project(x, p, "k", cfg.n_kv_heads, cfg)),
+            _shard_kv(_project(x, p, "v", cfg.n_kv_heads, cfg)))
 
 
 def out_project(ctx, p, cfg):
@@ -150,21 +169,40 @@ def attend_chunked(q, k, v, *, causal=True, window=0, q_offset=0, chunk=1024):
 
 
 def attend(q, k, v, *, impl="kernel", causal=True, window=0, q_offset=0, chunk=1024,
-           softmax_dtype="float32"):
-    """``softmax_dtype`` reaches ``"full"`` only, as in the reference."""
+           softmax_dtype="float32", seq_axis="seq"):
+    """``softmax_dtype`` reaches ``"full"`` only, as in the reference.
+
+    Under a mesh every impl runs through ``local_map`` on each rank's rows
+    and kv heads (heads are independent, so each rank's call is the whole
+    computation for its heads, and the kernel gets plain tensors).
+    ``seq_axis`` is q's logical sequence axis (``"seq_cp"`` under context
+    parallelism): where it splits q's sequence over a mesh axis, each
+    rank's block starts at its own global ``q_offset``, and k and v stay
+    whole along the sequence, their kv heads split as q's are."""
     if impl == "kernel":
-        return kops.flash_attention(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
-    if impl == "full":
-        return attend_full(q, k, v, causal=causal, window=window,
-                           q_offset=q_offset, softmax_dtype=softmax_dtype)
-    if impl == "chunked":
-        return attend_chunked(q, k, v, causal=causal, window=window,
-                              q_offset=q_offset, chunk=chunk)
-    if impl == "plain":
-        return kops.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                          q_offset=q_offset)
-    raise ValueError(f"unknown attention impl {impl!r}")
+        fn = kops.flash_attention
+    elif impl == "full":
+        fn = functools.partial(attend_full, softmax_dtype=softmax_dtype)
+    elif impl == "chunked":
+        fn = functools.partial(attend_chunked, chunk=chunk)
+    elif impl == "plain":
+        fn = kops.flash_attention_plain
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    kw = dict(causal=causal, window=window)
+    mesh = mesh_ctx.current_mesh()
+    if mesh is None:
+        return fn(q, k, v, q_offset=q_offset, **kw)
+    q_axes = ("batch", seq_axis, "kv_heads", None, "head_dim")
+    spec = mesh_ctx.spec_for(*q_axes, dims=tuple(q.shape))
+    kv_axes = ("batch", None, "kv_heads" if spec[2] is not None else None, "head_dim")
+    if spec[1] is not None:
+        if not isinstance(spec[1], str):
+            raise ValueError(f"attend: q's sequence over {spec[1]}: one mesh axis only")
+        n = mesh_ctx.axis_sizes(mesh)[spec[1]]
+        q_offset = q_offset + mesh_ctx.coordinate(spec[1]) * (q.shape[1] // n)
+    return mesh_ctx.run_local(lambda ql, kl, vl: fn(ql, kl, vl, q_offset=q_offset, **kw),
+                              (q, k, v), (q_axes, kv_axes, kv_axes), [(q_axes, q.shape)])
 
 
 def attend_decode(q, k_cache, v_cache, cache_pos, *, window=0, rolling=False):
@@ -200,6 +238,12 @@ def attend_paged_decode(q, k_pages, v_pages, tables, cache_pos):
     tables: (B,maxp) int32 page-index rows (token t of row b lives at
     (tables[b, t//pt], t%pt)); cache_pos: (B,) int32 per-slot positions — row
     b attends to token indices <= cache_pos[b]."""
-    ctx = kops.paged_attention(q[:, 0].contiguous(), k_pages, v_pages, tables,
-                               cache_pos)
+    q = q[:, 0]
+    q_axes = ("batch", "kv_heads", None, "head_dim")
+    pool_axes = (None, None, "kv_heads", "head_dim")
+    ctx = mesh_ctx.run_local(
+        lambda ql, kp, vp, t, pos: kops.paged_attention(ql.contiguous(), kp, vp, t, pos),
+        (q, k_pages, v_pages, tables, cache_pos),
+        (q_axes, pool_axes, pool_axes, ("batch", None), ("batch",)),
+        [(q_axes, q.shape)])
     return ctx[:, None]                                 # (B,1,kv,g,hd)

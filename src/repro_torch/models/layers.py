@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..runtime import mesh_ctx
+
 
 def upcast(x):
     """``x`` in f32, the reference's accumulation dtype; f64 stays f64 (the
@@ -100,6 +102,7 @@ def mlp(x, p, act: str = "swiglu"):
         if "b_up" in p:
             h = h + p["b_up"]
         h = UNGATED_ACTS[act](h)
+    h = mesh_ctx.shard(h, "batch", "seq", "mlp")
     out = h @ p["w_down"]
     if "b_down" in p:
         out = out + p["b_down"]

@@ -32,9 +32,16 @@ token nor its weight gets any gradient, as the reference's ``keep`` mask
 gives none.
 
 The hierarchical dispatch (``grouped=True``) gives each data-parallel group
-its own capacity; the port has no mesh yet (ROADMAP queue 1: sharding), so
-``_n_data_groups`` is 1 and ``moe_mlp(grouped=True)`` runs ungrouped, as the
-reference does without a mesh.
+its own capacity: ``_n_data_groups`` is the installed mesh's pod x data
+size, 1 without a mesh, where ``moe_mlp(grouped=True)`` runs ungrouped, as
+the reference does.
+
+Under a mesh the FFN runs in three ``local_map`` stages at the reference's
+shard sites: each rank routes and dispatches the groups it holds (groups
+over ``data``), the (G, E, C, d) buffer is split over experts on ``model``
+and each rank runs its experts, and the expert outputs are gathered over
+``model`` again for each rank's combine.  Every stage runs the same code
+as the unsharded path on a slice of groups or experts.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..runtime import mesh_ctx
 from .layers import upcast
 
 
@@ -65,8 +73,8 @@ class Dispatch(NamedTuple):
 
 def _route(xg, w_router, n_experts: int, top_k: int, need_aux: bool):
     """f32 router over (G, Tg, d) -> renormalised top-k weights and expert
-    ids (G, Tg, k), and the mean over groups of each group's aux term (None
-    unless ``need_aux``)."""
+    ids (G, Tg, k), and each group's aux term (G,) (None unless
+    ``need_aux``)."""
     xf = upcast(xg)
     probs = torch.softmax(xf @ w_router.to(xf.dtype), dim=-1)       # (G, Tg, E)
     top_p, top_i = torch.topk(probs, top_k, dim=-1)
@@ -77,8 +85,7 @@ def _route(xg, w_router, n_experts: int, top_k: int, need_aux: bool):
     me = probs.mean(dim=1)                                           # (G, E)
     counts = torch.zeros_like(me).scatter_add_(
         1, top_i.reshape(g, -1), torch.ones_like(top_p).reshape(g, -1))
-    aux = n_experts * (me * (counts / (tg * top_k))).sum(-1)
-    return top_p, top_i, aux.mean()
+    return top_p, top_i, n_experts * (me * (counts / (tg * top_k))).sum(-1)
 
 
 def _dispatch(top_i, n_experts: int, top_k: int, cap: int) -> Dispatch:
@@ -97,38 +104,86 @@ def _dispatch(top_i, n_experts: int, top_k: int, cap: int) -> Dispatch:
     return Dispatch(order, dest, keep, order // top_k)
 
 
-def moe_groups(xg, p, cfg, compute_dtype, need_aux: bool = True):
-    """The MoE FFN over ``xg`` (G, Tg, d), each group with its own capacity
-    -> (y (G, Tg, d), aux (None unless ``need_aux``), ``Dispatch``)."""
+def _route_and_dispatch(xg, w_router, cfg, compute_dtype, need_aux: bool):
+    """Route ``xg`` (G, Tg, d) and fill its (G, E, C, d) dispatch buffer:
+    kept assignments to their slots, dropped ones to a spare row that is
+    cut off -> (buf, top_p, ``Dispatch``, each group's aux term (G,) or
+    None)."""
     g, tg, d = xg.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = capacity(tg, k, e, cfg.capacity_factor)
-    top_p, top_i, aux = _route(xg, p["w_router"], e, k, need_aux)
+    top_p, top_i, aux = _route(xg, w_router, e, k, need_aux)
     disp = _dispatch(top_i, e, k, cap)
     rows = torch.arange(g, device=xg.device)[:, None]
-
-    # ---- dispatch: kept assignments to their slots, dropped ones to a spare row
     slot = torch.where(disp.keep, disp.dest, e * cap)
     buf = xg.new_zeros((g, e * cap + 1, d), dtype=compute_dtype)
     buf[rows, slot] = xg.to(compute_dtype)[rows, disp.token_of]
-    buf = buf[:, :e * cap].reshape(g, e, cap, d)
+    return buf[:, :e * cap].reshape(g, e, cap, d), top_p, disp, aux
 
-    # ---- expert FFNs, batched over E (and G) -----------------------------------
-    gate = F.silu(buf @ p["w_gate"])
-    h = (buf @ p["w_up"]) * gate
-    y = (h @ p["w_down"]).reshape(g, e * cap, d)
 
-    # ---- combine: each token's k outputs in the reference's order of adds -------
+def _experts(buf, w_gate, w_up, w_down):
+    """The expert FFNs over the (G, E, C, d) buffer, batched over E and G."""
+    gate = F.silu(buf @ w_gate)
+    h = (buf @ w_up) * gate
+    return h @ w_down
+
+
+def _combine(y, top_p, disp: Dispatch, top_k: int, compute_dtype):
+    """Each token's k expert outputs (y: (G, E, C, d)), weighted and summed
+    in the reference's order of adds -> (G, Tg, d)."""
+    g, e, cap, d = y.shape
+    tg = top_p.shape[1]
+    y = y.reshape(g, e * cap, d)
+    rows = torch.arange(g, device=y.device)[:, None]
     w_sorted = top_p.reshape(g, -1).gather(1, disp.order).to(compute_dtype)
     inv = torch.argsort(disp.order, dim=-1)          # sorted position of (token, j)
-    at = inv.reshape(g, tg, k).sort(dim=-1).values.reshape(g, tg * k)
+    at = inv.reshape(g, tg, top_k).sort(dim=-1).values.reshape(g, tg * top_k)
     contrib = (y[rows, disp.dest.gather(1, at)]
                * disp.keep.gather(1, at)[..., None].to(compute_dtype)
-               * w_sorted.gather(1, at)[..., None]).reshape(g, tg, k, d)
+               * w_sorted.gather(1, at)[..., None]).reshape(g, tg, top_k, d)
     out = contrib[:, :, 0]
-    for j in range(1, k):
+    for j in range(1, top_k):
         out = out + contrib[:, :, j]
-    return out, aux, disp
+    return out
+
+
+def moe_groups(xg, p, cfg, compute_dtype, need_aux: bool = True):
+    """The MoE FFN over ``xg`` (G, Tg, d), each group with its own capacity
+    -> (y (G, Tg, d), aux (None unless ``need_aux``), ``Dispatch``).  Under
+    a mesh the three stages run on each rank's groups and experts (see the
+    module's docstring); without one ``shard`` and ``run_local`` pass their
+    tensors through and the stages run as they are."""
+    g, tg, d = xg.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = capacity(tg, k, e, cfg.capacity_factor)
+    mapped = mesh_ctx.current_mesh() is not None
+    xg = mesh_ctx.shard(xg, "groups", None, "embed")
+    grp = ("groups", None)
+
+    def dispatch(x, w):
+        buf, top_p, disp, aux = _route_and_dispatch(x, w, cfg, compute_dtype, need_aux)
+        if aux is None and mapped:      # local_map wants a tensor for each output
+            aux = x.new_zeros((x.shape[0],), dtype=torch.float32)
+        return (buf, top_p, *disp, aux)
+    out_disp = [(grp, (g, tg * k))] * 4
+    buf, top_p, *disp, aux = mesh_ctx.run_local(
+        dispatch, (xg, p["w_router"]), (("groups", None, None), (None, None)),
+        [(("groups", None, None, None), (g, e, cap, d)),
+         (("groups", None, None), (g, tg, k)), *out_disp, (("groups",), (g,))])
+    disp = Dispatch(*disp)
+    buf = mesh_ctx.shard(buf, "groups", "experts", "capacity", "embed")
+    buf_axes = ("groups", "experts", None, None)
+    w_axes = ("experts", None, None)
+    y = mesh_ctx.run_local(_experts, (buf, p["w_gate"], p["w_up"], p["w_down"]),
+                           (buf_axes, w_axes, w_axes, w_axes), [(buf_axes, (g, e, cap, d))])
+    y = mesh_ctx.shard(y, "groups", "experts", "capacity", "embed")
+    out = mesh_ctx.run_local(
+        lambda yl, tp, *ds: _combine(yl, tp, Dispatch(*ds), k, compute_dtype),
+        (y, top_p, *disp), (("groups", None, None, None), ("groups", None, None),
+                            *[grp] * 4),
+        [(("groups", None, None), (g, tg, d))])
+    out = mesh_ctx.shard(out, "groups", None, "embed")
+    return out, aux.mean() if need_aux else None, disp
 
 
 def moe_mlp(x, p, cfg, compute_dtype, grouped: bool = False, need_aux: bool = True):
@@ -147,8 +202,13 @@ def moe_mlp(x, p, cfg, compute_dtype, grouped: bool = False, need_aux: bool = Tr
 
 
 def _n_data_groups() -> int:
-    """Data-parallel groups of the current mesh: the port has no mesh yet."""
-    return 1
+    """Data-parallel groups of the installed mesh: its pod x data size, 1
+    without a mesh."""
+    mesh = mesh_ctx.current_mesh()
+    if mesh is None:
+        return 1
+    sizes = mesh_ctx.axis_sizes(mesh)
+    return sizes.get("pod", 1) * sizes.get("data", 1)
 
 
 def _moe_mlp_grouped(x, p, cfg, compute_dtype, n_groups: int, need_aux: bool = True):

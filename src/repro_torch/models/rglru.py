@@ -13,7 +13,9 @@ scan runs through ``kernels.ops.rglru_scan`` (the CUDA kernel for CUDA
 tensors) with ``use_kernel``, else through its plain version
 ``kernels.ref.ref_rglru``; the kernel's segmented walk and the plain
 version's log-depth blocks are two orders of the same recurrence and agree
-to rounding.
+to rounding.  Under a mesh the gates and the scan run under ``local_map``
+on each rank's rows and ``lru`` channels: the recurrence is per channel and
+each gate block (one per head) reads its own channels only.
 
 Parameters are the reference's layouts.  ``w_branch``/``w_gate``/``w_out``
 arrive in the compute dtype; ``w_conv``/``b_conv`` and the gate leaves
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from ..kernels.ref import ref_rglru
+from ..runtime import mesh_ctx
 from .layers import causal_conv1d, conv1d_update, gelu_tanh
 
 _C = 8.0
@@ -55,13 +58,27 @@ def _gates(x, p):
 def rglru_scan(x, p, h0=None, *, use_kernel: bool = False, block: int = 256):
     """x: (B,S,lru) -> (y: (B,S,lru) in x's dtype, h_final: (B,lru) f32).
     ``block`` is the plain scan's block length."""
-    log_a, b = _gates(x, p)
-    a = torch.exp(log_a)
-    if use_kernel:
-        y = kops.rglru_scan(a, b, h0, block=block)
-    else:
-        y = ref_rglru(a, b, h0, block=block)
-    return y.to(x.dtype), y[:, -1, :]
+    def run(xl, w_a, b_a, w_x, b_x, lam):
+        log_a, b = _gates(xl, {"w_a": w_a, "b_a": b_a, "w_x": w_x, "b_x": b_x,
+                               "lam": lam})
+        a = torch.exp(log_a)
+        if use_kernel:
+            y = kops.rglru_scan(a, b, h0, block=block)
+        else:
+            y = ref_rglru(a, b, h0, block=block)
+        return y.to(xl.dtype), y[:, -1, :]
+    args = (x, p["w_a"], p["b_a"], p["w_x"], p["b_x"], p["lam"])
+    if mesh_ctx.current_mesh() is None:
+        return run(*args)
+    if h0 is not None:
+        raise ValueError("rglru_scan under a mesh: no h0 (prefill starts from zero)")
+    # the lru channels split only where whole gate blocks (heads) do
+    lru = "lru" if mesh_ctx.spec_for("heads", dims=(p["w_a"].shape[0],))[0] else None
+    bsz, s, width = x.shape
+    return mesh_ctx.run_local(
+        run, args, (("batch", None, lru), (lru, None, None), (lru, None),
+                    (lru, None, None), (lru, None), (lru,)),
+        [(("batch", None, lru), (bsz, s, width)), (("batch", lru), (bsz, width))])
 
 
 def rglru_step(x_t, h_prev, p):
@@ -99,6 +116,7 @@ def recurrent_block_prefill(x, p, cfg, compute_dtype, *, use_kernel=False,
     br = F.pad(branch_raw, (0, 0, pad, 0)) if pad else branch_raw
     conv_state = br[:, br.shape[1] - (k - 1):, :]
     branch = causal_conv1d(branch_raw, p["w_conv"], p.get("b_conv"))
+    branch = mesh_ctx.shard(branch, "batch", "seq", "lru")
     y, h_fin = rglru_scan(branch, p["lru"], use_kernel=use_kernel, block=block)
     gate = gelu_tanh(xc @ p["w_gate"])
     out = (y * gate) @ p["w_out"]

@@ -1,8 +1,10 @@
-"""Param schema: one declaration drives parameter init (port of
-``repro.models.schema``, without the sharding axes the port does not use).
+"""Param schema: one declaration drives parameter init and sharding (port of
+``repro.models.schema``).
 
 A ``Schema`` is a nested dict (or list, for per-layer blocks) whose leaves
-are ``P`` descriptors: shape plus init rule.  Init draws from an explicit
+are ``P`` descriptors: shape, logical axis names (one per dim, the
+reference's: ``runtime.sharding_rules`` maps them to mesh axes) and init
+rule.  Init draws from an explicit
 ``torch.Generator`` with the reference's scale rules: ``normal`` leaves are
 ``scale * N(0, 1)`` with ``scale`` defaulting to ``1/sqrt(fan_in)``, where
 fan-in is the last-but-one dimension.  The two frameworks draw different
@@ -21,8 +23,13 @@ import torch
 @dataclass(frozen=True)
 class P:
     shape: tuple
+    axes: tuple                       # logical axis names (str | None) per dim
     init: str = "normal"              # normal | zeros | ones
     scale: Optional[float] = None     # stddev; None -> 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"P: shape {self.shape} vs axes {self.axes}")
 
 
 Schema = Union[dict, list]            # nested str/int -> P | Schema
@@ -37,6 +44,21 @@ def _fan_in(p: P) -> int:
 
 def _children(s: Schema):
     return s.items() if isinstance(s, dict) else enumerate(s)
+
+
+def map_schema(schema: Schema, fn: Callable[[tuple, P], object]):
+    """The schema's tree with ``fn(path, leaf)`` at each leaf (lists stay
+    lists)."""
+    def rec(s: Schema, prefix=()):
+        out = {k: (fn(prefix + (k,), v) if isinstance(v, P) else rec(v, prefix + (k,)))
+               for k, v in _children(s)}
+        return out if isinstance(s, dict) else [out[i] for i in range(len(s))]
+    return rec(schema)
+
+
+def logical_axes(schema: Schema):
+    """Tree of logical-axis tuples mirroring the parameter tree."""
+    return map_schema(schema, lambda _, p: tuple(p.axes))
 
 
 def init_params(schema: Schema, generator: torch.Generator,
@@ -73,8 +95,5 @@ def init_params(schema: Schema, generator: torch.Generator,
 def abstract_params(schema: Schema, device, dtype: torch.dtype = torch.float32):
     """Uninitialised parameters of the schema's shapes: made under a
     ``FakeTensorMode`` they are fake tensors that hold no memory."""
-    def rec(s: Schema):
-        out = {k: (torch.empty(v.shape, dtype=dtype, device=device)
-                   if isinstance(v, P) else rec(v)) for k, v in _children(s)}
-        return out if isinstance(s, dict) else [out[i] for i in range(len(s))]
-    return rec(schema)
+    return map_schema(schema, lambda _, p: torch.empty(p.shape, dtype=dtype,
+                                                        device=device))

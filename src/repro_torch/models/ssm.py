@@ -10,6 +10,11 @@ state.  ``ssd_chunked`` (kept in ``kernels.ref``) is the plain version;
 (the CUDA kernel for CUDA tensors).  ``ssd_decode``, the one-token recurrence, stays plain PyTorch, as
 the reference runs it outside any kernel.
 
+Under a mesh the chunk scan (kernel or plain) runs under ``local_map`` on
+each rank's rows and SSD heads, the whole sequence at once, or on its
+slice of the head dim P with ``RunOpts.ssd_shard_p`` (the ``ssm_p`` rule):
+each head, and each of its P channels, scans alone.
+
 Parameters are the reference's layouts.  ``w_in``/``w_out`` arrive in the
 compute dtype; ``w_conv``, ``b_conv``, ``dt_bias``, ``a_log``, ``d_skip`` and
 ``norm_scale`` stay f32 (``Transformer.load``) and are cast where the
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from ..kernels.ref import ssd_chunked
+from ..runtime import mesh_ctx
 from .layers import causal_conv1d, conv1d_update, rms_norm
 
 
@@ -48,10 +54,28 @@ def ssd_decode(h_state, x_t, dt_t, a_log, b_t, c_t, d_skip):
 
 
 def _ssd(xs, dt, p, b_mat, c_mat, chunk, use_kernel):
-    if use_kernel:
-        return kops.ssd_scan(xs, dt, p["a_log"], b_mat, c_mat, p["d_skip"],
-                             chunk=chunk)
-    return ssd_chunked(xs, dt, p["a_log"], b_mat, c_mat, p["d_skip"], chunk=chunk)
+    """The chunk scan -> (y (B,S,H,P) f32, h_final (B,H,P,N) f32)."""
+    scan = kops.ssd_scan if use_kernel else ssd_chunked
+    xs = mesh_ctx.shard(xs, "batch", "seq", None, "ssm_p")
+    mesh = mesh_ctx.current_mesh()
+    if mesh is None:
+        return scan(xs, dt, p["a_log"], b_mat, c_mat, p["d_skip"], chunk=chunk)
+    bsz, s, h, hp = xs.shape
+    g, n = b_mat.shape[2:]
+    # heads over the model axis unless P is split there; B/C's groups follow
+    # the heads where there are several
+    heads = None if mesh_ctx.spec_for("ssm_p", dims=(hp,))[0] else "heads"
+    ax = mesh_ctx.spec_for(heads, dims=(h,))[0]
+    if ax is not None and g > 1 and g % mesh_ctx.axis_sizes(mesh)[ax]:
+        heads = None
+    grp = heads if g > 1 else None
+    x_axes = ("batch", None, heads, "ssm_p")
+    bc_axes = ("batch", None, grp, None)
+    return mesh_ctx.run_local(
+        lambda x, d, a, b, c, dk: scan(x, d, a, b, c, dk, chunk=chunk),
+        (xs, dt, p["a_log"], b_mat, c_mat, p["d_skip"]),
+        (x_axes, ("batch", None, heads), (heads,), bc_axes, bc_axes, (heads,)),
+        [(x_axes, xs.shape), (("batch", heads, "ssm_p", None), (bsz, h, hp, n))])
 
 
 def _split_ssm_inputs(xbc, cfg, bsz, s):

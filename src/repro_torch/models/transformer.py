@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..runtime import mesh_ctx
 from ..runtime.device import resolve_device
 from ..runtime.serve_lib import layer_kinds
 from . import attention as attn
@@ -92,31 +93,45 @@ class RunOpts:
     # reference passes it (training, forward and the encoder; not prefill's
     # self-attention nor cross-attention)
     softmax_dtype: str = "float32"
+    # ---- the reference's sharding knobs, read only under a mesh --------------
+    cp_attention: bool = False        # context-parallel attention over model
+    moe_grouped: bool = False         # hierarchical MoE dispatch per data shard
+    sp_residual: bool = False         # Megatron-SP: residual stream seq->model
+    ssd_shard_p: bool = False         # shard SSD head_dim P over model (H may not divide)
+
+    def mesh_rules(self) -> Optional[dict]:
+        """Activation rules the knobs add to ``mesh_ctx.ACTIVATION_RULES``."""
+        rules = {}
+        if self.sp_residual:
+            rules["seq"] = ("model",)
+        if self.ssd_shard_p:
+            rules["ssm_p"] = ("model",)
+        return rules or None
 
 
 def _norm_schema(cfg) -> Schema:
     """RMSNorm: a zero ``scale`` (applied as ``1 + scale``); LayerNorm: a
     ``scale`` of ones and a zero ``bias``."""
     if cfg.norm == "rmsnorm":
-        return {"scale": P((cfg.d_model,), init="zeros")}
-    return {"scale": P((cfg.d_model,), init="ones"),
-            "bias": P((cfg.d_model,), init="zeros")}
+        return {"scale": P((cfg.d_model,), (None,), init="zeros")}
+    return {"scale": P((cfg.d_model,), (None,), init="ones"),
+            "bias": P((cfg.d_model,), (None,), init="zeros")}
 
 
 def _attn_schema(cfg) -> Schema:
     hd = cfg.resolved_head_dim
     s: Schema = {
         "norm": _norm_schema(cfg),
-        "wq": P((cfg.d_model, cfg.n_heads, hd)),
-        "wk": P((cfg.d_model, cfg.n_kv_heads, hd)),
-        "wv": P((cfg.d_model, cfg.n_kv_heads, hd)),
-        "wo": P((cfg.n_heads, hd, cfg.d_model),
+        "wq": P((cfg.d_model, cfg.n_heads, hd), ("embed", "heads", "head_dim")),
+        "wk": P((cfg.d_model, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": P((cfg.d_model, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": P((cfg.n_heads, hd, cfg.d_model), ("heads", "head_dim", "embed"),
                 scale=1.0 / math.sqrt(cfg.n_heads * hd)),
     }
     if cfg.qkv_bias:
-        s["bq"] = P((cfg.n_heads, hd), init="zeros")
-        s["bk"] = P((cfg.n_kv_heads, hd), init="zeros")
-        s["bv"] = P((cfg.n_kv_heads, hd), init="zeros")
+        s["bq"] = P((cfg.n_heads, hd), ("heads", "head_dim"), init="zeros")
+        s["bk"] = P((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"), init="zeros")
+        s["bv"] = P((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"), init="zeros")
     return s
 
 
@@ -126,14 +141,14 @@ def _mamba2_schema(cfg) -> Schema:
     conv_dim = d_in + 2 * g * n
     return {
         "norm": _norm_schema(cfg),
-        "w_in": P((cfg.d_model, 2 * d_in + 2 * g * n + h)),
-        "w_conv": P((cfg.conv_width, conv_dim), scale=0.1),
-        "b_conv": P((conv_dim,), init="zeros"),
-        "dt_bias": P((h,), init="zeros"),
-        "a_log": P((h,), init="ones", scale=1.0),
-        "d_skip": P((h,), init="ones"),
-        "norm_scale": P((d_in,), init="zeros"),
-        "w_out": P((d_in, cfg.d_model)),
+        "w_in": P((cfg.d_model, 2 * d_in + 2 * g * n + h), ("embed", None)),
+        "w_conv": P((cfg.conv_width, conv_dim), (None, None), scale=0.1),
+        "b_conv": P((conv_dim,), (None,), init="zeros"),
+        "dt_bias": P((h,), (None,), init="zeros"),
+        "a_log": P((h,), (None,), init="ones", scale=1.0),
+        "d_skip": P((h,), (None,), init="ones"),
+        "norm_scale": P((d_in,), (None,), init="zeros"),
+        "w_out": P((d_in, cfg.d_model), (None, "embed")),
     }
 
 
@@ -143,15 +158,17 @@ def _mlp_schema(cfg) -> Schema:
     ``qkv_bias`` (starcoder2)."""
     if cfg.n_experts:
         e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
-        return {"w_router": P((d, e)), "w_gate": P((e, d, f)),
-                "w_up": P((e, d, f)), "w_down": P((e, f, d))}
-    s: Schema = {"w_up": P((cfg.d_model, cfg.d_ff)),
-                 "w_down": P((cfg.d_ff, cfg.d_model))}
+        return {"w_router": P((d, e), ("embed", "experts")),
+                "w_gate": P((e, d, f), ("experts", "embed", "expert_mlp")),
+                "w_up": P((e, d, f), ("experts", "embed", "expert_mlp")),
+                "w_down": P((e, f, d), ("experts", "expert_mlp", "embed"))}
+    s: Schema = {"w_up": P((cfg.d_model, cfg.d_ff), ("embed", "mlp")),
+                 "w_down": P((cfg.d_ff, cfg.d_model), ("mlp", "embed"))}
     if cfg.act in GATED_ACTS:
-        s["w_gate"] = P((cfg.d_model, cfg.d_ff))
+        s["w_gate"] = P((cfg.d_model, cfg.d_ff), ("embed", "mlp"))
     elif cfg.qkv_bias:
-        s["b_up"] = P((cfg.d_ff,), init="zeros")
-        s["b_down"] = P((cfg.d_model,), init="zeros")
+        s["b_up"] = P((cfg.d_ff,), ("mlp",), init="zeros")
+        s["b_down"] = P((cfg.d_model,), (None,), init="zeros")
     return s
 
 
@@ -163,16 +180,16 @@ def _rec_schema(cfg) -> Schema:
         "mlp_norm": _norm_schema(cfg),
         "mlp": _mlp_schema(cfg),
         "norm": _norm_schema(cfg),
-        "w_branch": P((cfg.d_model, lru)),
-        "w_gate": P((cfg.d_model, lru)),
-        "w_conv": P((cfg.conv_width, lru), scale=0.1),
-        "b_conv": P((lru,), init="zeros"),
-        "w_out": P((lru, cfg.d_model)),
-        "lru": {"w_a": P((nb, bs, bs)),
-                "b_a": P((nb, bs), init="zeros"),
-                "w_x": P((nb, bs, bs)),
-                "b_x": P((nb, bs), init="zeros"),
-                "lam": P((lru,), init="ones", scale=1.0)},
+        "w_branch": P((cfg.d_model, lru), ("embed", "lru")),
+        "w_gate": P((cfg.d_model, lru), ("embed", "lru")),
+        "w_conv": P((cfg.conv_width, lru), (None, "lru"), scale=0.1),
+        "b_conv": P((lru,), ("lru",), init="zeros"),
+        "w_out": P((lru, cfg.d_model), ("lru", "embed")),
+        "lru": {"w_a": P((nb, bs, bs), ("heads", None, None)),
+                "b_a": P((nb, bs), ("heads", None), init="zeros"),
+                "w_x": P((nb, bs, bs), ("heads", None, None)),
+                "b_x": P((nb, bs), ("heads", None), init="zeros"),
+                "lam": P((lru,), ("lru",), init="ones", scale=1.0)},
     }
 
 
@@ -248,10 +265,94 @@ def _prefill_pos(true_len, b: int, s: int, device) -> torch.Tensor:
 def _last_hidden(x, pos, true_len):
     """(B, 1, D): each row's hidden state at ``pos - 1``, gathered on the
     device (the reference's dynamic slice); the last one without
-    ``true_len``."""
+    ``true_len``.  Under a mesh, on each rank's rows."""
     if true_len is None:
         return x[:, -1:, :]
-    return x.gather(1, (pos.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1]))
+    axes = ("batch", None, None)
+    return mesh_ctx.run_local(
+        lambda xl, pl: xl.gather(1, (pl.long() - 1)[:, None, None].expand(-1, 1, xl.shape[-1])),
+        (x, pos), (axes, ("batch",)), [(axes, (x.shape[0], 1, x.shape[2]))])
+
+
+def _embed_rows(table, tokens):
+    """``embed_lookup(table, tokens)``.  Under a mesh the table stays split
+    over the vocabulary (on ``model``): each rank looks up the tokens its
+    rows hold, zeros elsewhere, and the partial sums meet at the next
+    shard (the vocab-parallel embedding)."""
+    mesh = mesh_ctx.current_mesh()
+    if mesh is None:
+        return embed_lookup(table, tokens)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    tab = mesh_ctx.shard(table, "vocab", None)
+    tok = mesh_ctx.shard(tokens, "batch", "seq")
+    # every rank of a vocab split looks up the same tokens (whole there)
+    tok = tok.redistribute(mesh, [Replicate() if isinstance(t, Shard) else p
+                                  for t, p in zip(tab.placements, tok.placements)])
+    lo = mesh_ctx.local_offset(tab, 0)
+
+    def rows(t, k):
+        idx = k.long() - lo
+        ok = (idx >= 0) & (idx < t.shape[0])
+        out = embed_lookup(t, idx.clamp(0, t.shape[0] - 1))
+        return out * ok[..., None].to(out.dtype)
+    vocab = [isinstance(p, Shard) for p in tab.placements]
+    out = [Partial() if v else p for v, p in zip(vocab, tok.placements)]
+    tab_grad = [p if v else (Partial() if isinstance(q, Shard) else Replicate())
+                for v, p, q in zip(vocab, tab.placements, tok.placements)]
+    return local_map(rows, out_placements=out,
+                     in_placements=(tab.placements, tok.placements),
+                     in_grad_placements=(tab_grad, tok.placements),
+                     device_mesh=mesh)(tab, tok)
+
+
+def _shard_residual(x):
+    """The residual stream's sharding between blocks (the reference's
+    ``shard(x, "batch", "seq", "embed")``)."""
+    return mesh_ctx.shard(x, "batch", "seq", "embed")
+
+
+def _batch_rows(cache):
+    """``arange`` over the batch rows of a contiguous (L, B, C, kv, hd) cache
+    that this rank holds (all B without a mesh), built once a decode step
+    for ``_write_rows``."""
+    c = cache.to_local() if mesh_ctx.is_dtensor(cache) else cache
+    return torch.arange(c.shape[1], device=c.device)
+
+
+def _write_rows(cache, i, slot, new, rows):
+    """``cache[i, b, slot[b]] = new[b]`` for every row b, in place: a decode
+    token's K or V into layer ``i`` of a contiguous (L, B, C, kv, hd) cache;
+    ``rows`` is ``_batch_rows(cache)``.  Under a mesh, on this rank's rows
+    and heads; where the cache length is split (``shard_cache_len``), only
+    the rank holding a row's slot writes it."""
+    def put(c, n, sl, offsets):
+        idx = sl - offsets[2]
+        if offsets[2] == 0 and c.shape[2] == cache.shape[2]:
+            c[i, rows, idx] = n
+            return
+        ok = (idx >= 0) & (idx < c.shape[2])
+        c[i, rows[ok], idx[ok]] = n[ok]
+    mesh_ctx.write_local(cache, [(new, {1: 0, 3: 1, 4: 2}), (slot, {1: 0})], put)
+
+
+def _write_pages(pages, i, page, off, new):
+    """``pages[i, page[b], off[b]] = new[b]`` in place: a decode token's K or
+    V into layer ``i`` of the paged pool (L, P, pt, kv, hd).  Under a mesh
+    each rank writes every row into its heads of the pool."""
+    def put(pg, n, pa, of, offsets):
+        del offsets
+        pg[i, pa, of] = n
+    mesh_ctx.write_local(pages, [(new, {3: 1, 4: 2}), (page, {}), (off, {})], put)
+
+
+def _write_prefix(cache, i, new, n: int):
+    """``cache[i, :, :n] = new[:, :n]`` in place: a prefill's K or V (B, S,
+    kv, hd) into layer ``i`` of its (L, B, C, kv, hd) cache."""
+    def put(c, nw, offsets):
+        del offsets
+        c[i, :, :n] = nw[:, :n]
+    mesh_ctx.write_local(cache, [(new, {1: 0, 3: 2, 4: 3})], put)
 
 
 class Transformer:
@@ -289,11 +390,12 @@ class Transformer:
     def schema(self) -> Schema:
         cfg = self.cfg
         s: Schema = {
-            "embed": P((cfg.padded_vocab, cfg.d_model), scale=0.02),
+            "embed": P((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
             "final_norm": _norm_schema(cfg),
         }
         if not cfg.tie_embeddings:
-            s["lm_head"] = P((cfg.padded_vocab, cfg.d_model), scale=0.02)
+            s["lm_head"] = P((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+                             scale=0.02)
         s["layers"] = [_block_schema(kind, cfg) for kind in self.kinds]
         if cfg.is_encoder_decoder:
             s["encoder"] = {"blocks": [_block_schema("attn", cfg)
@@ -369,10 +471,19 @@ class Transformer:
         the encoder) by ``_attn_impl`` of its length.  ``prefill`` (a
         decoder's self-attention in ``prefill``) keeps f32 scores whatever
         ``softmax_dtype`` says, as the reference's prefill does."""
-        return attn.attend(q, k, v, impl=self._attn_impl(q.shape[1]),
-                           chunk=self.opts.attn_chunk,
-                           softmax_dtype="float32" if prefill else self.opts.softmax_dtype,
-                           **masks)
+        cp = self.opts.cp_attention
+        if cp:
+            # context parallelism: q's sequence over the model axis, k and v
+            # whole there, so the S^2 work splits even where the head
+            # counts do not divide the model axis
+            q = mesh_ctx.shard(q, "batch", "seq_cp", "kv_heads", None, "head_dim")
+        ctx = attn.attend(q, k, v, impl=self._attn_impl(q.shape[1]),
+                          chunk=self.opts.attn_chunk,
+                          softmax_dtype="float32" if prefill else self.opts.softmax_dtype,
+                          seq_axis="seq_cp" if cp else "seq", **masks)
+        if cp:
+            ctx = mesh_ctx.shard(ctx, "batch", None, "kv_heads", None, "head_dim")
+        return ctx
 
     def _attn_qkv(self, x, p, rope_cs):
         h = self._norm(x, p["attn"]["norm"])
@@ -398,7 +509,7 @@ class Transformer:
         scores stay f32 whatever ``softmax_dtype`` says: the reference's
         cross-attention does not pass it."""
         qx = attn.q_project(self._norm(x, p["xnorm"]), p["xattn"], self.cfg)
-        ctx = (attn.attend_full(qx, kx, vx, causal=False) if pos is None
+        ctx = (attn.attend(qx, kx, vx, impl="full", causal=False) if pos is None
                else attn.attend_decode(qx, kx, vx, pos))
         return x + attn.out_project(ctx, p["xattn"], self.cfg)
 
@@ -413,6 +524,7 @@ class Transformer:
         dt = self.compute_dtype
         pos = torch.arange(frames.shape[1], device=frames.device)
         x = frames.to(dt) + sinusoid(pos, self.cfg.d_model, dt)[None]
+        x = _shard_residual(x)
         for p in params["encoder"]["blocks"]:
             p = self.load(p)
             q, k, v = self._attn_qkv(x, p, None)
@@ -431,22 +543,25 @@ class Transformer:
         only a loss reads (the reference's steps drop it)."""
         h = self._norm(x, p["mlp_norm"])
         if self.cfg.n_experts:
-            return x + moe_lib.moe_mlp(h, p["mlp"], self.cfg, self.compute_dtype,
-                                       need_aux=False)[0]
-        return x + mlp(h, p["mlp"], self.cfg.act)
+            return _shard_residual(x + moe_lib.moe_mlp(
+                h, p["mlp"], self.cfg, self.compute_dtype,
+                grouped=self.opts.moe_grouped, need_aux=False)[0])
+        return _shard_residual(x + mlp(h, p["mlp"], self.cfg.act))
 
     def _embed_in(self, params, tokens):
         """The rows of ``tokens`` in the compute dtype, times ``sqrt(d_model)``
         in that dtype for the hybrid: the reference's ``_embed_in``
         order, so over f32 masters the scale reaches the embedding's
         gradient as it does there (over loaded rows the cast is a no-op)."""
-        x = embed_lookup(params["embed"], tokens).to(self.compute_dtype)
+        x = _shard_residual(_embed_rows(params["embed"], tokens))
+        x = x.to(self.compute_dtype)
         if self._embed_scale is not None:
             x = x * self._embed_scale
         return x
 
     def logits(self, params, x):
-        return x @ params.get("lm_head", params["embed"]).t()
+        out = x @ params.get("lm_head", params["embed"]).t()
+        return mesh_ctx.shard(out, "batch", "seq", "vocab")
 
     # ---- training -----------------------------------------------------------------
     def _train_block(self, kind, x, p, rope_cs, enc):
@@ -461,8 +576,8 @@ class Transformer:
         p = self.load(p)
         if kind == "mamba2":
             h = self._norm(x, p["norm"])
-            return x + ssm_lib.mamba2_block(h, p, cfg, cdt, chunk=opts.ssd_chunk,
-                                            use_kernel=False), None
+            return _shard_residual(x + ssm_lib.mamba2_block(
+                h, p, cfg, cdt, chunk=opts.ssd_chunk, use_kernel=False)), None
         if kind == "rec":
             h = self._norm(x, p["norm"])
             x = x + rglru_lib.recurrent_block(h, p, cfg, cdt, use_kernel=False,
@@ -477,8 +592,8 @@ class Transformer:
             return self._finish_block(x, ctx, p), None
         x = x + attn.out_project(ctx, p["attn"], cfg)
         y, aux = moe_lib.moe_mlp(self._norm(x, p["mlp_norm"]), p["mlp"], cfg, cdt,
-                                 need_aux=True)
-        return x + y, aux
+                                 grouped=opts.moe_grouped, need_aux=True)
+        return _shard_residual(x + y), aux
 
     def _train_group(self, x, aux, group, rope_cs, enc):
         """The blocks of ``group`` ((kind, leaves) pairs) in order, adding
@@ -507,7 +622,8 @@ class Transformer:
 
     def _train_logits(self, params, x):
         table = params.get("lm_head", params["embed"])
-        return x.to(self.compute_dtype) @ table.to(self.compute_dtype).t()
+        out = x.to(self.compute_dtype) @ table.to(self.compute_dtype).t()
+        return mesh_ctx.shard(out, "batch", "seq", "vocab")
 
     def _pad_bias(self, device):
         cfg = self.cfg
@@ -635,6 +751,21 @@ class Transformer:
             spec["xv"] = (xs, self.compute_dtype)
         return spec
 
+    def _cache_leaf(self, name: str, shape: tuple, device, zero: bool = True):
+        """A cache leaf in the compute dtype, zero-filled or (``zero=False``,
+        for a leaf that is written whole before it is read) left
+        uninitialised; under a mesh a DTensor placed by
+        ``sharding_rules.cache_specs``."""
+        mesh = mesh_ctx.current_mesh()
+        if mesh is None:
+            make = torch.zeros if zero else torch.empty
+            return make(shape, dtype=self.compute_dtype, device=device)
+        from torch.distributed.tensor import empty, zeros
+        from ..runtime.sharding_rules import cache_specs
+        spec = cache_specs({name: shape}, mesh)[name]
+        return (zeros if zero else empty)(shape, dtype=self.compute_dtype, device_mesh=mesh,
+                                          placements=mesh_ctx.placements(spec, mesh))
+
     def init_cache(self, batch: int, max_len: int) -> dict:
         return {k: torch.zeros(s, dtype=dt, device=self.device)
                 for k, (s, dt) in self.cache_spec(batch, max_len).items()}
@@ -678,13 +809,13 @@ class Transformer:
         k_cache, v_cache = cache["k"], cache["v"]
         x = self._embed_in(params, tokens[:, None])
         rope_cs = self._rope(pos[:, None])
-        rows = torch.arange(tokens.shape[0], device=tokens.device)
         slot = pos.clamp(max=k_cache.shape[2] - 1).long()
+        rows = _batch_rows(k_cache)
         cross = ()
         for i, p in enumerate(params["layers"]):
             q, k, v = self._attn_qkv(x, p, rope_cs)
-            k_cache[i, rows, slot] = k[:, 0]
-            v_cache[i, rows, slot] = v[:, 0]
+            _write_rows(k_cache, i, slot, k[:, 0], rows)
+            _write_rows(v_cache, i, slot, v[:, 0], rows)
             ctx = attn.attend_decode(q, k_cache[i], v_cache[i], pos)
             if self.kind == "xattn":
                 cross = (cache["xk"][i], cache["xv"][i], self._enc_last)
@@ -719,15 +850,15 @@ class Transformer:
         pos = cache["pos"]
         x = self._embed_in(params, tokens[:, None])
         rope_cs = self._rope(pos[:, None])
-        rows = torch.arange(tokens.shape[0], device=tokens.device)
         slot = (pos % cache["k"].shape[2]).long()
+        rows = _batch_rows(cache["k"])
         i_local = i_rec = 0
         for kind, p in zip(self.kinds, params["layers"]):
             if kind == "local":
                 k_cache, v_cache = cache["k"][i_local], cache["v"][i_local]
                 q, k, v = self._attn_qkv(x, p, rope_cs)
-                k_cache[rows, slot] = k[:, 0]
-                v_cache[rows, slot] = v[:, 0]
+                _write_rows(cache["k"], i_local, slot, k[:, 0], rows)
+                _write_rows(cache["v"], i_local, slot, v[:, 0], rows)
                 ctx = attn.attend_decode(q, k_cache, v_cache, pos,
                                          window=cfg.local_window, rolling=True)
                 x = self._finish_block(x, ctx, p)
@@ -786,7 +917,7 @@ class Transformer:
         y, st = ssm_lib.mamba2_block_prefill(
             h, p, self.cfg, self.compute_dtype, chunk=self.opts.ssd_chunk,
             use_kernel=self.opts.use_kernels)
-        return x + y, st
+        return _shard_residual(x + y), st
 
     def _decode_step_paged(self, params, cache, tokens):
         """One decode step against the paged pools: the new token's KV is
@@ -804,8 +935,8 @@ class Transformer:
         off = (pos % pt).long()
         for i, p in enumerate(params["layers"]):
             q, k, v = self._attn_qkv(x, p, rope_cs)
-            k_pages[i, page, off] = k[:, 0]
-            v_pages[i, page, off] = v[:, 0]
+            _write_pages(k_pages, i, page, off, k[:, 0])
+            _write_pages(v_pages, i, page, off, v[:, 0])
             ctx = attn.attend_paged_decode(q, k_pages[i], v_pages[i], tables,
                                            pos)
             x = self._finish_block(x, ctx, p)
@@ -863,8 +994,8 @@ class Transformer:
         rope_cs = self._rope(torch.arange(s, device=tokens.device)[None, :])
         kv_shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
-        k_all = torch.zeros(kv_shape, dtype=self.compute_dtype, device=x.device)
-        v_all = torch.zeros_like(k_all)
+        k_all = self._cache_leaf("k", kv_shape, x.device)
+        v_all = self._cache_leaf("v", kv_shape, x.device)
         cache = {"pos": pos, "k": k_all, "v": v_all}
         enc = None
         if self.kind == "xattn":
@@ -873,9 +1004,9 @@ class Transformer:
                 raise ValueError(f"prefill: {frames.shape[1]} frames; the cross "
                                  f"cache holds encoder_seq={cfg.encoder_seq}")
             enc = self._encode(params, frames)
-            cache["xk"] = torch.empty((cfg.n_layers, b, cfg.encoder_seq) + kv_shape[3:],
-                                      dtype=self.compute_dtype, device=x.device)
-            cache["xv"] = torch.empty_like(cache["xk"])
+            xs = (cfg.n_layers, b, cfg.encoder_seq) + kv_shape[3:]
+            cache["xk"] = self._cache_leaf("xk", xs, x.device, zero=False)
+            cache["xv"] = self._cache_leaf("xv", xs, x.device, zero=False)
         n = min(s, max_len)
         cross = ()
         for i, p in enumerate(params["layers"]):
@@ -883,10 +1014,11 @@ class Transformer:
             ctx = self._attend(q, k, v, prefill=True, causal=True)
             if enc is not None:
                 cross = attn.kv_project(enc, p["xattn"], cfg)
-                cache["xk"][i], cache["xv"][i] = cross
+                _write_prefix(cache["xk"], i, cross[0], cfg.encoder_seq)
+                _write_prefix(cache["xv"], i, cross[1], cfg.encoder_seq)
             x = self._finish_block(x, ctx, p, cross)
-            k_all[i, :, :n] = k[:, :n]
-            v_all[i, :, :n] = v[:, :n]
+            _write_prefix(k_all, i, k, n)
+            _write_prefix(v_all, i, v, n)
         x = self._norm(x, params["final_norm"])
         return self.logits(params, _last_hidden(x, pos, true_len))[:, 0, :], cache
 

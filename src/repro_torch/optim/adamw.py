@@ -6,14 +6,22 @@ bias-corrected moments, then decoupled weight decay.  Moments mirror the
 parameter tree.  ``update`` writes the new parameters and moments into the
 given tensors (under ``torch.no_grad``), where the reference returns new
 arrays and donates the old ones.
+
+Leaves may be DTensors (sharded training): each leaf updates shard by
+shard, the global norm sums each leaf's partial sum of squares over the
+ranks (one scalar each, no leaf is gathered), and the schedule's scalars
+stay plain 0-d tensors, taken as replicated beside the leaves.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
+
+from ..runtime.mesh_ctx import is_dtensor, replicating, whole
 
 
 @dataclass(frozen=True)
@@ -48,7 +56,7 @@ def init(params) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    return torch.sqrt(sum(whole(torch.sum(torch.square(x.float())))
                           for x in tree_leaves(tree)))
 
 
@@ -59,16 +67,26 @@ def update(grads, state, params, cfg: AdamWConfig):
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
              if cfg.clip_norm else torch.ones((), device=gnorm.device))
-    lr = schedule(cfg, state["count"])
+    lr = schedule(cfg, whole(state["count"]))
     b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - torch.pow(b1, count.float())
-    bc2 = 1.0 - torch.pow(b2, count.float())
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state["m"]), tree_leaves(state["v"])):
-        g = g.float() * scale
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * torch.square(g))
-        step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * step).to(p.dtype))
+    bc1 = 1.0 - torch.pow(b1, whole(count).float())
+    bc2 = 1.0 - torch.pow(b2, whole(count).float())
+    leaves = tree_leaves(params)
+    with _replicating(leaves):
+        for p, g, m, v in zip(leaves, tree_leaves(grads),
+                              tree_leaves(state["m"]), tree_leaves(state["v"])):
+            g = g.float() * scale
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * torch.square(g))
+            step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p.float()
+            p.copy_((p.float() - lr * step).to(p.dtype))
     state["count"] = count
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _replicating(leaves):
+    """Where the leaves are DTensors, plain tensors beside them (the 0-d
+    scalars) count as replicated; else nothing."""
+    if leaves and is_dtensor(leaves[0]):
+        return replicating()
+    return contextlib.nullcontext()

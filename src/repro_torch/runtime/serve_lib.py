@@ -9,6 +9,15 @@ reoptimization when a request outgrows its profiled length.  Port of
 decode step is captured into one CUDA graph per batch shape on the card
 (``runtime.graphs``), and so is the prefill of each padded prompt length;
 on the CPU both run eagerly, and so do unpadded prompts everywhere.
+
+Given a ``DeviceMesh`` both steps run eagerly over DTensor parameters
+placed by ``sharding_rules.param_specs``, with the mesh and the model's
+``RunOpts.mesh_rules()`` installed (``mesh_ctx.use_mesh``), as the
+reference's jitted steps run under its in/out shardings: the batch is
+placed by ``batch_specs``, the cache by ``cache_specs`` and the logits come
+back whole.  Capturing DTensor dispatch in CUDA graphs is not done yet
+(ROADMAP queue 1: CUDA graphs under a mesh), so ``graphs=True`` with a mesh
+raises.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core import ArenaAllocator, Block, MemoryProfile, PoolAllocator, align, best_fit
+from . import mesh_ctx, sharding_rules
 from .graphs import StepGraph, pool_bytes, use_graphs
 
 # Bytes per element of each config dtype (``jnp.dtype(cfg.dtype).itemsize``
@@ -31,11 +41,30 @@ DTYPE_ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
 # ---------------------------------------------------------------------------
 
 
-def _refuse_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...): sharding is not ported yet (ROADMAP queue 1: "
-            "sharding, runtime/{mesh_ctx,sharding_rules})")
+MESH_GRAPHS = "ROADMAP queue 1: CUDA graphs under a mesh"
+
+
+def mesh_graphs(mesh, graphs: Optional[bool], what: str) -> Optional[bool]:
+    """``graphs`` for a step over ``mesh``: None without a mesh; under one
+    the steps run eagerly (False), and ``graphs=True`` raises."""
+    if mesh is None:
+        return graphs
+    if graphs:
+        raise ValueError(f"{what}: graphs=True under a mesh: capturing DTensor "
+                         f"dispatch in CUDA graphs is not done yet ({MESH_GRAPHS})")
+    mesh_ctx.check_mesh(mesh, what)
+    return False
+
+
+def place_cache(cache: dict, mesh, rules: Optional[dict] = None) -> dict:
+    """Each plain leaf of ``cache`` distributed by ``sharding_rules.
+    cache_specs`` (``rules`` updating ``CACHE_RULES``), in the dict; a
+    DTensor leaf keeps the placements it has (the engine's slots)."""
+    specs = sharding_rules.cache_specs(cache, mesh, rules)
+    for name, leaf in cache.items():
+        if not mesh_ctx.is_dtensor(leaf):
+            cache[name] = mesh_ctx.distribute(leaf, mesh, specs[name])
+    return cache
 
 
 class PrefillStep:
@@ -62,8 +91,9 @@ class PrefillStep:
     events recorded around it (``launch.profile_serve`` times them)."""
 
     def __init__(self, model, max_len: Optional[int], trace_hook,
-                 graphs: Optional[bool]):
+                 graphs: Optional[bool], mesh=None):
         self.model = model
+        self.mesh = mesh
         self.max_len = max_len
         self.trace_hook = trace_hook
         self.graphs = use_graphs(graphs, model.device)
@@ -74,7 +104,19 @@ class PrefillStep:
         self._captured: dict = {}      # signature -> (StepGraph, tokens, true_len)
 
     def _eager(self, params, batch):
-        return self.model.prefill(params, batch, max_len=self.max_len)
+        if self.mesh is None:
+            return self.model.prefill(params, batch, max_len=self.max_len)
+        mesh = self.mesh
+        with mesh_ctx.use_mesh(mesh, rules=self.model.opts.mesh_rules()):
+            arrays = {k: mesh_ctx.whole(v) for k, v in batch.items() if k != "true_len"}
+            specs = sharding_rules.batch_specs(arrays, mesh)
+            placed = {k: mesh_ctx.distribute(v, mesh, specs[k]) for k, v in arrays.items()}
+            if "true_len" in batch:
+                placed["true_len"] = batch["true_len"]
+            logits, cache = self.model.prefill(params, placed, max_len=self.max_len)
+            specs = sharding_rules.cache_specs(cache, mesh)
+            return mesh_ctx.whole(logits), {k: mesh_ctx.distribute(v, mesh, specs[k])
+                                    for k, v in cache.items()}
 
     def _hook(self, batch) -> None:
         if self.trace_hook is not None:
@@ -136,11 +178,14 @@ def build_prefill_step(model, mesh, batch_sds: Optional[dict] = None,
                        graphs: Optional[bool] = None) -> PrefillStep:
     """The prefill step (``PrefillStep``).  ``graphs`` (default: on when the
     model lies on a CUDA device) captures padded prompts; True on another
-    device raises ``ValueError``.  ``batch_sds`` only shards the
-    reference's step; ``mesh`` must be None."""
-    _refuse_mesh(mesh, "build_prefill_step")
+    device raises ``ValueError``.  With a ``DeviceMesh`` it runs eagerly
+    over DTensor parameters, the batch placed by ``batch_specs``, and
+    returns the logits whole and the cache placed by ``cache_specs``;
+    ``batch_sds`` (the reference's in-sharding shapes) is not needed: the
+    batch's own shapes place it."""
     del batch_sds
-    return PrefillStep(model, max_len, trace_hook, graphs)
+    graphs = mesh_graphs(mesh, graphs, "build_prefill_step")
+    return PrefillStep(model, max_len, trace_hook, graphs, mesh)
 
 
 def build_decode_step(model, mesh, batch: Optional[int] = None,
@@ -161,11 +206,19 @@ def build_decode_step(model, mesh, batch: Optional[int] = None,
     tensor may be passed.  ``trace_hook(tokens)`` fires once per capture
     (the reference: once per trace); eagerly, once per batch shape.
 
-    ``donate`` is implied (the cache is updated in place); ``batch``,
-    ``max_len`` and ``shard_cache_len`` only shard the reference's step and
-    ``mesh`` must be None."""
-    _refuse_mesh(mesh, "build_decode_step")
-    del batch, max_len, donate, shard_cache_len
+    ``donate`` is implied (the cache is updated in place); ``batch`` and
+    ``max_len`` only size the reference's in-shardings.
+
+    With a ``DeviceMesh`` the step runs eagerly over DTensor parameters: the
+    cache's plain leaves are placed in the dict by ``cache_specs`` (with
+    ``shard_cache_len`` the cache length over the model axis: each rank
+    holds a slice of every row and the decode attention's softmax and
+    context sums meet across it), the tokens by ``batch_specs``, and the
+    logits come back whole."""
+    del batch, max_len, donate
+    if mesh is not None:
+        mesh_graphs(mesh, graphs, "build_decode_step")
+        return _mesh_decode(model, mesh, shard_cache_len, trace_hook)
     graphs = use_graphs(graphs, model.device)
     seen: set = set()
     captured: dict[int, StepGraph] = {}
@@ -202,6 +255,30 @@ def build_decode_step(model, mesh, batch: Optional[int] = None,
                 trace_hook(tokens)
         g.out[1].copy_(tokens)
         return g.replay()[0], cache
+    return decode
+
+
+def _mesh_decode(model, mesh, shard_cache_len: bool, trace_hook):
+    rules = {"cache": ("model",)} if shard_cache_len else None
+    seen: set = set()
+
+    @torch.no_grad()
+    def decode(params, cache, tokens):
+        b = int(tokens.shape[0])
+        if b not in seen:
+            seen.add(b)
+            if trace_hook is not None:
+                trace_hook(tokens)
+        with mesh_ctx.use_mesh(mesh, rules=model.opts.mesh_rules()):
+            place_cache(cache, mesh, rules)
+            tok = mesh_ctx.whole(tokens)
+            spec = sharding_rules.batch_specs({"tokens": tok}, mesh)["tokens"]
+            logits, new = model.decode_step(params, cache,
+                                            mesh_ctx.distribute(tok, mesh, spec))
+            for name, leaf in new.items():
+                if leaf is not cache[name]:
+                    cache[name].copy_(leaf)
+            return mesh_ctx.whole(logits), cache
     return decode
 
 

@@ -3,9 +3,12 @@
 
 ``build_train_step`` returns a step with optional gradient accumulation over
 microbatches and optional int8 error-feedback gradient compression.  The
-reference jits the step and shards it over a mesh; the port runs it eagerly
-on one device (a mesh raises: see ROADMAP queue 1, sharding), and
-updates the state in place, as the reference's donated state lets XLA do.
+reference jits the step and shards it over a mesh; the port runs it eagerly,
+on one device or, given a ``DeviceMesh``, over DTensor state placed by
+``state_shardings`` (``runtime.sharding_rules``) with the mesh and the
+model's ``RunOpts.mesh_rules()`` installed around the step
+(``runtime.mesh_ctx.use_mesh``), and updates the state in place, as the
+reference's donated state lets XLA do.
 
 ``plan_remat_policy`` is the paper's training loop: profile the grad step
 (``make_fx`` on fake tensors, so nothing is allocated at full width), pack
@@ -22,6 +25,7 @@ from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from ..models.transformer import Transformer
 from ..optim import adamw, grad_compress
+from . import mesh_ctx, sharding_rules
 
 
 @dataclass(frozen=True)
@@ -48,6 +52,19 @@ def init_state(model: Transformer, generator: torch.Generator,
              "step": torch.zeros((), dtype=torch.int32, device=model.device)}
     if opts.compress_grads:
         state["err"] = grad_compress.init_error(params)
+    return state
+
+
+def state_shardings(model: Transformer, mesh, opts: TrainOpts = TrainOpts()):
+    """PartitionSpecs of the train state: parameters, moments and the error
+    residuals by ``sharding_rules.param_specs``, counters replicated."""
+    pspecs = sharding_rules.param_specs(model.schema(), mesh)
+    repl = sharding_rules.replicated(mesh)
+    state = {"params": pspecs,
+             "opt": {"m": pspecs, "v": pspecs, "count": repl},
+             "step": repl}
+    if opts.compress_grads:
+        state["err"] = pspecs
     return state
 
 
@@ -231,16 +248,33 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
 
 def build_train_step(model: Transformer, mesh, adamw_cfg: adamw.AdamWConfig,
                      opts: TrainOpts = TrainOpts()):
-    """Returns ``(step, None)``; ``step(state, batch) -> (state, metrics)``
-    updates ``state`` in place.  ``mesh`` must be None: the port runs on one
-    card (ROADMAP queue 1: sharding)."""
+    """Returns ``(step, None)`` without a mesh, else ``(step,
+    (state_shardings, batch_shardings_fn))`` as the reference does;
+    ``step(state, batch) -> (state, metrics)`` updates ``state`` in place.
+
+    With a ``DeviceMesh`` the state must be DTensors placed by those
+    shardings (``sharding_rules.distribute_tree``); the batch may be full
+    tensors, the same on every rank, or DTensors: each (micro)batch is
+    placed by ``batch_shardings_fn`` of its shapes.  Gradients are
+    redistributed to their parameter's placements before the update, and
+    the metrics come back as full tensors."""
     if mesh is not None:
-        raise NotImplementedError("build_train_step: a mesh (sharded training) is "
-                                  "not ported yet (ROADMAP queue 1: sharding)")
+        mesh_ctx.check_mesh(mesh, "build_train_step")
 
     def grads_of(params, leaves, mb):
         loss, metrics = model.loss_fn(params, mb, remat=opts.remat)
-        return loss.detach(), metrics, leaf_grads(loss, leaves)
+        grads = leaf_grads(loss, leaves)
+        if mesh is not None:
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, leaves)]
+        return loss.detach(), metrics, grads
+
+    def place(mb):
+        if mesh is None:
+            return mb
+        mb = {k: mesh_ctx.whole(v) for k, v in mb.items()}
+        specs = sharding_rules.batch_specs(mb, mesh)
+        return {k: mesh_ctx.distribute(v, mesh, specs[k]) for k, v in mb.items()}
 
     def step_fn(state, batch):
         params = state["params"]
@@ -250,15 +284,17 @@ def build_train_step(model: Transformer, mesh, adamw_cfg: adamw.AdamWConfig,
         if opts.microbatches > 1:
             gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+            if mesh is not None:
+                batch = {k: mesh_ctx.whole(v) for k, v in batch.items()}
             for mb in _split_microbatches(batch, opts.microbatches):
-                loss, _, g = grads_of(params, leaves, mb)
+                loss, _, g = grads_of(params, leaves, place(mb))
                 gsum = [a + b for a, b in zip(gsum, g)]
                 lsum = lsum + loss
             grads = [g / opts.microbatches for g in gsum]
             loss = lsum / opts.microbatches
             metrics = {}
         else:
-            loss, metrics, grads = grads_of(params, leaves, batch)
+            loss, metrics, grads = grads_of(params, leaves, place(batch))
         grads = tree_unflatten(list(grads), spec)
 
         new_state = dict(state)
@@ -271,4 +307,13 @@ def build_train_step(model: Transformer, mesh, adamw_cfg: adamw.AdamWConfig,
                        **om}
         return new_state, out_metrics
 
-    return step_fn, None
+    if mesh is None:
+        return step_fn, None
+
+    def sharded_step(state, batch):
+        with mesh_ctx.use_mesh(mesh, rules=model.opts.mesh_rules()):
+            new_state, metrics = step_fn(state, batch)
+            return new_state, {k: mesh_ctx.whole(v) for k, v in metrics.items()}
+
+    return sharded_step, (state_shardings(model, mesh, opts),
+                          lambda batch_shapes: sharding_rules.batch_specs(batch_shapes, mesh))

@@ -21,9 +21,18 @@ per-layer page pools through the paged-attention CUDA kernel; prefill
 runs the flash kernel when the model's ``RunOpts.attention_impl`` is
 ``"kernel"`` and the SSD and RG-LRU kernels when ``RunOpts.use_kernels``
 is set.
+
+Given a ``DeviceMesh`` the engine serves over DTensor parameters
+(``sharding_rules.param_specs``) and a DTensor cache or pool
+(``cache_specs`` with the batch axis whole: the host addresses slots, so
+each rank holds every slot's rows of its kv heads), and runs prefill and
+decode eagerly: ``graphs=True`` with a mesh raises (ROADMAP queue 1: CUDA
+graphs under a mesh).  The kernels run on each rank's shards through
+``local_map``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Optional, Sequence
@@ -36,8 +45,10 @@ from ..core.unified import SharedArena
 from ..models.transformer import Transformer
 from ..obs.metrics import get_registry
 from ..obs.trace import get_tracer
+from ..runtime import mesh_ctx, sharding_rules
 from ..runtime.graphs import use_graphs
-from ..runtime.serve_lib import Request, build_decode_step, build_prefill_step
+from ..runtime.serve_lib import (Request, build_decode_step, build_prefill_step,
+                                 mesh_graphs, place_cache)
 from . import pages as pages_lib
 from .metrics import ServeMetrics
 from .pages import PagePoolExhausted, PagedKVCache
@@ -92,10 +103,10 @@ class ServeEngine:
         rung of the prompt ladder, through CUDA graphs; None means on when
         the model lies on a CUDA device, False runs the same steps eagerly.
 
-        ``mesh`` is the reference's sharding option, not ported yet:
-        anything but None raises.  So does an encoder-decoder ``model``
-        (``ValueError``): the engine, like the reference's, has no path
-        for encoder frames."""
+        ``mesh`` (a ``DeviceMesh``): serve sharded, eagerly (the module's
+        docstring); ``params`` may be plain (placed here) or DTensors.  An
+        encoder-decoder ``model`` raises ``ValueError``: the engine, like
+        the reference's, has no path for encoder frames."""
         if model.cfg.is_encoder_decoder:
             raise ValueError(
                 f"ServeEngine: {model.cfg.name} is an encoder-decoder and the "
@@ -103,10 +114,11 @@ class ServeEngine:
                 "batch holds tokens only); serve it through runtime.serve_lib's "
                 "build_prefill_step and build_decode_step with a batch of "
                 '{"tokens", "frames"}')
+        self.mesh = mesh
+        graphs = mesh_graphs(mesh, graphs, "ServeEngine")
         if mesh is not None:
-            raise NotImplementedError(
-                "ServeEngine(mesh=...): sharding is not ported yet (ROADMAP "
-                "queue 1: sharding)")
+            params = sharding_rules.distribute_tree(
+                params, sharding_rules.param_specs(model.schema(), mesh), mesh)
         self.model = model
         self.params = params
         self.device = model.device
@@ -131,7 +143,7 @@ class ServeEngine:
         self.graphs = use_graphs(graphs, model.device)
         cfg = model.cfg
         self._pad_prefill = self.pads_prefill(cfg)
-        self.prefill = build_prefill_step(model, None,
+        self.prefill = build_prefill_step(model, mesh,
                                           trace_hook=self._on_prefill_trace,
                                           graphs=self.graphs)
         self.runner = self.decode = None
@@ -139,7 +151,7 @@ class ServeEngine:
             self.runner = DecodeRunner(model, max_batch=max_batch,
                                        graphs=self.graphs)
         else:
-            self.decode = build_decode_step(model, None, donate=False,
+            self.decode = build_decode_step(model, mesh, donate=False,
                                             trace_hook=self._on_decode_trace,
                                             graphs=self.graphs)
         self.replan_interval = replan_interval
@@ -173,6 +185,8 @@ class ServeEngine:
             self._slot_pages = [0] * max_batch  # synced table-row lengths
         else:
             self.cache = model.init_cache(max_batch, max_len)
+        if mesh is not None:
+            place_cache(self.cache, mesh, rules={"batch": ()})
         self.tokens = torch.zeros((max_batch,), dtype=torch.int32,
                                   device=self.device)
         self.step_count = 0
@@ -231,7 +245,8 @@ class ServeEngine:
         flat from step 0.  Unpadded (recurrent or MoE) prompts have no
         ladder to warm."""
         if self.runner is not None:
-            self.runner.warmup(self.params, self.cache, self.tokens)
+            with self._in_mesh():
+                self.runner.warmup(self.params, self.cache, self.tokens)
         for p in reversed(self.prefill_rungs()):
             self.prefill(self.params,
                          {"tokens": torch.zeros((1, p), dtype=torch.int32,
@@ -261,7 +276,17 @@ class ServeEngine:
         return self.sched.n_active
 
     # -- one engine step ------------------------------------------------------------
+    def _in_mesh(self):
+        """The engine's mesh installed (``mesh_ctx.use_mesh``), or nothing."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return mesh_ctx.use_mesh(self.mesh, rules=self.model.opts.mesh_rules())
+
     def step(self) -> None:
+        with self._in_mesh():
+            self._step()
+
+    def _step(self) -> None:
         t = get_tracer()
         if t is not None:
             t.set_step(self.step_count)
@@ -388,21 +413,23 @@ class ServeEngine:
         row = self.kv.exec_table(sr.rid)
         n_rowp = len(row)
         ids = torch.tensor(row, dtype=torch.long, device=self.device)
-        self.cache["pos"][sr.slot] = cache1["pos"][0]
-        self.cache["block_tables"][sr.slot] = self._table_row(row)
+        _put_row(self.cache["pos"], sr.slot, cache1["pos"][0])
+        _put_row(self.cache["block_tables"], sr.slot, self._table_row(row))
         want = n_rowp * ept
 
-        def cut(x):                 # (L,1,S,kv,hd) -> (L,n_rowp,ept,kv,hd)
+        def put(pages, x, offsets):     # x (L,1,S,kv,hd) -> (L,n_rowp,ept,kv,hd)
+            del offsets
             x = x[:, 0]
             s = x.shape[1]
             if s < want:
                 x = F.pad(x, (0, 0, 0, 0, 0, want - s))
             elif s > want:          # ladder padding past the granted pages
                 x = x[:, :want]
-            return x.reshape(x.shape[0], n_rowp, ept, *x.shape[2:])
+            pages[:, ids] = x.reshape(x.shape[0], n_rowp, ept, *x.shape[2:])
 
-        self.cache["k_pages"][:, ids] = cut(cache1["k"])
-        self.cache["v_pages"][:, ids] = cut(cache1["v"])
+        for name in ("k", "v"):
+            mesh_ctx.write_local(self.cache[f"{name}_pages"],
+                                 [(cache1[name], {3: 3, 4: 4})], put)
         self._slot_pages[sr.slot] = n_rowp
 
     def _sync_table_row(self, sr: ScheduledRequest) -> None:
@@ -414,7 +441,7 @@ class ServeEngine:
         if len(row) > self._pages_per_req or max(row) >= self._pool_pages:
             raise RuntimeError(f"exec table {row} outgrew the pool of "
                                f"{self._pool_pages} pages")
-        self.cache["block_tables"][sr.slot] = self._table_row(row)
+        _put_row(self.cache["block_tables"], sr.slot, self._table_row(row))
         self._slot_pages[sr.slot] = len(row)
 
     def _grow(self, sr: ScheduledRequest) -> bool:
@@ -475,14 +502,27 @@ def _merge_slot(batched_cache: dict, single_cache: dict, slot: int) -> None:
     with length min(prompt, window): a prompt shorter than the window fills
     indices [0, S) and the rest is zeroed; a longer one fills the whole
     window in rolling order (position t at t % window)."""
-    batched_cache["pos"][slot] = single_cache["pos"][0]
-    for name, leaf in batched_cache.items():
-        if name == "pos":
-            continue
+    _put_row(batched_cache["pos"], slot, single_cache["pos"][0])
+
+    def put(leaf, src, offsets):
+        del offsets
         row = leaf[:, slot]                         # (L, ...) view
-        src = single_cache[name][:, 0]
+        src = src[:, 0]
         if src.shape != row.shape:                  # K/V: prompt vs max_len
             n = min(src.shape[1], row.shape[1])
             row[:, n:] = 0
             src = src[:, :n]
         row[:, :src.shape[1]] = src
+    for name, leaf in batched_cache.items():
+        if name != "pos":                           # every dim but the batch's
+            mesh_ctx.write_local(leaf, [(single_cache[name], {
+                d: d for d in range(leaf.ndim) if d != 1})], put)
+
+
+def _put_row(leaf, slot: int, row) -> None:
+    """``leaf[slot] = row`` in place (a slot's position or page-table row);
+    under a mesh on the local tensor of a leaf whose slots no rank splits."""
+    def put(dst, src, offsets):
+        del offsets
+        dst[slot] = src
+    mesh_ctx.write_local(leaf, [(row, {d + 1: d for d in range(leaf.ndim - 1)})], put)

@@ -39,6 +39,7 @@ from ..models.transformer import Transformer
 from ..obs.metrics import get_registry
 from ..obs.trace import get_tracer
 from ..runtime import graphs as graphs_lib
+from ..runtime import mesh_ctx
 
 
 def bucket_ladder(max_batch: int) -> tuple[int, ...]:
@@ -63,12 +64,29 @@ def _batch_axis(name: str):
     return 0 if name in ("pos", "block_tables") else 1
 
 
+def _local(leaf, axis: int):
+    """``leaf``'s local tensor: a DTensor whose batch ``axis`` no mesh dim
+    splits (the engine's slots under a mesh) is indexed shard by shard."""
+    from torch.distributed.tensor import Shard
+    if any(isinstance(p, Shard) and p.dim == axis for p in leaf.placements):
+        raise ValueError("a slot cache under a mesh keeps its batch axis whole")
+    return leaf.to_local()
+
+
+def _index_select(leaf, axis: int, slots: torch.Tensor):
+    if not mesh_ctx.is_dtensor(leaf):
+        return leaf.index_select(axis, slots)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(_local(leaf, axis).index_select(axis, slots),
+                              leaf.device_mesh, leaf.placements, run_check=False)
+
+
 def _gather_rows(cache: dict, slots: torch.Tensor) -> dict:
     """Sub-cache of the rows named by ``slots`` (bucket-sized batch)."""
     out = {}
     for name, leaf in cache.items():
         axis = _batch_axis(name)
-        out[name] = leaf if axis is None else leaf.index_select(axis, slots)
+        out[name] = leaf if axis is None else _index_select(leaf, axis, slots)
     return out
 
 
@@ -78,13 +96,18 @@ def _scatter_rows(cache: dict, sub: dict, slots: torch.Tensor) -> None:
     last = slots[-1:]
     for name, leaf in cache.items():
         axis = _batch_axis(name)
+        if axis is None:
+            continue                    # pools were updated in place by the step
+        rows = sub[name]
+        if mesh_ctx.is_dtensor(leaf):
+            rows = rows.redistribute(leaf.device_mesh, leaf.placements).to_local()
+            leaf = _local(leaf, axis)
         if axis == 1:
-            leaf[:, slots] = sub[name]
-            leaf[:, last] = sub[name][:, -1:]
-        elif axis == 0:
-            leaf[slots] = sub[name]
-            leaf[last] = sub[name][-1:]
-        # pools were updated in place by the step itself
+            leaf[:, slots] = rows
+            leaf[:, last] = rows[:, -1:]
+        else:
+            leaf[slots] = rows
+            leaf[last] = rows[-1:]
 
 
 class DecodeRunner:
@@ -122,6 +145,7 @@ class DecodeRunner:
     def _step_fn(self, params, cache, tokens, slots: torch.Tensor):
         sub = _gather_rows(cache, slots)
         logits, new_sub = self.model.decode_step(params, sub, tokens[slots])
+        logits = mesh_ctx.whole(logits)         # under a mesh: every rank's
         # greedy selection and the token-buffer update stay on the device;
         # only the (bucket,) next tokens travel to the host
         nxt = logits.argmax(dim=-1).to(torch.int32)

@@ -173,14 +173,22 @@ def test_metrics_object_is_the_one_filled(pair):
 
 
 def test_unported_options_raise(pair):
+    """A mesh is served eagerly: graphs=True with one raises, naming the
+    ROADMAP item, and anything but a DeviceMesh is refused."""
     _, _, tm, tp = pair
     trace = [TRequest(rid=1, prompt_len=8, gen_len=4, arrival=0)]
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServeEngine(tm, tp, sample_trace=trace, max_len=32, max_batch=2,
                     mesh=object())
     for build in (build_prefill_step, build_decode_step):
-        with pytest.raises(NotImplementedError, match="sharding"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             build(tm, object())
+    with pytest.raises(ValueError, match="ROADMAP queue 1: CUDA graphs under a mesh"):
+        ServeEngine(tm, tp, sample_trace=trace, max_len=32, max_batch=2,
+                    mesh=object(), graphs=True)
+    for build in (build_prefill_step, build_decode_step):
+        with pytest.raises(ValueError, match="CUDA graphs under a mesh"):
+            build(tm, object(), graphs=True)
 
 
 # --------------------------------------------------------------------------

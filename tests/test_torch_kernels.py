@@ -543,3 +543,48 @@ def test_split_paged_kernel_in_two_cuda_graphs_on_the_card(card):
         torch.cuda.synchronize()
         for (_, want), got in zip(cases, outs):
             assert float((got - want).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_local_mapped_kernels_on_the_one_card_mesh_match_the_bare_kernels(card):
+    """Under the one-card (1, 1) mesh (a world-size-1 NCCL group over a
+    HashStore) the model's ``local_map``'d flash prefill and paged decode at
+    qwen2's layout (14 heads over 2, hd 64, bf16) give the bare kernels'
+    outputs (flash exactly, split-KV paged within bf16's 2e-2), each one
+    launch; a DTensor is refused by the wrapper."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import one_card_mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.runtime import mesh_ctx
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(2, 256, 2, 7, 64, generator=g, device="cuda").bfloat16()
+    k = torch.randn(2, 256, 2, 64, generator=g, device="cuda").bfloat16()
+    v = torch.randn(2, 256, 2, 64, generator=g, device="cuda").bfloat16()
+    case = _paged_case(12, 8, kv=2, g=7, hd=64, pt=16, maxp=64,
+                       positions=[0, 15, 16, 100, 255, 511, 700, 1000])
+    qd, kp, vp, tables, pos = (torch.from_numpy(a).cuda() for a in case)
+    qd, kp, vp = (t.bfloat16() for t in (qd, kp, vp))
+    want_flash = tops.flash_attention(q, k, v)
+    want_paged = tops.paged_attention(qd, kp, vp, tables, pos)
+    mesh = one_card_mesh()
+    try:
+        with mesh_ctx.use_mesh(mesh):
+            before = (tops.flash_attention.launches, tops.paged_attention.launches)
+            got_flash = attn.attend(attn._shard_q(q), attn._shard_kv(k),
+                                    attn._shard_kv(v))
+            got_paged = attn.attend_paged_decode(attn._shard_q(qd[:, None]), kp, vp,
+                                                 tables, pos)
+            torch.cuda.synchronize()
+            assert (tops.flash_attention.launches, tops.paged_attention.launches) == (
+                before[0] + 1, before[1] + 1)
+            assert hasattr(got_flash, "device_mesh") and hasattr(got_paged, "device_mesh")
+            assert torch.equal(got_flash.to_local(), want_flash)
+            # split-KV: the last CTA of a row folds the chunks in arrival order
+            assert float((got_paged.to_local()[:, 0].float() - want_paged.float())
+                         .abs().max()) < 2e-2
+            with pytest.raises(TypeError, match="DTensor"):
+                tops.flash_attention(attn._shard_q(q), k, v)
+    finally:
+        dist.destroy_process_group()

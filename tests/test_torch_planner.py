@@ -32,7 +32,7 @@ def _triples(seed: int, n: int):
     return [(int(s), int(a), int(a + l)) for s, a, l in zip(sizes, starts, lens)]
 
 
-@pytest.mark.parametrize("seed,n", [(0, 12), (1, 60), (2, 200)])
+@pytest.mark.parametrize("seed,n", [(0, 12), (1, 60), (2, 200), (4, 1500)])
 def test_best_fit_and_refit_exact(seed, n):
     triples = _triples(seed, n)
     jp, tp = jcore.make_profile(triples), tcore.make_profile(triples)

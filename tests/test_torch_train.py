@@ -256,7 +256,7 @@ def test_abstract_state_is_fake_and_shaped_like_the_real_one(setup):
 def test_unported_training_paths_raise():
     """Every pattern trains; the kernels have no backward, so a model whose
     RunOpts name them refuses to train (mamba2 here: the SSD kernel), and a
-    mesh is refused."""
+    mesh that is no DeviceMesh is refused."""
     cfg = get_config("mamba2-130m").smoke()
     m = Transformer(cfg, RunOpts(), device="cpu")
     with pytest.raises(ValueError, match="no backward"):
@@ -264,7 +264,7 @@ def test_unported_training_paths_raise():
                   {"tokens": torch.zeros(1, 9, dtype=torch.int32)})
     q = Transformer(get_config("qwen2-0.5b").smoke(),
                     RunOpts(attention_impl="full", use_kernels=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         train_lib.build_train_step(q, object(), ACFG)
 
 
