@@ -151,7 +151,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the H100, the measured median step of each policy, MFU (model FLOPs
      over the step time at the compute dtype's peak), measured over bound,
      and the dry run's retained + DSA against the measured peak of the
-     same policy;
+     same policy; beside those traces, in two more workers of the same
+     pool, ``[dryrun:multi]``: qwen2-0.5b's ``train_4k`` (full remat) and
+     ``decode_32k`` at full width and 8 of 24 layers
+     (``DRYRUN_MULTI_LAYERS``), traced over the reference's (pod 2, data
+     16, model 16) mesh as rank 0 of a 512-rank fake process group on fake
+     CPU tensors (``dryrun_multi_trace``), each printing per device its dot
+     FLOPs, HBM bytes, collective wire bytes by kind, compute, memory and
+     collective terms, retained + DSA, whether that fits one H100 and the
+     trace's seconds; fails unless the training cell moves collective
+     bytes;
   8. the paper's own nets at their registered sizes, f32, TF32 off
      (``paper_cnn_phase``, ``paper_s2s_phase``, through ``launch/paper.py``):
      ``[paper:alexnet]``, ``[paper:resnet50]`` (224x224) and
@@ -338,6 +347,13 @@ CHUNK_WITNESS_SEQ, CHUNK_WITNESS_VOCAB = 8448, 8192
 
 # what each [train:*] cell hands to its [roofline:*] line
 TRAIN_CELLS: list = []
+# qwen2-0.5b's cells traced over the reference's (pod 2, data 16, model 16)
+# mesh in phase 7's roofline pool (``[dryrun:multi]``), at full width and
+# DRYRUN_MULTI_LAYERS of its 24 layers (None: all): at 24 the train_4k
+# trace took 95 s on the card machine's CPU (torch 2.11), twice the pool's
+# 42-47 s, ~3.8 s a layer past the first
+DRYRUN_MULTI = ("train_4k", "decode_32k")
+DRYRUN_MULTI_LAYERS = 8
 
 
 def card_line() -> str:
@@ -2005,25 +2021,89 @@ def roofline_trace(arch: str, n_layers, batch: int, seq: int) -> dict:
     return out
 
 
+def dryrun_multi_trace(shape_name: str, n_layers) -> dict:
+    """The dry run over the reference's multi-pod mesh of one of
+    ``DRYRUN_MULTI``'s cells of qwen2-0.5b, in a worker process: the
+    registered cell's step (full remat for training) traced over (pod 2,
+    data 16, model 16) on fake CPU tensors as rank 0 of a 512-rank fake
+    process group (``launch.mesh.make_production_mesh``), on its local
+    shards, read by ``dryrun.analyze_cell`` and ``roofline`` -> the
+    record, its roofline terms and its seconds."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import describe, end_process_group, make_production_mesh
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    if n_layers is not None:
+        cfg = cfg.with_overrides(n_layers=n_layers)
+    args = dryrun.build_parser().parse_args(["--device", "cpu", "--mesh", "multi"])
+    mesh = make_production_mesh(multi_pod=True, device="cpu")
+    try:
+        gm, meta = dryrun.trace_step(cfg, SHAPES[shape_name], args, mesh)
+        meta.update(arch=ARCH, shape=shape_name, mesh=describe(mesh)["axes"], mesh_tag="multi")
+        meta["trace_s"] = time.perf_counter() - t0
+        meta = dryrun.analyze_cell(gm, meta)
+    finally:
+        end_process_group()
+    cell = roofline.analyze_cell_json(meta)
+    meta["terms"] = {"compute_s": cell.compute_s, "memory_s": cell.memory_s,
+                     "coll_s": cell.coll_s, "dominant": cell.dominant}
+    meta["seconds"] = time.perf_counter() - t0
+    return meta
+
+
+def dryrun_multi_line(card: str, meta: dict) -> None:
+    """``[dryrun:multi]`` for one ``DRYRUN_MULTI`` cell: per device, dot
+    FLOPs, HBM bytes, collective wire bytes by kind, the compute, memory and
+    collective terms, retained + DSA and whether they fit one H100.  Fails
+    unless the training cell moves collective bytes."""
+    from repro_torch.launch import roofline as rl
+    h, t, f = meta["aten"], meta["terms"], meta["fits"]
+    kinds = " ".join(f"{k}={v / 1e9:.4f}GB/{h['coll_counts'][k]}"
+                     for k, v in sorted(h["coll_bytes_by_kind"].items()))
+    depth = "" if DRYRUN_MULTI_LAYERS is None else f" (depth cut to {DRYRUN_MULTI_LAYERS} layers)"
+    print(f"[dryrun:multi] {meta['arch']} {meta['shape']}{depth} mesh={meta['mesh']} rank 0 of "
+          f"512 fake ranks, per device: dot_flops={h['dot_flops']:.6g} "
+          f"hbm={h['hbm_bytes'] / 1e9:.3f}GB coll={h['coll_bytes'] / 1e9:.4f}GB ({kinds}) "
+          f"compute={1e3 * t['compute_s']:.3f}ms memory={1e3 * t['memory_s']:.3f}ms "
+          f"collective={1e3 * t['coll_s']:.3f}ms ({t['dominant']}; link {rl.LINK_BW / 1e9:g}GB/s) "
+          f"arguments={meta['memory_analysis']['argument_bytes'] / 1e9:.4f}GB "
+          f"retained+dsa={f['retained_plus_dsa'] / 1e9:.3f}GB fits={f['fits']} "
+          f"trace={meta['trace_s']:.1f}s worker={meta['seconds']:.1f}s | {card}", flush=True)
+    if meta["kind"] == "train" and not h["coll_bytes"] > 0:
+        raise AssertionError(f"[dryrun:multi] {meta['shape']}: no collective bytes")
+
+
 def roofline_phase(card: str) -> None:
     """The ``[roofline:*]`` lines of ``TRAIN_CELLS``, after every cell's
     steps are timed: each cell's ``roofline_trace`` in a spawned worker
     process of its own (all at once; the card and the main process wait),
-    then ``roofline_line`` in cell order, and a ``[roofline]`` line with
-    the phase's seconds on the script's clock."""
+    then ``roofline_line`` in cell order; beside them, one worker each for
+    the ``[dryrun:multi]`` traces of ``DRYRUN_MULTI``; and a ``[roofline]``
+    line with the phase's seconds on the script's clock."""
     import concurrent.futures
     import multiprocessing
 
     t0 = time.perf_counter()
+    n = len(TRAIN_CELLS) + len(DRYRUN_MULTI)
     with concurrent.futures.ProcessPoolExecutor(
-            len(TRAIN_CELLS), mp_context=multiprocessing.get_context("spawn")) as pool:
+            n, mp_context=multiprocessing.get_context("spawn")) as pool:
         jobs = [pool.submit(roofline_trace, c["arch"], c["n_layers"], c["batch"], c["seq"])
                 for c in TRAIN_CELLS]
+        multi = [pool.submit(dryrun_multi_trace, shape, DRYRUN_MULTI_LAYERS)
+                 for shape in DRYRUN_MULTI]
         for c, job in zip(TRAIN_CELLS, jobs):
             roofline_line(card, job.result(), c)
+        for job in multi:
+            dryrun_multi_line(card, job.result())
     took = time.perf_counter() - t0
-    print(f"[roofline] {len(TRAIN_CELLS)} lines took {took:.1f}s of the script "
-          f"({len(TRAIN_CELLS)} worker processes, nothing else running) | {card}", flush=True)
+    print(f"[roofline] {len(TRAIN_CELLS)} lines and {len(DRYRUN_MULTI)} [dryrun:multi] "
+          f"took {took:.1f}s of the script ({n} worker processes, nothing else running) "
+          f"| {card}", flush=True)
 
 
 def roofline_line(card: str, traced: dict, cell: dict) -> None:

@@ -30,8 +30,9 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from .events import DEFAULT_ALIGNMENT, Block, MemoryProfile, align
 
 # Ops that share their input's storage although their schema carries no
-# alias annotation.
-_UNANNOTATED_VIEWS = {"_unsafe_view"}
+# alias annotation: a functional collective's ``wait_tensor`` hands back the
+# collective's own result.
+_UNANNOTATED_VIEWS = {"_unsafe_view", "wait_tensor"}
 _MATMULS = {"mm": 0, "bmm": 0, "addmm": 1, "baddbmm": 1}     # op -> lhs arg
 _REDUCTIONS = {"sum", "mean", "amax", "amin", "max", "min", "argmax", "argmin",
                "logsumexp", "prod", "var", "std", "norm", "any", "all"}

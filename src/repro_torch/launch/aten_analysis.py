@@ -21,7 +21,21 @@ makes of the step on fake tensors, with the liveness module's own helpers:
                        and writes as many elements of the destination, the
                        reference's rule for ``dynamic-update-slice`` (~2x
                        the update, not the buffer);
-  * collective bytes — 0: the port runs on one card.
+  * collective bytes — the wire bytes per device of each functional
+                       collective DTensor issued over a mesh
+                       (``_c10d_functional``; ``_dtensor.shard_dim_alltoall``
+                       on a CUDA mesh), by the reference's ring estimates
+                       (``hlo_analysis._coll_wire_bytes``), with g the size
+                       of the collective's group: an all-gather moves its
+                       result x (g-1)/g, an all-reduce 2 x its size x
+                       (g-1)/g, a reduce-scatter its operand x (g-1)/g, an
+                       all-to-all its result x (g-1)/g, a send, a receive or
+                       a broadcast its size.  ``wait_tensor`` moves nothing
+                       and aliases the collective's result.  A collective is
+                       an op like any other for the HBM bytes too (it reads
+                       its operand and writes its result), as the
+                       reference's top-level op rule counts it.  0 on one
+                       card.
 
 A Python loop unrolls in the trace, so there is no loop to multiply:
 ``n_while`` is 0 and ``trips`` is empty.
@@ -92,6 +106,62 @@ def _node_hbm_bytes(node) -> float:
     return float(read + result)
 
 
+# functional collectives -> the reference's kinds (``hlo_analysis``)
+COLLECTIVES = {
+    "_c10d_functional::all_gather_into_tensor": "all-gather",
+    "_c10d_functional::all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional::all_reduce": "all-reduce",
+    "_c10d_functional::all_reduce_coalesced": "all-reduce",
+    "_c10d_functional::reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional::reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional::all_to_all_single": "all-to-all",
+    "_dtensor::shard_dim_alltoall": "all-to-all",
+    "_c10d_functional::broadcast": "collective-permute",
+    "_c10d_functional::isend": "collective-permute",
+    "_c10d_functional::irecv": "collective-permute",
+    "_c10d_functional::batch_p2p_ops": "collective-permute",
+}
+
+
+def _arg(node, name: str):
+    for i, a in enumerate(node.target._schema.arguments):
+        if a.name == name:
+            return node.args[i] if i < len(node.args) else node.kwargs.get(name)
+    return None
+
+
+def group_size(node) -> int:
+    """The size of a collective node's group: its ``group_size`` argument
+    where the op carries one, else its group name resolved to the process
+    group."""
+    g = _arg(node, "group_size")
+    if g is not None:
+        return int(g)
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(_arg(node, "group_name")).size()
+
+
+def coll_wire_bytes(node) -> tuple:
+    """``(kind, wire bytes per device)`` of a collective node, or None for
+    any other node."""
+    if not isinstance(node.target, torch._ops.OpOverload):
+        return None
+    kind = COLLECTIVES.get(node.target._schema.name)
+    if kind is None:
+        return None
+    result = _value_bytes(node)
+    operand = sum(_value_bytes(a) for a in node.all_input_nodes)
+    if kind == "collective-permute":
+        return kind, float(result)
+    g = group_size(node)
+    share = (g - 1) / max(g, 1)
+    if kind == "all-reduce":
+        return kind, 2.0 * result * share
+    if kind == "reduce-scatter":
+        return kind, operand * share
+    return kind, result * share                 # all-gather, all-to-all
+
+
 def analyze(gm: torch.fx.GraphModule) -> GraphSummary:
     s = GraphSummary()
     for node in gm.graph.nodes:
@@ -100,4 +170,10 @@ def analyze(gm: torch.fx.GraphModule) -> GraphSummary:
         if isinstance(node.target, torch._ops.OpOverload) and _op_name(node.target) in _MATMULS:
             s.dot_flops += _node_flops(node)
         s.hbm_bytes += _node_hbm_bytes(node)
+        coll = coll_wire_bytes(node)
+        if coll is not None:
+            kind, wire = coll
+            s.coll_bytes += wire
+            s.coll_bytes_by_kind[kind] = s.coll_bytes_by_kind.get(kind, 0.0) + wire
+            s.coll_counts[kind] = s.coll_counts.get(kind, 0) + 1
     return s

@@ -7,8 +7,8 @@ decode) with ``core.liveness.trace`` (``make_fx`` under a
 card) and records:
 
   * ``aten``: ``launch.aten_analysis``'s summary of the graph (dot FLOPs,
-    HBM bytes; no collectives on one card), where the reference records
-    ``hlo``;
+    HBM bytes, collective wire bytes by kind; none on one card), where the
+    reference records ``hlo``;
   * ``memory_analysis``: ``argument_bytes`` (the inputs: state and batch,
     or weights, batch and cache), ``output_bytes`` (the new buffers the
     step returns), ``temp_bytes`` — the best-fit (DSA) peak of the step's
@@ -18,6 +18,8 @@ card) and records:
     trace lifted into the graph, as whisper's sinusoid frequencies);
   * ``fits``: whether retained (inputs and constants) + DSA fits the
     card's memory.
+
+Every number is per device: over a mesh, rank 0's.
 
 The steps are the port's own: ``runtime.train_lib.build_train_step``'s
 whole update (gradient and AdamW over ``train_lib.abstract_state``, full
@@ -29,16 +31,29 @@ the plain paths are traced: the CUDA kernels do not run on fake tensors.
 
 The reference's ``single`` mesh is 256 TPU chips; the port's is one H100
 (``launch.mesh``), so per-device numbers differ from the reference's by
-design.  ``multi``/``both`` and the mesh-only knobs raise until the dry
-run traces a mesh of several devices (ROADMAP queue 1: the dry run over a
-mesh); the sharded steps themselves run over a ``DeviceMesh``
-(``runtime.mesh_ctx``).
+design.  ``multi`` is the reference's multi-pod mesh, (pod 2, data 16,
+model 16): the step is built over it as the sharded steps run
+(``build_train_step(model, mesh)``, ``build_prefill_step`` and
+``build_decode_step(model, mesh, shard_cache_len=...)``, eager) and traced
+as rank 0 of a 512-rank fake process group (``launch.mesh.fake_mesh``),
+taking rank 0's local shards of every state, weight, cache and batch
+leaf (``train_lib.abstract_sharded_step``, ``serve_lib.
+abstract_sharded_prefill`` / ``abstract_sharded_decode``), so its numbers
+are one device's: the collectives DTensor issues (where GSPMD would choose
+its own), ``argument_bytes`` of the local shards, and ``fits`` against one
+H100.  The mesh-only knobs (``--cp-attention``, ``--moe-grouped``,
+``--sp-residual``, ``--ssd-shard-p``, ``--shard-cache-len``) reach the
+traced step under ``multi``; on ``single`` there is no mesh to shard over
+and they raise ``ValueError``.  The process holds one fake group for all
+its ``multi`` cells and ends it at the end of the run.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all \\
       --mesh single --device cpu --out results/dryrun_torch
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
+      --shape train_4k,decode_32k --mesh multi --device cpu --out results/dryrun_torch
   PYTHONPATH=src python -m repro_torch.launch.dryrun --report md \\
-      --out results/dryrun_torch          # the roofline table of those records
+      --mesh multi --out results/dryrun_torch    # the roofline table of those records
 """
 from __future__ import annotations
 
@@ -60,7 +75,7 @@ from ..models.transformer import DTYPES
 from ..optim.adamw import AdamWConfig
 from ..runtime import serve_lib, train_lib
 from . import aten_analysis
-from .mesh import MESH_DRYRUN, describe, make_production_mesh
+from .mesh import CardMesh, describe, dtensor_tracing, end_process_group, make_production_mesh
 from . import roofline
 
 MESH_ONLY = ("cp_attention", "moe_grouped", "sp_residual", "ssd_shard_p",
@@ -82,21 +97,24 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, kind: str) -> dict:
     return specs
 
 
-def run_opts_for(shape: ShapeConfig, args) -> RunOpts:
-    """The reference's ``run_opts_for``.  The mesh-only knobs raise; so does
-    a kernel path, which fake tensors cannot run."""
+def run_opts_for(shape: ShapeConfig, args, multi_pod: bool = False) -> RunOpts:
+    """The reference's ``run_opts_for``.  A mesh-only knob without a mesh
+    (``multi_pod=False``: one card) raises, and so does a kernel path,
+    which fake tensors cannot run."""
     del shape
     on = [k for k in MESH_ONLY if getattr(args, k)]
-    if on:
-        raise NotImplementedError(f"--{on[0].replace('_', '-')} needs a mesh over "
-                                  f"several cards ({MESH_DRYRUN})")
+    if on and not multi_pod:
+        raise ValueError(f"--{on[0].replace('_', '-')} shards over a mesh: the one "
+                         "card of --mesh single has none; pass --mesh multi")
     if args.attn_impl in ("kernel", "pallas"):
         raise ValueError(f"--attn-impl {args.attn_impl}: the dry run traces the plain "
                          "paths (auto, full or chunked); the CUDA kernels do not "
                          "run on fake tensors")
     return RunOpts(attention_impl=args.attn_impl, attn_chunk=args.attn_chunk,
                    loss_impl=args.loss_impl, loss_chunk=args.loss_chunk,
-                   softmax_dtype=args.softmax_dtype, use_kernels=False)
+                   softmax_dtype=args.softmax_dtype, use_kernels=False,
+                   cp_attention=args.cp_attention, moe_grouped=args.moe_grouped,
+                   sp_residual=args.sp_residual, ssd_shard_p=args.ssd_shard_p)
 
 
 def _mode() -> FakeTensorMode:
@@ -118,15 +136,20 @@ def trace_train(model: Transformer, batch_sds: dict, remat=True,
     return trace(step, state, train_lib._fake_batch(mode, batch_sds, model.device))
 
 
-def trace_step(cfg: ModelConfig, shape: ShapeConfig, args):
+def trace_step(cfg: ModelConfig, shape: ShapeConfig, args, mesh=None):
     """The step of ``shape.kind`` for ``cfg``, traced on fake tensors ->
-    ``(GraphModule, meta)``."""
-    model = Transformer(cfg, run_opts_for(shape, args), device=args.device)
+    ``(GraphModule, meta)``; over ``mesh`` (a ``DeviceMesh``) rank 0's
+    step on its local shards (``trace_sharded``)."""
+    model = Transformer(cfg, run_opts_for(shape, args, mesh is not None), device=args.device)
     kind = shape.kind
     specs = input_specs(cfg, shape, kind)
     meta = {"kind": kind, "dtype": cfg.dtype, "device": str(model.device)}
     if kind == "train":
         meta["remat"] = "none" if args.no_remat else "full"
+    if mesh is not None:
+        meta["mesh_knobs"] = [k for k in MESH_ONLY if getattr(args, k)]
+        return trace_sharded(model, shape, specs, mesh, args), meta
+    if kind == "train":
         return trace_train(model, specs, not args.no_remat, args.microbatches), meta
     mode = _mode()
     params = model.abstract(mode)
@@ -143,9 +166,36 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, args):
     return trace(step, params, cache, batch["tokens"]), meta
 
 
+def trace_sharded(model: Transformer, shape: ShapeConfig, specs: dict, mesh, args):
+    """The sharded step of ``shape.kind`` over ``mesh``, traced as its rank
+    0 on fake local shards: the graph's placeholders are that rank's
+    shards of the state (or weights and cache) and batch."""
+    mode = _mode()
+    kind, b, s = shape.kind, shape.global_batch, shape.seq_len
+    if kind == "train":
+        topts = train_lib.TrainOpts(microbatches=args.microbatches, remat=not args.no_remat)
+        fn, shards = train_lib.abstract_sharded_step(model, mesh, mode, AdamWConfig(),
+                                                     topts, specs)
+    elif kind == "prefill":
+        fn, shards = serve_lib.abstract_sharded_prefill(model, mesh, mode, specs, max_len=s)
+    else:
+        fn, shards = serve_lib.abstract_sharded_decode(
+            model, mesh, mode, b, s, shard_cache_len=args.shard_cache_len)
+    with dtensor_tracing():
+        gm = trace(fn, *shards)
+    # make_fx records products that nothing reads: torch 2.11's DTensor
+    # leaves some over the global shapes (a (256 * 4096, 152064) lm head
+    # beside the local one), and autograd some of its own; drop them
+    gm.graph.eliminate_dead_code()
+    gm.recompile()
+    return gm
+
+
 def lower_cell(arch: str, shape_name: str, mesh, args):
-    """Returns ``(GraphModule, meta)`` for one registered cell."""
-    gm, meta = trace_step(get_config(arch), SHAPES[shape_name], args)
+    """Returns ``(GraphModule, meta)`` for one registered cell over ``mesh``
+    (``make_production_mesh``'s: one card, or the multi-pod ``DeviceMesh``)."""
+    sharded = mesh if not isinstance(mesh, CardMesh) else None
+    gm, meta = trace_step(get_config(arch), SHAPES[shape_name], args, sharded)
     meta.update(arch=arch, shape=shape_name, mesh=describe(mesh)["axes"])
     return gm, meta
 
@@ -188,10 +238,11 @@ def analyze_cell(gm, meta: dict, args=None) -> dict:
     return meta
 
 
-def report(dirpath: str, fmt: str = "md") -> str:
-    """``roofline.table`` of the records in ``dirpath`` with each cell's
-    retained + DSA bytes (GB) and whether they fit the card."""
-    return roofline.table(roofline.load_cells(dirpath), fmt, extra=(
+def report(dirpath: str, fmt: str = "md", mesh: str | None = "single") -> str:
+    """``roofline.table`` of the records of mesh tag ``mesh`` (None: all)
+    in ``dirpath`` with each cell's retained + DSA bytes (GB, per device)
+    and whether they fit one card."""
+    return roofline.table(roofline.load_cells(dirpath, mesh), fmt, extra=(
         ("retained+dsa_GB", lambda c: f"{c.raw['fits']['retained_plus_dsa'] / 1e9:.4g}"),
         ("fits", lambda c: str(c.raw["fits"]["fits"]))))
 
@@ -205,8 +256,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arch", default="all")
     p.add_argument("--shape", default="all")
     p.add_argument("--mesh", default="single", choices=["single", "multi", "both"],
-                   help="single: one H100; multi and both need a dry run over "
-                        f"several devices ({MESH_DRYRUN})")
+                   help="single: one H100; multi: the reference's (pod 2, data 16, "
+                        "model 16) mesh, traced as rank 0 of a 512-rank fake "
+                        "process group; both: each")
     p.add_argument("--out", default="results/dryrun_torch")
     p.add_argument("--device", default="cuda",
                    help="device of the fake tensors (cuda needs a visible card, "
@@ -241,7 +293,8 @@ def main(argv=None) -> None:
 
     cells = [(a, s, mp) for a in archs for s in shapes for mp in meshes]
     if args.report:
-        print(report(args.out, args.report))
+        print(report(args.out, args.report, {"single": "single", "multi": "multi",
+                                             "both": None}[args.mesh]))
         return
     if args.list:
         for a, s, mp in cells:
@@ -249,11 +302,20 @@ def main(argv=None) -> None:
             print(f"{a:24s} {s:12s} {'multi' if mp else 'single':6s} "
                   f"{'RUN' if ok else 'SKIP (DESIGN.md §4)'}")
         return
-    if True in meshes:
-        make_production_mesh(multi_pod=True)          # raises: not ported
-    run_opts_for(None, args)                          # mesh-only knobs raise here
+    run_opts_for(None, args, multi_pod=False not in meshes)   # knobs without a mesh raise
 
     os.makedirs(args.out, exist_ok=True)
+    try:
+        n_ok, n_skip, n_fail = _run_cells(cells, args)
+    finally:
+        if True in meshes:
+            end_process_group()
+    print(f"done: ok={n_ok} skip={n_skip} fail={n_fail}")
+    if n_fail:
+        raise SystemExit(1)
+
+
+def _run_cells(cells: list, args) -> tuple:
     n_ok = n_skip = n_fail = 0
     for arch, shape_name, multi_pod in cells:
         mesh_tag = "multi" if multi_pod else "single"
@@ -265,7 +327,7 @@ def main(argv=None) -> None:
             continue
         try:
             t0 = time.time()
-            mesh = make_production_mesh(multi_pod=multi_pod)
+            mesh = make_production_mesh(multi_pod=multi_pod, device=args.device)
             gm, meta = lower_cell(arch, shape_name, mesh, args)
             meta["mesh_tag"] = mesh_tag
             meta["trace_s"] = round(time.time() - t0, 2)
@@ -274,9 +336,11 @@ def main(argv=None) -> None:
             with open(out_path, "w") as f:
                 json.dump(meta, f, indent=1)
             h, m = meta["aten"], meta["memory_analysis"]
+            kinds = " ".join(f"{k}={v:.3g}" for k, v in h["coll_bytes_by_kind"].items())
             print(f"[ok]   {tag} trace={meta['trace_s']}s plan={meta['plan_s']}s "
                   f"flops={h['dot_flops']:.3g} hbm={h['hbm_bytes']:.3g} "
-                  f"coll={h['coll_bytes']:.3g} retained={m['argument_bytes']:.3g} "
+                  f"coll={h['coll_bytes']:.3g}{' (' + kinds + ')' if kinds else ''} "
+                  f"retained={m['argument_bytes']:.3g} "
                   f"dsa={m['temp_bytes']:.3g} fits={meta['fits']['fits']}", flush=True)
             n_ok += 1
         except Exception as e:
@@ -287,9 +351,7 @@ def main(argv=None) -> None:
             with open(out_path, "w") as f:
                 json.dump(err, f, indent=1)
             print(f"[FAIL] {tag}: {str(e)[:300]}", flush=True)
-    print(f"done: ok={n_ok} skip={n_skip} fail={n_fail}")
-    if n_fail:
-        raise SystemExit(1)
+    return n_ok, n_skip, n_fail
 
 
 if __name__ == "__main__":

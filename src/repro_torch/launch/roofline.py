@@ -5,8 +5,8 @@ Per (arch x shape) cell:
   compute term    = aten dot FLOPs per device / the peak FLOP/s of the
                     cell's compute dtype
   memory term     = aten HBM bytes per device / HBM bandwidth
-  collective term = collective wire bytes per device / link bandwidth (0 on
-                    one card: the port has no collectives yet)
+  collective term = collective wire bytes per device / LINK_BW (0 on one
+                    card, which has no link to cross)
 plus MODEL_FLOPS = analytic useful flops (6*N_active*D for training), and the
 MODEL/aten ratio that exposes remat waste.
 
@@ -34,6 +34,14 @@ HBM_BW = 3.35e12               # HBM3, bytes/s
 # total: torch.cuda.get_device_properties(0).total_memory)
 HBM_BYTES = 85_017_493_504
 PEAKS = {"bfloat16": PEAK_FLOPS, "float32": PEAK_FLOPS_F32}
+# Bytes/s per GPU per direction over the link a collective crosses: one
+# 400 Gb/s NDR InfiniBand NIC per H100, as in a DGX H100 (8 GPUs, 8
+# ConnectX-7 ports).  A 16-wide mesh axis spans two 8-GPU NVLink nodes, so
+# every transfer is held to the NIC, uniform across cells, as the
+# reference holds each to one ICI link; NVLink 4 gives 450e9 per direction
+# within a node.  A data-sheet rate: the port's card machine has one H100,
+# and no collective time is measured.
+LINK_BW = 50e9
 
 
 def peak_flops(dtype: str) -> float:
@@ -179,8 +187,8 @@ class Cell:
 def analyze_cell_json(meta: dict) -> Cell:
     """A dry-run record (``launch.dryrun``'s JSON: its ``"aten"`` summary)
     -> the cell's roofline terms.  The compute dtype is the record's
-    ``"dtype"``, else the registered config's.  The collective term is 0:
-    the port runs on one card and its records count no collective."""
+    ``"dtype"``, else the registered config's.  ``chips`` is the product of
+    the record's mesh: 1 for ``single``, 512 for ``multi``."""
     cfg = get_config(meta["arch"])
     shape = SHAPES[meta["shape"]]
     dtype = meta.get("dtype", cfg.dtype)
@@ -190,7 +198,7 @@ def analyze_cell_json(meta: dict) -> Cell:
     h = meta["aten"]
     compute_s = h["dot_flops"] / peak_flops(dtype)
     memory_s = h["hbm_bytes"] / HBM_BW
-    coll_s = 0.0                # one card: no link to cross (coll_bytes is 0)
+    coll_s = h["coll_bytes"] / LINK_BW
     dominant = max((("compute", compute_s), ("memory", memory_s),
                     ("collective", coll_s)), key=lambda t: t[1])[0]
     mf = model_flops(cfg, shape)["model_flops"]

@@ -41,18 +41,43 @@ NEG_INF = -1e30
 
 def qkv_project(x, p, cfg):
     """x: (B,S,D) -> q (B,S,kv,g,hd), k/v (B,S,kv,hd)."""
-    b, s, d = x.shape
+    b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     n_kv = cfg.n_kv_heads
     g = cfg.n_heads // n_kv
-    q = (x @ p["wq"].reshape(d, -1)).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"].reshape(d, -1)).reshape(b, s, n_kv, hd)
-    v = (x @ p["wv"].reshape(d, -1)).reshape(b, s, n_kv, hd)
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+    q = _heads_product(x, p, "q", cfg).reshape(b, s, cfg.n_heads, hd)
+    k = _heads_product(x, p, "k", cfg).reshape(b, s, n_kv, hd)
+    v = _heads_product(x, p, "v", cfg).reshape(b, s, n_kv, hd)
     return _shard_q(q.reshape(b, s, n_kv, g, hd)), _shard_kv(k), _shard_kv(v)
+
+
+def _heads_product(x, p, name: str, cfg):
+    """``x @ w{name}`` (+ ``b{name}``) as a flat (B, S, heads * hd) product,
+    placed as its heads will be (``_place_heads``): the bias is added to
+    the flat product, before the placement, since a bias split over its
+    heads would split the sum whatever the kv heads divide."""
+    y = x @ _flat(p[f"w{name}"])
+    if cfg.qkv_bias:
+        y = y + mesh_ctx.pin(p[f"b{name}"].reshape(-1))
+    return _place_heads(y, cfg.n_kv_heads)
+
+
+def _flat(w):
+    """A (d, heads, hd) projection weight as (d, heads * hd), its gradient
+    pinned to the view's placements (``mesh_ctx.pin``)."""
+    return mesh_ctx.pin(w.reshape(w.shape[0], -1))
+
+
+def _place_heads(y, n_kv: int):
+    """Place a head projection's flat (B, S, heads * hd) product as its
+    heads will be: split over the ``kv_heads`` mesh axes when ``n_kv``
+    divides by them, else whole.  DTensor may split the flat dim whatever
+    the heads, and then refuses to view it as an uneven split of them (14
+    heads over a 16-way model axis).  ``y`` itself without a mesh."""
+    if mesh_ctx.current_mesh() is None:
+        return y
+    split = mesh_ctx.spec_for("kv_heads", dims=(n_kv,))[0] is not None
+    return mesh_ctx.shard(y, "batch", "seq", "kv_heads" if split else None)
 
 
 def _shard_q(q):
@@ -64,9 +89,8 @@ def _shard_kv(k):
 
 
 def _project(x, p, name: str, heads: int, cfg):
-    b, s, d = x.shape
-    y = (x @ p[f"w{name}"].reshape(d, -1)).reshape(b, s, heads, cfg.resolved_head_dim)
-    return y + p[f"b{name}"] if cfg.qkv_bias else y
+    b, s, _ = x.shape
+    return _heads_product(x, p, name, cfg).reshape(b, s, heads, cfg.resolved_head_dim)
 
 
 def q_project(x, p, cfg):
@@ -84,8 +108,9 @@ def kv_project(x, p, cfg):
 
 def out_project(ctx, p, cfg):
     b, s = ctx.shape[:2]
-    ctx = ctx.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
-    return ctx @ p["wo"].reshape(-1, p["wo"].shape[-1])
+    ctx = _place_heads(ctx.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim),
+                       cfg.n_kv_heads)
+    return ctx @ mesh_ctx.pin(p["wo"].reshape(-1, p["wo"].shape[-1]))
 
 
 def attend_full(q, k, v, *, causal=True, window=0, q_offset=0,
@@ -213,7 +238,35 @@ def attend_decode(q, k_cache, v_cache, cache_pos, *, window=0, rolling=False):
     ``rolling=True`` means the cache is a circular window buffer (local
     attention): position t lives at index t % C, so every filled index is
     inside the window and only the fill mask ``idx < min(pos + 1, C)``
-    applies."""
+    applies.
+
+    Under a mesh whose cache length is whole on each rank, this runs on each
+    rank's rows and kv heads of the cache, as the cache is placed (rows
+    over ``data`` alone: ``sharding_rules.CACHE_RULES``), by
+    ``mesh_ctx.run_local``:
+    DTensor's einsum would merge a split batch and split heads into one
+    strided dim, whose every later redistribution it plans by a graph
+    search, and rows over (pod, data) would gather the cache.  With the
+    cache length split (``shard_cache_len``) it runs on DTensors, so the
+    softmax and context sums meet across the model axis."""
+    split_len = mesh_ctx.is_dtensor(k_cache) and any(
+        getattr(pl, "dim", None) == 1 for pl in k_cache.placements)
+    if mesh_ctx.current_mesh() is None or split_len:
+        return _attend_decode(q, k_cache, v_cache, cache_pos, window, rolling)
+    from ..runtime.sharding_rules import CACHE_RULES
+    kv = mesh_ctx.spec_for("batch", None, "kv_heads", "head_dim", rules=CACHE_RULES,
+                           dims=tuple(k_cache.shape))
+    q_spec = mesh_ctx.PartitionSpec(kv[0], None, kv[2], None, None)
+    # per-row positions split as the rows; a 0-d one (cross-attention's
+    # last frame) is every rank's
+    pos_spec = mesh_ctx.PartitionSpec(*[kv[0]][:cache_pos.ndim])
+    return mesh_ctx.run_local(
+        lambda ql, kl, vl, pl: _attend_decode(ql, kl, vl, pl, window, rolling),
+        (q, k_cache, v_cache, cache_pos), (q_spec, kv, kv, pos_spec),
+        [(q_spec, q.shape)])
+
+
+def _attend_decode(q, k_cache, v_cache, cache_pos, window, rolling):
     hd = q.shape[-1]
     scale = hd ** -0.5
     s = torch.einsum("bqkgh,bskh->bkgqs", q, k_cache).float() * scale

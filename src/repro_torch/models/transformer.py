@@ -306,9 +306,33 @@ def _embed_rows(table, tokens):
                      device_mesh=mesh)(tab, tok)
 
 
+def _layers(params):
+    """The layers' parameters one at a time, each gathered over the FSDP
+    axis as it is reached (``mesh_ctx.gather_fsdp``)."""
+    return (mesh_ctx.gather_fsdp(p) for p in params["layers"])
+
+
+def _lm_table(params):
+    """The output projection (``lm_head``, else the tied embedding),
+    gathered over the FSDP axis."""
+    return mesh_ctx.gather_fsdp(params.get("lm_head", params["embed"]))
+
+
+def _gold_logp(lf, targets, mask):
+    """``log_softmax(lf)[gold] * mask`` per position.  Under a mesh it runs
+    on each rank's rows (``mesh_ctx.run_local``): DTensor's backward of
+    ``gather`` builds its zeros whole, the global logits' size on every
+    rank."""
+    logp = torch.log_softmax(lf, dim=-1)
+    return logp.gather(-1, targets[..., None].long())[..., 0] * mask
+
+
 def _shard_residual(x):
     """The residual stream's sharding between blocks (the reference's
-    ``shard(x, "batch", "seq", "embed")``)."""
+    ``shard(x, "batch", "seq", "embed")``), and after each residual add
+    within one: GSPMD carries a block's closing constraint back through
+    its adds, DTensor places forward only, and would otherwise scatter a
+    partial sum over the sequence."""
     return mesh_ctx.shard(x, "batch", "seq", "embed")
 
 
@@ -331,8 +355,12 @@ def _write_rows(cache, i, slot, new, rows):
         if offsets[2] == 0 and c.shape[2] == cache.shape[2]:
             c[i, rows, idx] = n
             return
+        # rows whose slot another rank holds write back what they read
+        # (static shapes, no boolean indexing: the dry run traces this)
         ok = (idx >= 0) & (idx < c.shape[2])
-        c[i, rows[ok], idx[ok]] = n[ok]
+        idx = idx.clamp(0, c.shape[2] - 1)
+        c[i, rows, idx] = torch.where(ok.reshape(-1, *([1] * (n.ndim - 1))), n,
+                                      c[i, rows, idx])
     mesh_ctx.write_local(cache, [(new, {1: 0, 3: 1, 4: 2}), (slot, {1: 0})], put)
 
 
@@ -495,7 +523,7 @@ class Transformer:
     def _finish_block(self, x, ctx, p, cross=()):
         """Self-attention's residual, then with ``cross`` (``_cross``'s
         arguments) cross-attention's, then the MLP's."""
-        x = x + attn.out_project(ctx, p["attn"], self.cfg)
+        x = _shard_residual(x + attn.out_project(ctx, p["attn"], self.cfg))
         if cross:
             x = self._cross(x, p, *cross)
         return self._mlp_residual(x, p)
@@ -511,7 +539,7 @@ class Transformer:
         qx = attn.q_project(self._norm(x, p["xnorm"]), p["xattn"], self.cfg)
         ctx = (attn.attend(qx, kx, vx, impl="full", causal=False) if pos is None
                else attn.attend_decode(qx, kx, vx, pos))
-        return x + attn.out_project(ctx, p["xattn"], self.cfg)
+        return _shard_residual(x + attn.out_project(ctx, p["xattn"], self.cfg))
 
     def _encode(self, params, frames):
         """Whisper's encoder over stub frame embeddings (B, F, D): the
@@ -526,7 +554,7 @@ class Transformer:
         x = frames.to(dt) + sinusoid(pos, self.cfg.d_model, dt)[None]
         x = _shard_residual(x)
         for p in params["encoder"]["blocks"]:
-            p = self.load(p)
+            p = mesh_ctx.gather_fsdp(self.load(p))
             q, k, v = self._attn_qkv(x, p, None)
             ctx = self._attend(q, k, v, causal=False)
             x = self._finish_block(x, ctx, p)
@@ -560,7 +588,7 @@ class Transformer:
         return x
 
     def logits(self, params, x):
-        out = x @ params.get("lm_head", params["embed"]).t()
+        out = x @ _lm_table(params).t()
         return mesh_ctx.shard(out, "batch", "seq", "vocab")
 
     # ---- training -----------------------------------------------------------------
@@ -573,15 +601,15 @@ class Transformer:
         aux term with ``n_experts``, else None (the reference's
         ``co.get("aux", 0.0)``)."""
         cfg, opts, cdt = self.cfg, self.opts, self.compute_dtype
-        p = self.load(p)
+        p = mesh_ctx.gather_fsdp(self.load(p))
         if kind == "mamba2":
             h = self._norm(x, p["norm"])
             return _shard_residual(x + ssm_lib.mamba2_block(
                 h, p, cfg, cdt, chunk=opts.ssd_chunk, use_kernel=False)), None
         if kind == "rec":
             h = self._norm(x, p["norm"])
-            x = x + rglru_lib.recurrent_block(h, p, cfg, cdt, use_kernel=False,
-                                              block=opts.rglru_block)
+            x = _shard_residual(x + rglru_lib.recurrent_block(
+                h, p, cfg, cdt, use_kernel=False, block=opts.rglru_block))
             return self._mlp_residual(x, p), None
         q, k, v = self._attn_qkv(x, p, rope_cs)
         ctx = self._attend(q, k, v, causal=True,
@@ -590,7 +618,7 @@ class Transformer:
             return self._finish_block(x, ctx, p, attn.kv_project(enc, p["xattn"], cfg)), None
         if not cfg.n_experts:
             return self._finish_block(x, ctx, p), None
-        x = x + attn.out_project(ctx, p["attn"], cfg)
+        x = _shard_residual(x + attn.out_project(ctx, p["attn"], cfg))
         y, aux = moe_lib.moe_mlp(self._norm(x, p["mlp_norm"]), p["mlp"], cfg, cdt,
                                  grouped=opts.moe_grouped, need_aux=True)
         return _shard_residual(x + y), aux
@@ -621,7 +649,7 @@ class Transformer:
         return self._train_group(x, aux, pairs[n_body:], rope_cs, enc)
 
     def _train_logits(self, params, x):
-        table = params.get("lm_head", params["embed"])
+        table = _lm_table(params)
         out = x.to(self.compute_dtype) @ table.to(self.compute_dtype).t()
         return mesh_ctx.shard(out, "batch", "seq", "vocab")
 
@@ -642,8 +670,10 @@ class Transformer:
         bias = self._pad_bias(lf.device)
         if bias is not None:
             lf = lf + bias
-        logp = torch.log_softmax(lf, dim=-1)
-        return -(logp.gather(-1, targets[..., None].long())[..., 0] * mask).sum()
+        rows = mesh_ctx.run_local(_gold_logp, (lf, targets, mask),
+                                  (("batch", "seq", None), ("batch", "seq"), ("batch", "seq")),
+                                  [(("batch", "seq"), tuple(targets.shape))])
+        return -rows.sum()
 
     def _ce(self, logits, targets, mask):
         """Mean next-token NLL over the mask; padded-vocab logits get -1e30."""
@@ -812,7 +842,7 @@ class Transformer:
         slot = pos.clamp(max=k_cache.shape[2] - 1).long()
         rows = _batch_rows(k_cache)
         cross = ()
-        for i, p in enumerate(params["layers"]):
+        for i, p in enumerate(_layers(params)):
             q, k, v = self._attn_qkv(x, p, rope_cs)
             _write_rows(k_cache, i, slot, k[:, 0], rows)
             _write_rows(v_cache, i, slot, v[:, 0], rows)
@@ -828,7 +858,7 @@ class Transformer:
         """One token through every mamba2 layer; the conv windows and SSD
         states are replaced in place."""
         x = self._embed_in(params, tokens[:, None])
-        for i, p in enumerate(params["layers"]):
+        for i, p in enumerate(_layers(params)):
             h = self._norm(x, p["norm"])
             y, st = ssm_lib.mamba2_block_decode(
                 h[:, 0], {"conv": cache["conv"][i], "ssm": cache["ssm"][i]},
@@ -853,7 +883,7 @@ class Transformer:
         slot = (pos % cache["k"].shape[2]).long()
         rows = _batch_rows(cache["k"])
         i_local = i_rec = 0
-        for kind, p in zip(self.kinds, params["layers"]):
+        for kind, p in zip(self.kinds, _layers(params)):
             if kind == "local":
                 k_cache, v_cache = cache["k"][i_local], cache["v"][i_local]
                 q, k, v = self._attn_qkv(x, p, rope_cs)
@@ -887,7 +917,7 @@ class Transformer:
         s = x.shape[1]
         rope_cs = self._rope(torch.arange(s, device=x.device)[None, :])
         ks, vs, convs, hs = [], [], [], []
-        for kind, p in zip(self.kinds, params["layers"]):
+        for kind, p in zip(self.kinds, _layers(params)):
             if kind == "local":
                 q, k, v = self._attn_qkv(x, p, rope_cs)
                 ctx = self._attend(q, k, v, prefill=max_len is not None, causal=True,
@@ -933,7 +963,7 @@ class Transformer:
         rope_cs = self._rope(pos[:, None])
         page = tables.gather(1, (pos // pt).long()[:, None])[:, 0].long()
         off = (pos % pt).long()
-        for i, p in enumerate(params["layers"]):
+        for i, p in enumerate(_layers(params)):
             q, k, v = self._attn_qkv(x, p, rope_cs)
             _write_pages(k_pages, i, page, off, k[:, 0])
             _write_pages(v_pages, i, page, off, v[:, 0])
@@ -983,7 +1013,7 @@ class Transformer:
             return self.logits(params, _last_hidden(x, pos, true_len))[:, 0, :], cache
         if self.kind == "mamba2":
             states = []
-            for p in params["layers"]:
+            for p in _layers(params):
                 x, st = self._mamba2_layer(x, p)
                 states.append(st)
             cache = {"pos": pos,
@@ -1009,7 +1039,7 @@ class Transformer:
             cache["xv"] = self._cache_leaf("xv", xs, x.device, zero=False)
         n = min(s, max_len)
         cross = ()
-        for i, p in enumerate(params["layers"]):
+        for i, p in enumerate(_layers(params)):
             q, k, v = self._attn_qkv(x, p, rope_cs)
             ctx = self._attend(q, k, v, prefill=True, causal=True)
             if enc is not None:
@@ -1032,7 +1062,7 @@ class Transformer:
             x, _ = self._hybrid_layers(params, x)
             return self.logits(params, self._norm(x, params["final_norm"]))
         if self.kind == "mamba2":
-            for p in params["layers"]:
+            for p in _layers(params):
                 x, _ = self._mamba2_layer(x, p)
             return self.logits(params, self._norm(x, params["final_norm"]))
         rope_cs = self._rope(torch.arange(tokens.shape[1],
@@ -1040,7 +1070,7 @@ class Transformer:
         enc = (self._encode(params, self._frames(frames, "forward"))
                if self.kind == "xattn" else None)
         cross = ()
-        for p in params["layers"]:
+        for p in _layers(params):
             q, k, v = self._attn_qkv(x, p, rope_cs)
             ctx = self._attend(q, k, v, causal=True)
             if enc is not None:

@@ -161,13 +161,115 @@ def distribute(x: torch.Tensor, mesh, spec: Sequence):
     """``x`` as a DTensor with ``spec``'s placements on ``mesh``: a DTensor
     is redistributed; a plain tensor, the same on every rank (a constant, a
     full tensor), is taken as replicated and cut locally, with no
-    communication."""
+    communication.  Its gradient comes back in the placements it had
+    (``pin``), as the transpose of a sharding constraint constrains the
+    cotangent."""
     want = placements(spec, mesh)
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
     if tuple(x.placements) == want:
-        return x
+        return pin(x)
     return x.redistribute(mesh, want)
+
+
+def pin(x):
+    """``x``; a DTensor that needs a gradient gets it back in the placements
+    it has (a redistribution to them).  DTensor places a gradient as its
+    cheapest product falls, and a view's backward may then be asked to
+    unflatten an uneven split (a (d, heads * hd) weight's gradient split
+    over 16 ranks where its 14 heads are whole): pinned, the backward view
+    inverts the forward's."""
+    if isinstance(x, DTensor) and x.requires_grad:
+        return x.redistribute(x.device_mesh, x.placements)
+    return x
+
+
+def _with_specs(tree, specs):
+    """``(leaf, spec)`` of each tensor of ``tree``, in order, with the spec
+    at the same place in ``specs`` (a spec stands for a whole subtree, as
+    in ``sharding_rules.distribute_tree``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _with_specs(v, specs if isinstance(specs, PartitionSpec) else specs[k])
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _with_specs(v, specs if isinstance(specs, PartitionSpec) else specs[i])
+    else:
+        yield tree, specs
+
+
+def _refill(tree, leaves):
+    """``tree`` with its tensors replaced, in order, from iterator ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _refill(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_refill(v, leaves) for v in tree)
+    return next(leaves)
+
+
+def _to_local(out):
+    if isinstance(out, DTensor):
+        return out.to_local()
+    if isinstance(out, dict):
+        return {k: _to_local(v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_to_local(v) for v in out)
+    return out
+
+
+def on_local_shards(step, trees: Sequence, specs: Sequence, mesh, mode):
+    """``step(*trees)`` as a function of this rank's local shards, for
+    ``make_fx`` over a mesh: returns ``(fn, shards)``.
+
+    ``trees`` hold global fake tensors of ``mode`` (shapes, no memory),
+    ``specs`` their PartitionSpecs.  ``shards`` are this rank's local
+    shards of every leaf, made in ``mode``; ``fn(*shards)`` rebuilds each
+    leaf as a DTensor (``DTensor.from_local`` with the global shape and
+    stride: a shard may be uneven) inside the traced function, calls
+    ``step`` and returns its outputs with every DTensor as its local
+    tensor.  Traced so, the graph's placeholders are the local shards and
+    every op hangs off them; a DTensor given to the traced function itself
+    would enter its graph as a lifted constant."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    shards, metas = [], []
+    for tree, spec in zip(trees, specs):
+        for leaf, sp in _with_specs(tree, spec):
+            pl = placements(sp, mesh)
+            local, _ = compute_local_shape_and_global_offset(tuple(leaf.shape), mesh, pl)
+            with mode:
+                shards.append(torch.empty(local, dtype=leaf.dtype, device=leaf.device))
+            metas.append((pl, leaf.shape, leaf.stride()))
+
+    def fn(*local):
+        it = iter(DTensor.from_local(x, mesh, pl, run_check=False, shape=shape, stride=stride)
+                  for x, (pl, shape, stride) in zip(local, metas))
+        return _to_local(step(*[_refill(tree, it) for tree in trees]))
+    return fn, shards
+
+
+def gather_fsdp(tree):
+    """``tree`` with each DTensor leaf whole over the ``data`` mesh axis,
+    which FSDP splits a weight's d_model over (``sharding_rules``): the
+    gather at a weight's use that GSPMD makes for a weight split over the
+    axis the batch is split over.  Left to its own costs, DTensor gathers
+    the activations over ``data`` for some products instead, which at a
+    training batch moves more bytes than the weights.  The gradient comes
+    back reduce-scattered.  ``tree`` itself without a mesh."""
+    mesh = _CTX["mesh"]
+    if mesh is None or "data" not in axis_names(mesh):
+        return tree
+    j = axis_names(mesh).index("data")
+
+    def one(x):
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(one(v) for v in x)
+        if not isinstance(x, DTensor) or not isinstance(x.placements[j], Shard):
+            return x
+        return x.redistribute(x.device_mesh, [Replicate() if i == j else p
+                                              for i, p in enumerate(x.placements)])
+    return one(tree)
 
 
 def shard(x, *logical_axes: Optional[str]):
@@ -189,7 +291,9 @@ def run_local(fn, args: Sequence, in_axes: Sequence, out: Sequence):
     else a tuple): the outputs come back as DTensors with those placements.
     This is how a kernel, whose wrapper takes plain tensors only, runs on a
     sharded tensor, and how a region of irregular indexing runs on the
-    rows and heads each rank holds."""
+    rows and heads each rank holds.  An entry of ``in_axes`` or ``out`` may
+    be a ``PartitionSpec`` in place of logical axes: mesh axes, as they
+    are."""
     mesh = _CTX["mesh"]
     if mesh is None:
         return fn(*args)
@@ -200,12 +304,13 @@ def run_local(fn, args: Sequence, in_axes: Sequence, out: Sequence):
             ins.append(None)
             placed.append(a)
             continue
-        x = shard(a, *ax)
+        x = distribute(a, mesh, ax) if isinstance(ax, PartitionSpec) else shard(a, *ax)
         ins.append(tuple(x.placements))
         placed.append(x)
     # local_map reads a tuple as one entry per output: each output's
     # placements go in as a list
-    outs = [list(placements(spec_for(*ax, mesh=mesh, dims=tuple(shape)), mesh))
+    outs = [list(placements(ax if isinstance(ax, PartitionSpec)
+                            else spec_for(*ax, mesh=mesh, dims=tuple(shape)), mesh))
             for ax, shape in out]
     # an input whole on a mesh dim that splits the work (some input or
     # output is sharded there) gets one partial gradient from each rank

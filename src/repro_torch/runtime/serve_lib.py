@@ -108,7 +108,7 @@ class PrefillStep:
             return self.model.prefill(params, batch, max_len=self.max_len)
         mesh = self.mesh
         with mesh_ctx.use_mesh(mesh, rules=self.model.opts.mesh_rules()):
-            arrays = {k: mesh_ctx.whole(v) for k, v in batch.items() if k != "true_len"}
+            arrays = {k: v for k, v in batch.items() if k != "true_len"}
             specs = sharding_rules.batch_specs(arrays, mesh)
             placed = {k: mesh_ctx.distribute(v, mesh, specs[k]) for k, v in arrays.items()}
             if "true_len" in batch:
@@ -271,15 +271,55 @@ def _mesh_decode(model, mesh, shard_cache_len: bool, trace_hook):
                 trace_hook(tokens)
         with mesh_ctx.use_mesh(mesh, rules=model.opts.mesh_rules()):
             place_cache(cache, mesh, rules)
-            tok = mesh_ctx.whole(tokens)
-            spec = sharding_rules.batch_specs({"tokens": tok}, mesh)["tokens"]
+            spec = sharding_rules.batch_specs({"tokens": tokens}, mesh)["tokens"]
             logits, new = model.decode_step(params, cache,
-                                            mesh_ctx.distribute(tok, mesh, spec))
+                                            mesh_ctx.distribute(tokens, mesh, spec))
             for name, leaf in new.items():
                 if leaf is not cache[name]:
                     cache[name].copy_(leaf)
             return mesh_ctx.whole(logits), cache
     return decode
+
+
+def abstract_sharded_prefill(model, mesh, mode, batch_sds: dict,
+                             max_len: Optional[int] = None):
+    """``build_prefill_step``'s step over ``mesh`` as a function of this
+    rank's local shards, for a dry run's ``make_fx``: ``(fn, shards)``
+    (``mesh_ctx.on_local_shards``), the served weights (``model.load`` of
+    ``model.abstract``) under ``param_specs``, the batch (``{name: (shape,
+    dtype)}``) under ``batch_specs``; fake tensors of ``mode``."""
+    from .train_lib import _fake_batch
+    step = build_prefill_step(model, mesh, max_len=max_len, graphs=False)
+    params, batch = _abstract_served(model, mode), _fake_batch(mode, batch_sds, model.device)
+    return mesh_ctx.on_local_shards(
+        step, (params, batch), (sharding_rules.param_specs(model.schema(), mesh),
+                                sharding_rules.batch_specs(batch, mesh)), mesh, mode)
+
+
+def abstract_sharded_decode(model, mesh, mode, batch: int, max_len: int,
+                            shard_cache_len: bool = False):
+    """``build_decode_step``'s step over ``mesh`` as a function of this
+    rank's local shards: ``(fn, shards)``, the served weights under
+    ``param_specs``, the cache (``model.cache_spec``) under ``cache_specs``
+    (its length over the model axis with ``shard_cache_len``) and the
+    (batch,) tokens under ``batch_specs``; fake tensors of ``mode``."""
+    from .train_lib import _fake_batch
+    step = build_decode_step(model, mesh, shard_cache_len=shard_cache_len, graphs=False)
+    params = _abstract_served(model, mode)
+    cache = _fake_batch(mode, model.cache_spec(batch, max_len), model.device)
+    tokens = _fake_batch(mode, {"tokens": ((batch,), torch.int32)}, model.device)["tokens"]
+    rules = {"cache": ("model",)} if shard_cache_len else None
+    return mesh_ctx.on_local_shards(
+        step, (params, cache, tokens),
+        (sharding_rules.param_specs(model.schema(), mesh),
+         sharding_rules.cache_specs(cache, mesh, rules),
+         sharding_rules.batch_specs({"tokens": tokens}, mesh)["tokens"]), mesh, mode)
+
+
+def _abstract_served(model, mode):
+    params = model.abstract(mode)
+    with mode:
+        return model.load(params)
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:

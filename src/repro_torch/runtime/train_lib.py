@@ -272,7 +272,6 @@ def build_train_step(model: Transformer, mesh, adamw_cfg: adamw.AdamWConfig,
     def place(mb):
         if mesh is None:
             return mb
-        mb = {k: mesh_ctx.whole(v) for k, v in mb.items()}
         specs = sharding_rules.batch_specs(mb, mesh)
         return {k: mesh_ctx.distribute(v, mesh, specs[k]) for k, v in mb.items()}
 
@@ -317,3 +316,17 @@ def build_train_step(model: Transformer, mesh, adamw_cfg: adamw.AdamWConfig,
 
     return sharded_step, (state_shardings(model, mesh, opts),
                           lambda batch_shapes: sharding_rules.batch_specs(batch_shapes, mesh))
+
+
+def abstract_sharded_step(model: Transformer, mesh, mode: FakeTensorMode,
+                          adamw_cfg: adamw.AdamWConfig, opts: TrainOpts, batch_sds: dict):
+    """``build_train_step``'s step over ``mesh`` as a function of this
+    rank's local shards, for a dry run's ``make_fx``: returns ``(fn,
+    shards)`` (``mesh_ctx.on_local_shards``).  The shards are fake tensors
+    of ``mode``: each train-state leaf's under ``state_shardings``, each
+    batch leaf's (``{name: (shape, dtype)}``) under ``batch_specs``."""
+    step, (st_specs, batch_specs_fn) = build_train_step(model, mesh, adamw_cfg, opts)
+    state = abstract_state(model, mode, adamw_cfg, opts)
+    batch = _fake_batch(mode, batch_sds, model.device)
+    return mesh_ctx.on_local_shards(step, (state, batch), (st_specs, batch_specs_fn(batch)),
+                                    mesh, mode)

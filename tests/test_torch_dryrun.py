@@ -201,22 +201,6 @@ def test_the_decode_step_updates_its_cache_in_place():
 def test_one_card_mesh():
     one = mesh.make_production_mesh()
     assert mesh.describe(one) == {"axes": {"data": 1, "model": 1}, "n_devices": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: the dry run over a mesh"):
-        mesh.make_production_mesh(multi_pod=True)
-
-
-@pytest.mark.parametrize("flag", ["--cp-attention", "--moe-grouped", "--sp-residual",
-                                  "--ssd-shard-p", "--shard-cache-len"])
-def test_mesh_only_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: the dry run over a mesh"):
-        dryrun.main(["--device", "cpu", "--arch", "qwen2-0.5b", "--shape", "decode_32k",
-                     "--out", str(tmp_path), flag])
-
-
-@pytest.mark.parametrize("mesh_arg", ["multi", "both"])
-def test_multi_meshes_raise(mesh_arg, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: the dry run over a mesh"):
-        dryrun.main(["--device", "cpu", "--mesh", mesh_arg, "--out", str(tmp_path)])
 
 
 def test_kernel_paths_are_refused():
