@@ -31,6 +31,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      PyTorch), the plain version log-depth.  ``[moe]``: the MoE FFN on the
      card against the same function on the CPU in f32 (``moe_cases``):
      routing and dispatch exact, y max-abs 1e-5, aux 1e-6 of max(1, |aux|);
+     then ``[shapes]`` (``shapes_phase``): the three kernels at the padded
+     instances, each case against its plain version with its phase's
+     tolerance and timed beside its bound, plain and SDPA times (flash D =
+     16, 40, 80, 96, 112, 160 and the unpadded 64 and 128 at 32 heads over
+     8; paged decode hd = 16, 80, 96, 256 and 64, 128 at 8 kv heads of 4;
+     SSD (P, N, G) = (16, 16, 1), (64, 64, 1), (32, 64, 2), (64, 128, 8),
+     (64, 256, 1) at 24 heads), then the serving CLI's own path,
+     ``launch.serve.main --arch mamba2-130m`` at ``--preset tiny``, ``20m``
+     and ``100m`` (SSD at P = 64, N = 64; runner and graphs on), each held
+     to the same engine on the plain versions' token streams, and
+     qwen2-0.5b's ``smoke()`` config (head dim 16) served like phase 4's
+     models, paged decode and flash prefill;
   4. serve full-width qwen2-0.5b (24 layers, bf16, seeded random weights)
      through the port's ``ServeEngine`` with paged decode and flash prefill,
      and check that path against its plain version on a small f32 input;
@@ -413,14 +425,16 @@ def check(name, err, dtype):
 
 
 def paged_cases(torch, ops, ref, pt: int, kv: int, group: int, hd: int, layers: int,
-                seed: int, bf16_batches=(1, 3, 8)):
+                seed: int, bf16_batches=(1, 3, 8), pos_range=(100, 631),
+                tag: str = "[paged]"):
     """Paged decode at the engine's pool geometry for a model's head layout
     (``kv`` heads of ``group`` query rows, head dim ``hd``): fragmented
     non-monotonic page tables, partial last pages, zero-padded table tails;
     ``layers`` layer pools cycled so every launch reads K/V from HBM, as
     decode does.  The timed cases run at ``bf16_batches`` (positions drawn
-    from 100-631 up to B=8 and from the whole table past it, as the load
-    cells' batches of up to 32 reach) and at B=8 in f32.  Besides them, B=1,
+    from ``pos_range``, 100-631 by default, up to B=8 and from the whole
+    table past it, as the load cells' batches of up to 32 reach) and at B=8
+    in f32.  Besides them, B=1,
     3 and 8 at positions on and across the split-KV kernel's 64-token chunk
     edges, position 0 and the table's last token.  Every case is called
     twice in a row (the completion counters must reset)."""
@@ -432,7 +446,7 @@ def paged_cases(torch, ops, ref, pt: int, kv: int, group: int, hd: int, layers: 
     out, worst = {}, {}
     last = maxp * pt - 1
     edges = ([0], [63, 64, 65], [0, 1, 63, 64, 127, 128, last, 500])
-    tag = f"hd={hd} KV={kv} G={group}"
+    lay = f"hd={hd} KV={kv} G={group}"
     for dtype_name, batches in (("bfloat16", bf16_batches), ("float32", (8,))):
         dt = getattr(torch, dtype_name)
         kp = torch.randn(layers, n_pages, pt, kv, hd, generator=g, device="cuda").to(dt)
@@ -453,17 +467,17 @@ def paged_cases(torch, ops, ref, pt: int, kv: int, group: int, hd: int, layers: 
                 got = ops.paged_attention(q, kp[0], vp[0], tables, positions)
                 torch.cuda.synchronize()
                 errs.append((got.float() - want.float()).abs().max().item())
-                check(f"paged {tag} B={b} {dtype_name} positions {pos}", errs[-1],
+                check(f"paged {lay} B={b} {dtype_name} positions {pos}", errs[-1],
                       dtype_name)
             worst[dtype_name] = max(worst.get(dtype_name, 0.0), *errs)
             return q, tables, positions, max(errs)
 
         for pos in edges:
             err = case(pos)[-1]
-            print(f"[paged] {tag} edge B={len(pos)} {dtype_name} pt={pt} pos={pos} "
+            print(f"{tag} {lay} edge B={len(pos)} {dtype_name} pt={pt} pos={pos} "
                   f"max_abs_err={err:.3g} (two calls in a row)", flush=True)
         for b in batches:
-            pos = [rng.randint(100, 631) if b <= MAX_BATCH else rng.randint(0, last)
+            pos = [rng.randint(*pos_range) if b <= MAX_BATCH else rng.randint(0, last)
                    for _ in range(b)]
             q, tables, positions, err = case(pos)
             calls = itertools.count()
@@ -488,7 +502,7 @@ def paged_cases(torch, ops, ref, pt: int, kv: int, group: int, hd: int, layers: 
             bms, by = bound_ms(n_bytes, 4 * hd * kv * group * tok, dtype_name)
             out[(dtype_name, b)] = dict(err=err, ms=k_ms, plain_ms=p_ms,
                                         sdpa_ms=s_ms, bound_ms=bms, bound_by=by)
-            print(f"[paged] {tag} B={b} {dtype_name} pt={pt} pos={pos} "
+            print(f"{tag} {lay} B={b} {dtype_name} pt={pt} pos={pos} "
                   f"max_abs_err={err:.3g} kernel_ms={k_ms:.4f} "
                   f"wrapper_call_ms={k_call:.4f} "
                   f"plain_ms={p_ms:.4f} sdpa_gathered_ms={s_ms:.4f} "
@@ -506,7 +520,7 @@ def attention_pairs(sq: int, sk: int, q_off: int, window: int, causal: bool = Tr
 
 
 def flash_cases(torch, ops, ref, h: int, kv: int, d: int, cases, seed: int,
-                iters: int = 20):
+                iters: int = 20, tag: str = "[flash]"):
     """Flash prefill at a model's head layout against its plain version,
     timed beside SDPA: ``cases`` are (dtype, Sq, window, q_offset[, causal,
     B]), causal at B=1 unless the case says otherwise, and each case is its
@@ -549,7 +563,7 @@ def flash_cases(torch, ops, ref, h: int, kv: int, d: int, cases, seed: int,
         bms, by = bound_ms(n_bytes, 4 * d * h * pairs, dtype_name)
         out[case] = dict(
             err=err, ms=k_ms, plain_ms=p_ms, sdpa_ms=s_ms, bound_ms=bms, bound_by=by)
-        print(f"[flash] D={d} H={h} KV={kv} B={b} Sq={sq} Sk={sk} causal={causal} "
+        print(f"{tag} D={d} H={h} KV={kv} B={b} Sq={sq} Sk={sk} causal={causal} "
               f"window={window} q_offset={q_off} {dtype_name} max_abs_err={err:.3g} "
               f"kernel_ms={k_ms:.4f} wrapper_call_ms={k_call:.4f} "
               f"plain_ms={p_ms:.4f} sdpa_ms={s_ms:.4f} bound_ms={bms:.5f} ({by})",
@@ -644,25 +658,30 @@ def ssd_flops(b, s, h, p, g, n) -> float:
     return 2.0 * b * s * (g * n + h * p * (1 + 2 * n))
 
 
-def ssd_cases(torch, ops, ssd, ssm, ref):
+SSD_LENGTHS = ((1, 37), (1, 256), (1, 512), (1, 600), (1, 1024), (2, 1024))
+
+
+def ssd_cases(torch, ops, ssd, ssm, ref, h: int = 24, layout=(64, 128, 1),
+              lengths=SSD_LENGTHS, seed: int = SEED + 4, tag: str = "[ssd]"):
     """The SSD kernels (three launches a call) against the plain chunked
-    scan at mamba2-130m's widths (H=24, P=64, N=128, G=1): serving prompt
-    lengths with ragged last chunks, one longer prompt and a batch of two;
-    B/C in bf16 (the model's compute dtype) and f32.  The bound is the f32
-    one (the result is f32-accurate); beside it, the bound of the datapath
-    the kernels use, split TF32 (``tf32x3``)."""
-    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    h, p, n = 24, 64, 128
+    scan at H heads of ``layout`` = (P, N, G), mamba2-130m's widths (H=24,
+    P=64, N=128, G=1) by default: serving prompt lengths with ragged last
+    chunks, one longer prompt and a batch of two; B/C in bf16 (the model's
+    compute dtype) and f32.  The bound is the f32 one (the result is
+    f32-accurate); beside it, the bound of the datapath the kernels use,
+    split TF32 (``tf32x3``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p, n, grp = layout
     out, worst = {}, {}
     for dtype_name in ("bfloat16", "float32"):
         dt_ = getattr(torch, dtype_name)
-        for b, s in ((1, 37), (1, 256), (1, 512), (1, 600), (1, 1024), (2, 1024)):
+        for b, s in lengths:
             x = torch.randn(b, s, h, p, generator=g, device="cuda")
             dt = torch.nn.functional.softplus(
                 torch.randn(b, s, h, generator=g, device="cuda") - 1.0)
             a_log = torch.linspace(-3.0, 1.0, h, device="cuda")
-            bm = torch.randn(b, s, 1, n, generator=g, device="cuda").to(dt_)
-            cm = torch.randn(b, s, 1, n, generator=g, device="cuda").to(dt_)
+            bm = torch.randn(b, s, grp, n, generator=g, device="cuda").to(dt_)
+            cm = torch.randn(b, s, grp, n, generator=g, device="cuda").to(dt_)
             d = torch.randn(h, generator=g, device="cuda")
             y, hf = ops.ssd_scan(x, dt, a_log, bm, cm, d, chunk=256)
             wy, wh = ssm.ssd_chunked(x, dt, a_log, bm, cm, d, chunk=256)
@@ -675,7 +694,7 @@ def ssd_cases(torch, ops, ssd, ssm, ref):
                   and err_y <= SSD_REL_TOL * scale_y and err_h <= SSD_REL_TOL * scale_h)
             if not ok:
                 raise AssertionError(
-                    f"ssd B={b} S={s} {dtype_name}: max_abs_err y {err_y:.3g} "
+                    f"ssd B={b} S={s} P={p} N={n} G={grp} {dtype_name}: max_abs_err y {err_y:.3g} "
                     f"(max|y| {scale_y:.3g}), h {err_h:.3g} (max|h| {scale_h:.3g}) "
                     f"> {SSD_REL_TOL} of the scale")
             worst[dtype_name] = max(worst.get(dtype_name, 0.0), err_y)
@@ -686,17 +705,145 @@ def ssd_cases(torch, ops, ssd, ssm, ref):
                               iters=5)
             n_bytes = (2 * 4 * x.numel() + 4 * dta.numel() + 2 * bm.numel() * bm.element_size()
                        + 4 * hf.numel())
-            bms, by = bound_ms(n_bytes, ssd_flops(b, s, h, p, 1, n), "float32")
-            tms, tby = bound_ms(n_bytes, ssd_flops(b, s, h, p, 1, n), "tf32x3")
+            bms, by = bound_ms(n_bytes, ssd_flops(b, s, h, p, grp, n), "float32")
+            tms, tby = bound_ms(n_bytes, ssd_flops(b, s, h, p, grp, n), "tf32x3")
             out[(dtype_name, b, s)] = dict(err=err_y, err_h=err_h, ms=k_ms, plain_ms=p_ms,
                                            bound_ms=bms, bound_by=by, tf32x3_bound_ms=tms)
-            print(f"[ssd] B={b} S={s} H={h} P={p} N={n} G=1 B/C {dtype_name} "
+            print(f"{tag} B={b} S={s} H={h} P={p} N={n} G={grp} B/C {dtype_name} "
                   f"max_abs_err y={err_y:.3g} (max|y| {scale_y:.3g}) h={err_h:.3g} "
                   f"(max|h| {scale_h:.3g}) tol={SSD_REL_TOL} of max "
                   f"kernel_ms={k_ms:.4f} wrapper_call_ms={k_call:.4f} "
                   f"plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
                   f"tf32x3_bound_ms={tms:.5f} ({tby})", flush=True)
     return out, worst
+
+
+# [shapes]: the kernels at shapes of the reference's own reduced configs and
+# of public architectures with such head dims, named for their shapes only:
+# phi-2 (D = 80, 32 heads), Phi-3-mini (D = 96, 32 heads), Codestral Mamba
+# (P = 64, N = 128, G = 8); D and hd 64 and 128 are the unpadded baselines
+SHAPES_FLASH_DIMS = (16, 40, 64, 80, 96, 112, 128, 160)
+SHAPES_PAGED_DIMS = (16, 64, 80, 96, 128, 256)
+SHAPES_SSD = ((16, 16, 1), (64, 64, 1), (32, 64, 2), (64, 128, 8), (64, 256, 1))
+SHAPES_PRESETS = ("tiny", "20m", "100m")
+
+
+def margin_at(torch, model, params, prompt, stream, i: int) -> float:
+    """The top-2 logit gap of ``model`` at the ``i``-th generated token of
+    ``stream`` after ``prompt``: how near a tie the token was."""
+    toks = torch.cat([prompt, torch.tensor(stream[:i], dtype=torch.int32)])
+    with torch.no_grad():
+        logits = model.forward(params, toks[None].to(model.device))[0, -1].float()
+    top = logits.topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def cli_serve_case(torch, ops, Transformer, RunOpts, card: str, argv: list, tag: str):
+    """``launch.serve.main(argv)`` on the card, the CLI's own path, with its
+    serving loop driven through ``serve_path`` (launch counters set to 0
+    just before the run and read just after; the mamba2 presets' prefills
+    must each launch the SSD kernel once a layer), then the same engine
+    settings, weights and requests on the plain versions
+    (``RunOpts(attention_impl="full", use_kernels=False)``, f32 like the
+    presets): the token streams must be equal.  Where they differ, the
+    first divergence is printed with both models' top-2 logit gap there,
+    and the run fails.  Returns the kernel run (``serve_path``'s dict)."""
+    from repro_torch.launch import serve as serve_cli
+    seen = {}
+
+    def drive(eng, live):
+        layers = eng.model.cfg.n_layers
+        seen["live"] = live
+        seen["run"] = serve_path(torch, ops, eng, live, lambda steps, prefills: {
+            "flash_attention": 0, "paged_attention": 0, "ssd_scan": layers * prefills,
+            "rglru_scan": 0}, card, tag)
+        return seen["run"]["summary"]
+    eng = serve_cli.main(argv, run=drive)
+    run, cfg = seen["run"], eng.model.cfg
+    plain_model = Transformer(cfg, RunOpts(attention_impl="full", use_kernels=False))
+    args = serve_cli.parse_args(argv)
+    plain = serve_cli.make_engine(args, plain_model, eng.params,
+                                  serve_cli.sample_trace(args))
+    ops.reset_launches()
+    plain.run(seen["live"])
+    plain_launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    where = first_divergence(plain.completed, run["completed"])
+    same = sum(plain.completed[r] == run["completed"].get(r) for r in plain.completed)
+    print(f"[shapes] {tag} {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.ssm_heads} SSD heads of P={cfg.ssm_head_dim} N={cfg.ssm_state} "
+          f"G={cfg.ssm_groups}, {cfg.dtype}): kernel launches {run['launches']}, "
+          f"token streams equal to the plain versions' for {same}/{len(plain.completed)} "
+          f"requests (plain run's launches {plain_launches}) | {card}", flush=True)
+    if where is not None or any(plain_launches.values()):
+        if where is not None:
+            rid, i = where
+            prompt = next(r.prompt for r in seen["live"] if r.rid == rid)
+            gaps = [margin_at(torch, m, eng.params, prompt, plain.completed[rid], i)
+                    for m in (eng.model, plain_model)]
+            print(f"[shapes] {tag} first_divergence rid {rid} token {i}: plain "
+                  f"{plain.completed[rid][i:i + 4]} kernels {run['completed'][rid][i:i + 4]}; "
+                  f"top-2 logit gap there: kernels {gaps[0]:.3g}, plain {gaps[1]:.3g}",
+                  flush=True)
+        raise AssertionError(f"{tag}: streams differ at {where} or the plain run "
+                             f"launched {plain_launches}")
+    return run
+
+
+def shapes_phase(torch, ops, ref, ssd, ssm, Transformer, RunOpts, ServeEngine,
+                 card: str) -> dict:
+    """``[shapes]``: the three kernels at the head dims and SSD shapes the
+    reference's reduced configs reach and at public layouts that have them,
+    each case against its plain version with the tolerance of its own
+    phase, timed beside its bound, its plain version and (flash) SDPA;
+    then the serving CLI's own path, ``launch.serve.main --arch
+    mamba2-130m`` at ``--preset tiny``, ``20m`` and ``100m`` (runner and
+    graphs on; SSD at P=64 N=64), and qwen2-0.5b's ``smoke()`` config
+    (head dim 16) served with paged decode and flash prefill the way
+    ``dense_phase`` serves a registered model.  Returns the cases' results
+    and the serving runs' launches."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    out = {"flash": {}, "paged": {}, "ssd": {}, "worst": {}}
+    for i, d in enumerate(SHAPES_FLASH_DIMS):
+        cases = [(dt, 512, 0, 0) for dt in ("bfloat16", "float32")]
+        if d == 96:
+            cases += [(dt, 1024, 0, 0) for dt in ("bfloat16", "float32")]
+        if d == 16:
+            cases += [(dt, 512, 8, 64) for dt in ("bfloat16", "float32")]
+        if d == 80:
+            cases += [(dt, 512, 0, 0, False, 1) for dt in ("bfloat16", "float32")]
+        res, worst = flash_cases(torch, ops, ref, 32, 8, d, cases, SEED + 90 + i, iters=10,
+                                 tag="[shapes] flash")
+        out["flash"].update({(d, *case): r for case, r in res.items()})
+        out["worst"][f"flash_d{d}"] = worst
+    for i, hd in enumerate(SHAPES_PAGED_DIMS):
+        res, worst = paged_cases(torch, ops, ref, 16, 8, 4, hd, 16, SEED + 110 + i,
+                                 bf16_batches=(8,), pos_range=(1, MAX_LEN - 1),
+                                 tag="[shapes] paged")
+        out["paged"].update({(hd, *key): r for key, r in res.items()})
+        out["worst"][f"paged_hd{hd}"] = worst
+    for i, layout in enumerate(SHAPES_SSD):
+        lengths = ((1, 512), (1, 37)) if layout == (64, 64, 1) else ((1, 512),)
+        res, worst = ssd_cases(torch, ops, ssd, ssm, ref, h=24, layout=layout,
+                               lengths=lengths, seed=SEED + 130 + i, tag="[shapes] ssd")
+        out["ssd"].update({(*layout, *key): r for key, r in res.items()})
+        out["worst"][f"ssd_p{layout[0]}_n{layout[1]}_g{layout[2]}"] = worst
+    kernel_s = time.perf_counter() - t0
+    runs = {}
+    for preset in SHAPES_PRESETS:
+        runs[f"mamba2:{preset}"] = cli_serve_case(
+            torch, ops, Transformer, RunOpts, card,
+            ["--arch", SSM_ARCH, "--preset", preset], f"cli:mamba2:{preset}")["launches"]
+        free_cuda(torch)
+    runs["qwen2:smoke"] = dense_phase(
+        torch, ops, Transformer, RunOpts, ServeEngine, ARCH, "qwen2:smoke", card,
+        cfg=get_config(ARCH).smoke())["launches"]
+    launches = {fn.__name__: sum(r[fn.__name__] for r in runs.values())
+                for fn in ops.WRAPPERS}
+    print(f"[shapes] launches {json.dumps(runs)}", flush=True)
+    print(f"[shapes] took {time.perf_counter() - t0:.1f}s (kernel cases {kernel_s:.1f}s, "
+          f"serving paths {time.perf_counter() - t0 - kernel_s:.1f}s) | {card}", flush=True)
+    return dict(out, launches=launches, runs=runs)
 
 
 def serve_trace(cfg, torch, n: int, seed: int, long_rids=()):
@@ -919,7 +1066,7 @@ def same_streams(torch, small, variants, Transformer, ServeEngine, what: str, *,
 
 
 def dense_phase(torch, ops, Transformer, RunOpts, ServeEngine, arch: str, tag: str,
-                card: str, mode: str = "paged", on_cpu: bool = False) -> dict:
+                card: str, mode: str = "paged", on_cpu: bool = False, cfg=None) -> dict:
     """``[serve:<tag>]``: a registered dense or MoE decoder at full width and
     depth (seeded random bf16 weights drawn leaf by leaf) serving the
     12-request trace with flash prefill and ``mode`` decode, eagerly and then
@@ -932,9 +1079,11 @@ def dense_phase(torch, ops, Transformer, RunOpts, ServeEngine, arch: str, tag: s
     plain one (``same_streams``; paged+kernels vs gather+plain, or
     gather+kernel vs gather+full), and with ``on_cpu`` on the CPU too.
     Nothing falls back: an out-of-memory error in the load or the serve
-    fails the run.  Returns the graph run (``serve_path``'s dict)."""
+    fails the run.  ``cfg`` (default: the registered config of ``arch``)
+    serves another config of the family.  Returns the graph run
+    (``serve_path``'s dict)."""
     from repro_torch.configs import get_config
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     trace, live = serve_trace(cfg, torch, N_REQUESTS, SEED)
     model, params = load_model(torch, Transformer, cfg, RunOpts(attention_impl="kernel"),
                                SEED, tag)
@@ -2688,21 +2837,26 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    for i, launch in enumerate(ssd.LAUNCHES):
-        smem_src = build.library("ssd_scan").ssd_scan_smem_bytes(i)
-        smem_py = MemoryPlanner.smem_footprint(ssd.smem_blocks(launch))
-        print(f"[build] ssd_scan launch {i} ({launch}) dynamic shared memory {smem_src} "
-              f"B per CTA (check_smem working set {smem_py} B)")
+    # mamba2-130m's (P, N) = (64, 128), then the reduced presets' (64, 64),
+    # the width-256 instance and smoke()'s (16, 16)
+    for (p, n), (i, launch) in itertools.product(((64, 128), (64, 64), (64, 256), (16, 16)),
+                                                 enumerate(ssd.LAUNCHES)):
+        smem_src = build.library("ssd_scan").ssd_scan_smem_bytes(i, p, n)
+        smem_py = MemoryPlanner.smem_footprint(ssd.smem_blocks(launch, p, n))
+        print(f"[build] ssd_scan P={p} N={n} (instance {ssd.instance(p, n, 1, 1)}) launch "
+              f"{i} ({launch}) dynamic shared memory {smem_src} B per CTA (check_smem "
+              f"working set {smem_py} B)")
         if smem_src != smem_py:
-            raise AssertionError(f"ssd_scan.smem_blocks({launch!r}) disagrees with csrc "
-                                 "ssd_scan_smem_bytes")
-    for d, (dt, code) in itertools.product(fa.HEAD_DIMS, fa.DTYPE_CODES.items()):
+            raise AssertionError(f"ssd_scan.smem_blocks({launch!r}, {p}, {n}) disagrees "
+                                 "with csrc ssd_scan_smem_bytes")
+    for d, (dt, code) in itertools.product((16, 64, 80, 128, 160, 256),
+                                           fa.DTYPE_CODES.items()):
         smem_src = build.library("flash_attention").flash_attention_smem_bytes(d, code)
         smem_py = MemoryPlanner.smem_footprint(fa.smem_blocks(d, dt))
-        static = dt == torch.float32 and d < fa.WIDE
-        print(f"[build] flash_attention D={d} {dt} shared memory {smem_src} B per CTA "
-              f"({'static' if static else 'dynamic'}; check_smem working set "
-              f"{smem_py} B)")
+        static = dt == torch.float32 and fa.instance(d) < fa.WIDE
+        print(f"[build] flash_attention D={d} (instance {fa.instance(d)}) {dt} shared "
+              f"memory {smem_src} B per CTA ({'static' if static else 'dynamic'}; "
+              f"check_smem working set {smem_py} B)")
         if smem_src != smem_py:
             raise AssertionError(f"flash_attention.smem_blocks({d}, {dt}) disagrees "
                                  "with csrc flash_attention_smem_bytes")
@@ -2715,12 +2869,14 @@ def main() -> int:
                              "rglru_scan_smem_bytes")
     # qwen2's and phi4's layouts, then mistral-nemo-12b's, chameleon-34b's and
     # starcoder2-15b's (G = 12: 44,128 B in bf16, under the 48 KB that needs
-    # no opt-in; 76,896 B in f32, which opts in)
+    # no opt-in; 76,896 B in f32, which opts in), then [shapes]' padded ones
     for (grp, hd), (dt, code) in itertools.product(
-            ((7, 64), (3, 128), (4, 128), (8, 128), (12, 128)), pa.DTYPE_CODES.items()):
+            ((7, 64), (3, 128), (4, 128), (8, 128), (12, 128), (4, 16), (4, 80), (4, 256)),
+            pa.DTYPE_CODES.items()):
         smem_src = build.library("paged_attention").paged_attention_smem_bytes(grp, hd, code)
         smem_py = MemoryPlanner.smem_footprint(pa.smem_blocks(grp, hd, dt))
-        print(f"[build] paged_attention G={grp} hd={hd} {dt} dynamic shared memory "
+        print(f"[build] paged_attention G={grp} hd={hd} (instance {pa.instance(hd)}) {dt} "
+              f"dynamic shared memory "
               f"{smem_src} B per CTA (check_smem working set {smem_py} B)")
         if smem_src != smem_py:
             raise AssertionError(f"paged_attention.smem_blocks({grp}, {hd}, {dt}) "
@@ -2800,6 +2956,10 @@ def main() -> int:
                                      ptxas_summary(build.BUILD_LOG.get("rglru_scan", "")))
 
     stamp(t_start, "phase 3")
+    # -- [shapes]: padded instances, the serving CLI's presets, smoke() at head dim 16 --
+    shapes = shapes_phase(torch, ops, ref, ssd, ssm, Transformer, RunOpts, ServeEngine, card)
+    free_cuda(torch)
+    stamp(t_start, "[shapes]")
     # -- 4. the qwen2 path: full-width qwen2-0.5b, paged decode, flash prefill -------
     model, params = load_model(torch, Transformer, cfg, RunOpts(attention_impl="kernel"),
                                SEED, "qwen2")
@@ -3009,6 +3169,22 @@ def main() -> int:
         mask = "causal" if causal else "noncausal"
         flash_layouts[f"whisper_d64_h12_kv12_b{bb}_sq{sq}_{mask}_{dt}"] = times(
             r, library_ms=r["sdpa_ms"])
+    # [shapes]: the padded instances' cases and the serving paths' launches
+    shape_layouts = {"flash_attention_bhsd": {}, "paged_attention_decode": {},
+                     "ssd_scan_kernel": {}}
+    for (d, dt, sq, window, q_off, *rest), r in shapes["flash"].items():
+        mask = "noncausal" if rest and not rest[0] else f"w{window}_off{q_off}"
+        shape_layouts["flash_attention_bhsd"][f"d{d}_h32_kv8_sq{sq}_{mask}_{dt}"] = times(
+            r, library_ms=r["sdpa_ms"])
+    for (hd, dt, b), r in shapes["paged"].items():
+        shape_layouts["paged_attention_decode"][f"hd{hd}_kv8_g4_b{b}_{dt}"] = times(
+            r, library_ms=None, sdpa_gathered_ms=r["sdpa_ms"])
+    for (pp, nn, gg, dt, b, sl), r in shapes["ssd"].items():
+        shape_layouts["ssd_scan_kernel"][f"p{pp}_n{nn}_g{gg}_h24_b{b}_s{sl}_{dt}"] = times(
+            r, library_ms=None, tf32x3_bound_ms=r["tf32x3_bound_ms"])
+    shapes_worst = {k: max(w["bfloat16"] for n, w in shapes["worst"].items()
+                           if n.startswith(k)) for k in ("flash", "paged", "ssd")}
+    sl = shapes["launches"]
     dense_paged = sum(d["paged_attention"] for d in dense.values())
     dense_flash = sum(d["flash_attention"] for d in dense.values())
     moe_flash = sum(d["flash_attention"] for d in moe_runs.values())
@@ -3016,7 +3192,9 @@ def main() -> int:
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:76",
-         "launches": qwen2["paged_attention"] + phi4["paged_attention"] + dense_paged,
+         "launches": (qwen2["paged_attention"] + phi4["paged_attention"] + dense_paged
+                      + sl["paged_attention"]),
+         "shapes_launches": {k: r["paged_attention"] for k, r in shapes["runs"].items()},
          "dense_launches": {tag: d["paged_attention"] for tag, d in dense.items()},
          "moe_launches": {tag: d["paged_attention"] for tag, d in moe_runs.items()},
          "churn_launches": churn["launches"]["paged_attention"],
@@ -3026,19 +3204,22 @@ def main() -> int:
          "chunked_launches": chunked["paged_attention"],
          "mesh_launches": mesh["paged_attention"],
          "max_abs_err": max(paged_worst["bfloat16"], paged128_worst["bfloat16"],
-                            *(w["bfloat16"] for _, w in paged_dense.values())),
+                            *(w["bfloat16"] for _, w in paged_dense.values()),
+                            shapes_worst["paged"]),
          "ms": pk["ms"],
          "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
          "bound_by": pk["bound_by"], "library_ms": None,
          "d128_ms": pk128["ms"], "d128_plain_ms": pk128["plain_ms"],
          "d128_bound_ms": pk128["bound_ms"], "d128_library_ms": None,
-         "layouts": paged_layouts},
+         "layouts": paged_layouts,
+         "shapes_layouts": shape_layouts["paged_attention_decode"]},
         {"name": "flash_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73",
          "launches": (qwen2["flash_attention"] + phi4["flash_attention"]
                       + rgemma["flash_attention"] + dense_flash + moe_flash
-                      + whisper["flash_attention"]),
+                      + whisper["flash_attention"] + sl["flash_attention"]),
+         "shapes_launches": {k: r["flash_attention"] for k, r in shapes["runs"].items()},
          "whisper_launches": whisper["flash_attention"],
          "dense_launches": {tag: d["flash_attention"] for tag, d in dense.items()},
          "moe_launches": {tag: d["flash_attention"] for tag, d in moe_runs.items()},
@@ -3053,7 +3234,7 @@ def main() -> int:
                             flash_wide_worst["bfloat16"],
                             *(w["bfloat16"] for _, w in flash_dense.values()),
                             *(w["bfloat16"] for _, w in flash_moe.values()),
-                            flash_whisper_worst["bfloat16"]),
+                            flash_whisper_worst["bfloat16"], shapes_worst["flash"]),
          "ms": fk["ms"],
          "plain_ms": fk["plain_ms"], "bound_ms": fk["bound_ms"],
          "bound_by": fk["bound_by"], "library_ms": fk["sdpa_ms"],
@@ -3064,17 +3245,21 @@ def main() -> int:
          "d128_sq1024_library_ms": fk128l["sdpa_ms"],
          "d256_sq2600_ms": fw["ms"], "d256_sq2600_bound_ms": fw["bound_ms"],
          "d256_sq2600_library_ms": fw["sdpa_ms"],
-         "layouts": flash_layouts},
+         "layouts": flash_layouts,
+         "shapes_layouts": shape_layouts["flash_attention_bhsd"]},
         {"name": "ssd_scan_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:64",
-         "launches": mamba2["ssd_scan"], "train_launches": train["ssd_scan"],
+         "launches": mamba2["ssd_scan"] + sl["ssd_scan"],
+         "shapes_launches": {k: r["ssd_scan"] for k, r in shapes["runs"].items()},
+         "train_launches": train["ssd_scan"],
          "paper_launches": paper["ssd_scan"], "chunked_launches": chunked["ssd_scan"],
          "mesh_launches": mesh["ssd_scan"],
-         "max_abs_err": ssd_worst["bfloat16"], "ms": sk["ms"],
+         "max_abs_err": max(ssd_worst["bfloat16"], shapes_worst["ssd"]), "ms": sk["ms"],
          "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
          "bound_by": sk["bound_by"], "library_ms": None,
-         "tf32x3_bound_ms": sk["tf32x3_bound_ms"]},
+         "tf32x3_bound_ms": sk["tf32x3_bound_ms"],
+         "shapes_layouts": shape_layouts["ssd_scan_kernel"]},
         {"name": "rglru_scan_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:40",

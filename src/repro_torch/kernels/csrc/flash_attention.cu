@@ -8,34 +8,43 @@
 // Layout: q/out (B, H, Sq, D) and k/v (B, KV, Sk, D), addressed through the
 // batch, head and sequence strides the caller passes (the last dimension is
 // contiguous), so the model's (B, S, H, D) layout needs no transpose copy.
-// Three designs, chosen by dtype and head dim (no fallback between them):
 //
-// bf16, D = 64, 128 and 256: the tensor cores (flash_fwd_tc_kernel).  One CTA is
+// Head dims.  Every D that is a multiple of 8 from 8 to 256 runs, on the
+// smallest instance of width DP in {64, 128, 256} with D <= DP; the true D
+// comes at run time.  Columns D .. DP - 1 of the staged Q, K and V rows are
+// zero (the loads' own zero fill: a 16-byte copy of source size 0, or a
+// register left at 0), so they add nothing to q . k and P V; the stores skip
+// them, and the softmax scale is 1 / sqrt(D) of the true D.  q, k and v are
+// never padded or copied: one call is one launch.  A padded instance does the
+// products of its full width, so D = 16 costs about what D = 64 does.
+// Three designs, chosen by dtype and instance (no fallback between them):
+//
+// bf16, DP = 64, 128 and 256: the tensor cores (flash_fwd_tc_kernel).  One CTA is
 // one warpgroup (128 threads) that owns 64 query rows.  Q (64 x D) sits in
 // shared memory for the CTA's life; K/V tiles of 64 keys arrive through a
 // two-stage ring by 16-byte cp.async copies from the strided views, rows past
 // Sk zero-filled (source size 0).  Every tile is stored in the canonical
 // 128-byte-swizzle layout of wgmma: a 128-byte row holds 64 bf16 of one
 // key (or query), its 16-byte chunk c at c ^ (row % 8), 8 rows to a 1 KB
-// atom; D = 128 and 256 keep two and four such 64-column blocks one after
+// atom; DP = 128 and 256 keep two and four such 64-column blocks one after
 // another.
 // S = Q K^T is wgmma m64n64k16 with both operands in shared memory, K-major
-// (D / 16 steps).  The scores are scaled in f32 (scale * log2 e, for exp2),
+// (DP / 16 steps).  The scores are scaled in f32 (scale * log2 e, for exp2),
 // masked by position, and run through the online softmax in f32 (finite
 // NEG_INF = -1e30; l floored at 1e-30), each row's max shared by the quad of
 // threads that holds it.  P is rounded to bf16 in registers, where the m64
 // accumulator fragment is already the register-A fragment of the next
 // product, and O += P V is wgmma m64n64k16 with P from registers and V from
-// shared memory as the MN-major B operand (transposed), D / 64 products per 16
-// keys.  O stays in f32 registers: 32 a thread at D = 64, 64 at D = 128, 128
-// at D = 256.
+// shared memory as the MN-major B operand (transposed), DP / 64 products per 16
+// keys.  O stays in f32 registers: 32 a thread at DP = 64, 64 at DP = 128, 128
+// at DP = 256.
 // Query tiles run heaviest first (the causal tail), key tiles wholly in the
 // causal future or before the window are skipped, and only tiles that cross
 // a mask edge pay for masking.  Shared memory: Q, two K and two V tiles of
-// 64 x D bf16 and 1 KB to align the atoms: 41 KB at D = 64, 81 KB at D = 128,
-// 161 KB at D = 256.
+// 64 x DP bf16 and 1 KB to align the atoms: 41 KB at DP = 64, 81 KB at
+// DP = 128, 161 KB at DP = 256.
 //
-// f32, D = 64: flash_fwd_kernel.  The CUDA cores in f32 (wgmma on f32 would
+// f32, D <= 64: flash_fwd_kernel (DP = 64).  The CUDA cores in f32 (wgmma on f32 would
 // be TF32, about 3 digits).  One CTA of 128 threads per (b * H + h, tile of
 // 64 query rows).  Two threads share a query row: each holds the whole scaled
 // row in registers, scores every other key of a 32-key tile and owns every
@@ -44,14 +53,14 @@
 // rows; each thread issues its loads of the next tile before waiting on the
 // current one's readers.
 //
-// f32, D = 128 and 256: flash_fwd_wide_kernel.  The D = 64 design would hold
-// qr[D] and acc[D / 2], 192 registers at D = 128 and beyond the 255-register
-// limit at D = 256.  TPR = 8 threads split a query row instead: thread j of a
-// row owns the float4 columns j, j + 8, ..., so it holds D / 8 floats of the
-// scaled q row and D / 8 of the output.  Each key's partial dot products are
-// summed across the 8 threads with three xor-shuffles.  32 rows per CTA of
-// 256 threads; 32-key K/V tiles in dynamic shared memory as unpadded f32 rows
-// (32 KB at D = 128, 64 KB at D = 256).
+// f32, 64 < D <= 256: flash_fwd_wide_kernel (DP = 128 and 256).  The DP = 64
+// design would hold qr[DP] and acc[DP / 2], 192 registers at DP = 128 and
+// beyond the 255-register limit at DP = 256.  TPR = 8 threads split a query
+// row instead: thread j of a row owns the float4 columns j, j + 8, ..., so it
+// holds DP / 8 floats of the scaled q row and DP / 8 of the output.  Each
+// key's partial dot products are summed across the 8 threads with three
+// xor-shuffles.  32 rows per CTA of 256 threads; 32-key K/V tiles in dynamic
+// shared memory as unpadded f32 rows (32 KB at DP = 128, 64 KB at DP = 256).
 //
 // Bound.  Prefill is compute-bound at the serving lengths: 4 * D FLOPs per
 // valid (query, key) pair per head over the bf16 tensor-core peak (989
@@ -82,19 +91,20 @@ struct Strides {  // in elements: batch, head, sequence
   long long b, h, s;
 };
 
-template <typename T, int D>
+// DP: the instance's width; D <= DP: the true head dim, columns past it zero
+template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, Strides sq_, Strides sk_, Strides sv_, Strides so_,
-    int H, int KV, int Sq, int Sk, int causal, int window, int q_offset,
+    int H, int KV, int Sq, int Sk, int D, int causal, int window, int q_offset,
     float scale) {
-  constexpr int DP = D + 1;        // padded shared-memory row
-  constexpr int HALF = D / 2;
+  constexpr int ROW = DP + 1;      // padded shared-memory row
+  constexpr int HALF = DP / 2;
   constexpr int KH = BK / 2;
-  constexpr int PER = BK * D / THREADS;  // tile elements per thread
-  static_assert(BK * D % THREADS == 0, "tile must split evenly");
-  __shared__ float k_s[BK * DP];
-  __shared__ float v_s[BK * DP];
+  constexpr int PER = BK * DP / THREADS;  // tile elements per thread
+  static_assert(BK * DP % THREADS == 0, "tile must split evenly");
+  __shared__ float k_s[BK * ROW];
+  __shared__ float v_s[BK * ROW];
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -107,11 +117,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   const int row = q0 + r;
   const int q_pos = q_offset + row;
 
-  float qr[D];
+  float qr[DP];
   {
     const T* qp = q + b * sq_.b + hh * sq_.h + (long long)min(row, Sq - 1) * sq_.s;
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = to_f32(qp[d]) * scale;
+    for (int d = 0; d < DP; ++d) qr[d] = d < D ? to_f32(qp[d]) * scale : 0.f;
   }
   float acc[HALF];
 #pragma unroll
@@ -134,20 +144,20 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 #pragma unroll
     for (int e = 0; e < PER; ++e) {
       const int i = tid + e * THREADS;
-      const int key = k0 + i / D;
+      const int key = k0 + i / DP, col = i % DP;
       kx[e] = from_f32<T>(0.f);
       vx[e] = from_f32<T>(0.f);
-      if (key < Sk) {
-        kx[e] = kb[(long long)key * sk_.s + i % D];
-        vx[e] = vb[(long long)key * sv_.s + i % D];
+      if (key < Sk && col < D) {
+        kx[e] = kb[(long long)key * sk_.s + col];
+        vx[e] = vb[(long long)key * sv_.s + col];
       }
     }
     __syncthreads();               // previous tile fully consumed
 #pragma unroll
     for (int e = 0; e < PER; ++e) {
       const int i = tid + e * THREADS;
-      k_s[(i / D) * DP + i % D] = to_f32(kx[e]);
-      v_s[(i / D) * DP + i % D] = to_f32(vx[e]);
+      k_s[(i / DP) * ROW + i % DP] = to_f32(kx[e]);
+      v_s[(i / DP) * ROW + i % DP] = to_f32(vx[e]);
     }
     __syncthreads();
 
@@ -157,10 +167,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     for (int j = 0; j < KH; ++j) {
       const int kk = 2 * j + half;
       const int key = k0 + kk;
-      const float* kr = k_s + kk * DP;
+      const float* kr = k_s + kk * ROW;
       float a = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) a = fmaf(qr[d], kr[d], a);
+      for (int d = 0; d < DP; ++d) a = fmaf(qr[d], kr[d], a);
       bool ok = key < Sk;
       if (causal) ok = ok && key <= q_pos;
       if (window) ok = ok && key > q_pos - window;
@@ -185,8 +195,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     for (int j = 0; j < KH; ++j) {
       const float p_mine = s[j];                                   // key 2j+half
       const float p_other = __shfl_xor_sync(0xffffffffu, s[j], 1);  // key 2j+1-half
-      const float* v_mine = v_s + (2 * j + half) * DP + half;
-      const float* v_other = v_s + (2 * j + 1 - half) * DP + half;
+      const float* v_mine = v_s + (2 * j + half) * ROW + half;
+      const float* v_other = v_s + (2 * j + 1 - half) * ROW + half;
 #pragma unroll
       for (int i = 0; i < HALF; ++i)
         acc[i] = fmaf(p_mine, v_mine[2 * i], fmaf(p_other, v_other[2 * i], acc[i]));
@@ -197,21 +207,22 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     T* op = out + b * so_.b + hh * so_.h + (long long)row * so_.s;
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < HALF; ++i) op[2 * i + half] = from_f32<T>(acc[i] * inv);
+    for (int i = 0; i < HALF; ++i)
+      if (2 * i + half < D) op[2 * i + half] = from_f32<T>(acc[i] * inv);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 int launch_d(const void* q, const void* k, const void* v, void* out,
-             const long long* st, int B, int H, int KV, int Sq, int Sk,
+             const long long* st, int B, int H, int KV, int Sq, int Sk, int D,
              int causal, int window, int q_offset, cudaStream_t stream) {
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, THREADS, 0, stream>>>(
+  flash_fwd_kernel<T, DP><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, sk, sv, so, H, KV,
-      Sq, Sk, causal, window, q_offset, 1.0f / sqrtf((float)D));
+      Sq, Sk, D, causal, window, q_offset, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -222,8 +233,8 @@ constexpr int W_BQ = 32;                  // query rows per CTA
 constexpr int W_BK = 32;                  // keys per tile
 constexpr int W_THREADS = TPR * W_BQ;
 
-template <int D>
-constexpr int wide_smem_bytes() { return 2 * W_BK * D * 4; }  // K and V tiles, f32
+template <int DP>
+constexpr int wide_smem_bytes() { return 2 * W_BK * DP * 4; }  // K and V tiles, f32
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -234,16 +245,17 @@ __device__ __forceinline__ void store_vec(float4* dst, const uint4& raw, float) 
   dst[0] = *reinterpret_cast<const float4*>(&raw);
 }
 
-template <typename T, int D>
+// DP: the instance's width; D <= DP: the true head dim, columns past it zero
+template <typename T, int DP>
 __global__ void __launch_bounds__(W_THREADS) flash_fwd_wide_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, Strides sq_, Strides sk_, Strides sv_, Strides so_,
-    int H, int KV, int Sq, int Sk, int causal, int window, int q_offset,
+    int H, int KV, int Sq, int Sk, int D, int causal, int window, int q_offset,
     float scale) {
-  constexpr int D4 = D / 4;                 // float4 columns of a row
+  constexpr int D4 = DP / 4;                // float4 columns of a row
   constexpr int M = D4 / TPR;               // float4 columns per thread
   constexpr int VEC = 16 / sizeof(T);       // elements per 16-byte load
-  constexpr int ROW_VECS = D / VEC;
+  constexpr int ROW_VECS = DP / VEC;
   constexpr int PER = W_BK * ROW_VECS / W_THREADS;  // loads per thread per tile
   static_assert(D4 % TPR == 0 && (W_BK * ROW_VECS) % W_THREADS == 0, "tile split");
   extern __shared__ float4 smem4[];
@@ -265,7 +277,8 @@ __global__ void __launch_bounds__(W_THREADS) flash_fwd_wide_kernel(
     const T* qp = q + b * sq_.b + hh * sq_.h + (long long)min(row, Sq - 1) * sq_.s;
 #pragma unroll
     for (int m = 0; m < M; ++m) {
-      const float4 x = load4(qp + 4 * (j + TPR * m));
+      const int c = 4 * (j + TPR * m);
+      const float4 x = c < D ? load4(qp + c) : make_float4(0.f, 0.f, 0.f, 0.f);
       qr[m] = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
       acc[m] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -288,7 +301,7 @@ __global__ void __launch_bounds__(W_THREADS) flash_fwd_wide_kernel(
       const int col = (i % ROW_VECS) * VEC;
       kx[e] = make_uint4(0u, 0u, 0u, 0u);
       vx[e] = make_uint4(0u, 0u, 0u, 0u);
-      if (key < Sk) {
+      if (key < Sk && col < D) {
         kx[e] = *reinterpret_cast<const uint4*>(kb + (long long)key * sk_.s + col);
         vx[e] = *reinterpret_cast<const uint4*>(vb + (long long)key * sv_.s + col);
       }
@@ -366,6 +379,7 @@ __global__ void __launch_bounds__(W_THREADS) flash_fwd_wide_kernel(
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int c = 4 * (j + TPR * m);
+      if (c >= D) continue;
       op[c] = from_f32<T>(acc[m].x * inv);
       op[c + 1] = from_f32<T>(acc[m].y * inv);
       op[c + 2] = from_f32<T>(acc[m].z * inv);
@@ -374,25 +388,25 @@ __global__ void __launch_bounds__(W_THREADS) flash_fwd_wide_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 int launch_wide(const void* q, const void* k, const void* v, void* out,
-                const long long* st, int B, int H, int KV, int Sq, int Sk,
+                const long long* st, int B, int H, int KV, int Sq, int Sk, int D,
                 int causal, int window, int q_offset, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_wide_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        wide_smem_bytes<D>());
+        flash_fwd_wide_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        wide_smem_bytes<DP>());
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   const dim3 grid((Sq + W_BQ - 1) / W_BQ, B * H);
-  flash_fwd_wide_kernel<T, D><<<grid, W_THREADS, wide_smem_bytes<D>(), stream>>>(
+  flash_fwd_wide_kernel<T, DP><<<grid, W_THREADS, wide_smem_bytes<DP>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, sk, sv, so, H, KV,
-      Sq, Sk, causal, window, q_offset, 1.0f / sqrtf((float)D));
+      Sq, Sk, D, causal, window, q_offset, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -407,10 +421,10 @@ constexpr int STAGES = 2;     // K/V ring
 constexpr int BLOCK = 64 * 128;  // one 64-row x 128-byte swizzled block
 constexpr int ALIGN = 1024;   // a swizzle atom: 8 rows x 128 B
 
-template <int D>
-__host__ __device__ constexpr int tile_bytes() { return 64 * D * 2; }  // 64 rows of D bf16
-template <int D>
-__host__ __device__ constexpr int smem_bytes() { return (1 + 2 * STAGES) * tile_bytes<D>() + ALIGN; }
+template <int DP>
+__host__ __device__ constexpr int tile_bytes() { return 64 * DP * 2; }  // 64 rows of DP bf16
+template <int DP>
+__host__ __device__ constexpr int smem_bytes() { return (1 + 2 * STAGES) * tile_bytes<DP>() + ALIGN; }
 
 // byte offset of 16-byte chunk c of row r in a 64-row tile: 64-column blocks
 // one after another, each in the 128-byte-swizzle layout
@@ -492,15 +506,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Thread t of the warpgroup holds accumulator rows r = 16 (t / 32) + (t % 32) / 4
 // and r + 8; register 4j + e holds row r + 8 (e / 2), column 8j + 2 (t % 4) + e % 2.
-template <int D>
+// DP: the instance's width; D <= DP: the true head dim, columns past it zero.
+template <int DP>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     Strides sq_, Strides sk_, Strides sv_, Strides so_, int H, int KV, int Sq,
-    int Sk, int causal, int window, int q_offset, float scale_log2) {
-  constexpr int CH = D / 8;          // 16-byte chunks of a row
-  constexpr int NB = D / 64;         // 64-column blocks
-  constexpr int TILE = tile_bytes<D>();
+    int Sk, int D, int causal, int window, int q_offset, float scale_log2) {
+  constexpr int CH = DP / 8;         // 16-byte chunks of a row
+  constexpr int NB = DP / 64;        // 64-column blocks
+  constexpr int TILE = tile_bytes<DP>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base =
       ((uint32_t)__cvta_generic_to_shared(smem_raw) + ALIGN - 1) & ~(uint32_t)(ALIGN - 1);
@@ -523,7 +538,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
   const __nv_bfloat16* qb = q + b * sq_.b + hh * sq_.h;
   for (int i = tid; i < BQ * CH; i += THREADS) {
     const int r = i / CH, c = i % CH, row = q0 + r;
-    cp16(q_s + swz(r, c), qb + (long long)min(row, Sq - 1) * sq_.s + c * 8, row < Sq);
+    cp16(q_s + swz(r, c), qb + (long long)min(row, Sq - 1) * sq_.s + min(8 * c, D - 8),
+         row < Sq && 8 * c < D);
   }
   const __nv_bfloat16* kb = k + b * sk_.b + kvh * sk_.h;
   const __nv_bfloat16* vb = v + b * sv_.b + kvh * sv_.h;
@@ -533,9 +549,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
 #pragma unroll 4
     for (int i = tid; i < BC * CH; i += THREADS) {
       const int r = i / CH, c = i % CH, key = k0 + r;
-      const long long kc = min(key, Sk - 1);
-      cp16(ks + swz(r, c), kb + kc * sk_.s + c * 8, key < Sk);
-      cp16(ks + TILE + swz(r, c), vb + kc * sv_.s + c * 8, key < Sk);
+      const long long kc = min(key, Sk - 1), cc = min(8 * c, D - 8);
+      cp16(ks + swz(r, c), kb + kc * sk_.s + cc, key < Sk && 8 * c < D);
+      cp16(ks + TILE + swz(r, c), vb + kc * sv_.s + cc, key < Sk && 8 * c < D);
     }
   };
   if (n_tiles > 0) load_kv(0);
@@ -567,7 +583,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
     pin(s);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       const uint32_t off = (kk >> 2) * BLOCK + (kk & 3) * 32;
       mma_ss(s, desc(q_s + off, 16, 1024), desc(ks + off, 16, 1024), kk > 0);
     }
@@ -647,6 +663,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = 64 * n + 8 * j + cq;
+      if (col >= D) continue;                      // D is a multiple of 8: col + 1 < D
       if (row0 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * so_.s + col) =
             __floats2bfloat162_rn(o[n][4 * j] * inv0, o[n][4 * j + 1] * inv0);
@@ -656,37 +673,44 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
     }
 }
 
-template <int D>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out,
-           const long long* st, int B, int H, int KV, int Sq, int Sk, int causal,
-           int window, int q_offset, cudaStream_t stream) {
+           const long long* st, int B, int H, int KV, int Sq, int Sk, int D,
+           int causal, int window, int q_offset, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes<D>());
+        flash_fwd_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes<DP>());
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_tc_kernel<D><<<grid, THREADS, smem_bytes<D>(), stream>>>(
+  flash_fwd_tc_kernel<DP><<<grid, THREADS, smem_bytes<DP>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), sq,
-      sk, sv, so, H, KV, Sq, Sk, causal, window, q_offset,
+      sk, sv, so, H, KV, Sq, Sk, D, causal, window, q_offset,
       1.4426950408889634f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
+// The instance that runs head dim D: the smallest width of 64, 128 and 256
+// that holds it, or 0 where none does (D not a multiple of 8 from 8 to 256).
+int instance(int D) {
+  if (D < 8 || D > 256 || D % 8) return 0;
+  return D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, seq) for q, k, v, out.
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); D: 64, 128
-// or 256.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); D: a multiple
+// of 8 from 8 to 256, run on instance(D).  Returns the cudaError_t of the
+// launch.
 extern "C" int flash_attention_bhsd(const void* q, const void* k, const void* v,
                                     void* out, const long long* strides, int B,
                                     int H, int KV, int Sq, int Sk, int D,
@@ -696,36 +720,28 @@ extern "C" int flash_attention_bhsd(const void* q, const void* k, const void* v,
   if (KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* st = strides;
-  if (dtype == 0 && D == 64)  // qwen2-0.5b's head dim
-    return launch_d<float, 64>(q, k, v, out, st, B, H, KV, Sq, Sk, causal,
-                               window, q_offset, s);
-  if (dtype == 0 && D == 128)  // phi4-mini-3.8b's head dim
-    return launch_wide<float, 128>(q, k, v, out, st, B, H, KV, Sq, Sk, causal,
-                                   window, q_offset, s);
-  if (dtype == 0 && D == 256)  // recurrentgemma-9b's head dim
-    return launch_wide<float, 256>(q, k, v, out, st, B, H, KV, Sq, Sk, causal,
-                                   window, q_offset, s);
-  if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, out, st, B, H, KV, Sq, Sk, causal, window,
-                          q_offset, s);
-  if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, out, st, B, H, KV, Sq, Sk, causal, window,
-                           q_offset, s);
-  if (dtype == 1 && D == 256)
-    return tc::launch<256>(q, k, v, out, st, B, H, KV, Sq, Sk, causal, window,
-                           q_offset, s);
+  const int W = instance(D);
+#define FLASH_ARGS q, k, v, out, st, B, H, KV, Sq, Sk, D, causal, window, q_offset, s
+  if (dtype == 0 && W == 64) return launch_d<float, 64>(FLASH_ARGS);
+  if (dtype == 0 && W == 128) return launch_wide<float, 128>(FLASH_ARGS);
+  if (dtype == 0 && W == 256) return launch_wide<float, 256>(FLASH_ARGS);
+  if (dtype == 1 && W == 64) return tc::launch<64>(FLASH_ARGS);
+  if (dtype == 1 && W == 128) return tc::launch<128>(FLASH_ARGS);
+  if (dtype == 1 && W == 256) return tc::launch<256>(FLASH_ARGS);
+#undef FLASH_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory per CTA of the instance for head dim D and dtype (static for
-// f32 at D = 64, dynamic otherwise), or -1 where none is instantiated.
+// Shared memory per CTA of the instance that runs head dim D in dtype (static
+// for f32 at width 64, dynamic otherwise), or -1 where none does.
 extern "C" int flash_attention_smem_bytes(int D, int dtype) {
-  if (dtype == 0 && D == 64) return 2 * BK * (64 + 1) * 4;
-  if (dtype == 0 && D == 128) return wide_smem_bytes<128>();
-  if (dtype == 0 && D == 256) return wide_smem_bytes<256>();
-  if (dtype == 1 && D == 64) return tc::smem_bytes<64>();
-  if (dtype == 1 && D == 128) return tc::smem_bytes<128>();
-  if (dtype == 1 && D == 256) return tc::smem_bytes<256>();
+  const int W = instance(D);
+  if (dtype == 0 && W == 64) return 2 * BK * (64 + 1) * 4;
+  if (dtype == 0 && W == 128) return wide_smem_bytes<128>();
+  if (dtype == 0 && W == 256) return wide_smem_bytes<256>();
+  if (dtype == 1 && W == 64) return tc::smem_bytes<64>();
+  if (dtype == 1 && W == 128) return tc::smem_bytes<128>();
+  if (dtype == 1 && W == 256) return tc::smem_bytes<256>();
   return -1;
 }
 

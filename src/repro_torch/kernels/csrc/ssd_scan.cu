@@ -11,6 +11,22 @@
 // The algorithm is exact for any chunk length, so the kernel picks its own
 // (Q = 64) whatever chunk the caller's plain version uses.
 //
+// Shapes.  Every head dim P that is a multiple of 8 up to 64, every state size
+// N that is a multiple of 8 up to 256 and every G that divides H runs, on the
+// instance of padded width (64, NP) with NP = 128 for N <= 128 and 256 above;
+// the true P and N come at run time and every global offset (x, B, C, y, h and
+// the chunk states in scratch) steps by them.  Rows and columns past them are
+// zero in shared memory (16-byte copies of source size 0, or zero registers),
+// and zero x, B and C columns leave the state and y unchanged, as the ragged
+// last chunk shows; the products skip the 16-row and 8-column fragments that
+// lie wholly past the true sizes, and the stores skip every element past them.
+// (P, N) = (64, 128) runs the instance built for it (PAD false), where the
+// sizes are compile-time constants, so mamba2-130m keeps the code it ran
+// before the padded shapes existed.
+// P > 64 is refused: at P = 128, N = 256 the output kernel would need about
+// 252 KB, over the 227 KB a block can have, so P would have to be split over
+// CTAs.
+//
 // Design: the state-space-duality decomposition (Dao & Gu, 2024,
 // arXiv:2405.21060, section 6) in three launches, so that only the short
 // state recurrence runs over the chunks in order.  The TPU kernel walks the
@@ -22,7 +38,7 @@
 //      from a zero start, into scratch.  CTA (c, H + g) computes the causal
 //      tiles of C B^T (Q x Q) of group g once for all its heads, into
 //      scratch.  Every chunk runs at once.
-//   2. ssd_pass_kernel, grid (P N / 1024, H, B): per element of the state,
+//   2. ssd_pass_kernel, grid (ceil(P N / 1024), H, B): per element of the state,
 //      h_c = exp(cum_last,c) h_{c-1} + s_c over the chunks in order,
 //      overwriting s_c with the state that enters chunk c, and writing the
 //      final state.  Elementwise, one chunk a step (8 steps at S = 512).
@@ -42,15 +58,19 @@
 // and each product with x, the decays or h takes two.
 //
 // Shared memory: operands are staged as f32 rows padded so that every
-// fragment load of a warp hits 32 distinct banks (rows of 136 floats where
-// the fragment walks rows with the lane's low bits, of 132 or 68 where it
-// walks columns); the C B^T CTAs reuse the state CTAs' 136-float rows and
-// take two-way conflicts, one CTA per chunk.  f32 inputs arrive by 16-byte
-// cp.async copies, bf16 ones through registers, converted at the store.
+// fragment load of a warp hits 32 distinct banks (rows of NP + 8 floats where
+// the fragment walks rows with the lane's low bits, of NP + 4 or 68 where it
+// walks columns: 8 or 4 banks past a multiple of 32 at both widths); the
+// C B^T CTAs reuse the state CTAs' NP + 8-float rows and take two-way
+// conflicts, one CTA per chunk.  At NP = 128 the chunk kernel holds 68 KB and
+// the output kernel 101 KB, two CTAs an SM; at NP = 256, 132 KB and 165 KB,
+// one.  f32 inputs arrive by 16-byte cp.async copies, bf16 ones through
+// registers, converted at the store.
 //
-// Bound.  Operations: per token, C B^T per group (G N multiply-adds) and per
-// head the intra term (P), the incoming state's term (P N) and the state
-// update (P N), at chunk length 1 where the count is least; in f32 at 67
+// Bound.  Operations, at the true P and N: per token, C B^T per group (G N
+// multiply-adds) and per head the intra term (P), the incoming state's term
+// (P N) and the state update (P N), at chunk length 1 where the count is
+// least; in f32 at 67
 // TFLOP/s on an H100 SXM.  The datapath used is split TF32: three passes at
 // 494.7 TFLOP/s.  Bytes: x, y, dta, B, C and h read or written once, over
 // 3.35 TB/s; the scratch (chunk states, C B^T, cum) stays mostly in the 50 MB
@@ -65,25 +85,30 @@
 namespace {
 
 constexpr int Q = 64;          // tokens per chunk
-constexpr int N = 128;         // state size
-constexpr int P = 64;          // head dim
+constexpr int P = 64;          // the head dim's padded width
 constexpr int THREADS = 256;   // eight warps
-constexpr int RS = N + 8;      // chunk kernel: B rows; C rows or x rows beside
 constexpr int XS = P + 8;      // x rows: fragment (row t, column g) at bank 8t + g
-constexpr int CS = N + 4;      // output kernel: C rows, fragment (row g, column t) at 4g + t
-constexpr int HS = N + 4;      // rows h[p][.] of the incoming state
 constexpr int MS = Q + 4;      // rows of the masked, decayed C B^T
-constexpr int PASS_BLOCKS = P * N / (4 * THREADS);  // pass: one float4 a thread
 
-// chunk kernel: B (Q x RS), then C (Q x RS) or x (Q x XS) and the decays (Q)
-constexpr int CHUNK_SMEM = 2 * Q * RS * 4;
-// output kernel: C, h_in, x, masked C B^T, cum
-constexpr int OFF_H = Q * CS;
-constexpr int OFF_X = OFF_H + P * HS;
-constexpr int OFF_M = OFF_X + Q * XS;
-constexpr int OFF_CUM = OFF_M + Q * MS;
-constexpr int OUT_SMEM = (OFF_CUM + Q) * 4;
-static_assert(Q * XS + Q <= Q * RS, "x rows and decays fit beside the B rows");
+// the instance of padded state width N (128 or 256)
+template <int N>
+struct Inst {
+  static constexpr int RS = N + 8;   // chunk kernel: B rows; C rows or x rows beside
+  static constexpr int CS = N + 4;   // output kernel: C rows, fragment (row g, column t) at 4g + t
+  static constexpr int HS = N + 4;   // rows h[p][.] of the incoming state
+  // chunk kernel: B (Q x RS), then C (Q x RS) or x (Q x XS) and the decays (Q)
+  static constexpr int CHUNK_SMEM = 2 * Q * RS * 4;
+  // output kernel: C, h_in, x, masked C B^T, cum
+  static constexpr int OFF_H = Q * CS;
+  static constexpr int OFF_X = OFF_H + P * HS;
+  static constexpr int OFF_M = OFF_X + Q * XS;
+  static constexpr int OFF_CUM = OFF_M + Q * MS;
+  static constexpr int OUT_SMEM = (OFF_CUM + Q) * 4;
+  static constexpr int MIN_BLOCKS = 2 * OUT_SMEM <= 227 * 1024 ? 2 : 1;  // CTAs an SM
+  static_assert(N == 128 || N == 256, "instances: 128 and 256");
+  static_assert(Q * XS + Q <= Q * RS, "x rows and decays fit beside the B rows");
+  static_assert(OUT_SMEM <= 227 * 1024, "the output kernel's working set fits a block");
+};
 
 __device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
@@ -95,23 +120,24 @@ __device__ __forceinline__ void cp_wait_all() {
 }
 
 // ROWS x COLS of a row-major global block (row stride gs elements) into
-// shared f32 rows of stride ss; rows from `valid` on are zero-filled
+// shared f32 rows of stride ss; rows from `valid` on and columns from `cols`
+// on (a multiple of 8) are zero-filled
 template <int ROWS, int COLS>
 __device__ __forceinline__ void stage(float* dst, int ss, const float* src, long long gs,
-                                      int valid, int tid) {
+                                      int valid, int cols, int tid) {
   constexpr int VECS = COLS / 4;
   static_assert(ROWS * VECS % THREADS == 0, "tile split");
 #pragma unroll
   for (int e = 0; e < ROWS * VECS / THREADS; ++e) {
     const int i = tid + e * THREADS, r = i / VECS, c = (i % VECS) * 4;
-    const bool ok = r < valid;
+    const bool ok = r < valid && (cols >= COLS || c < cols);
     cp16(dst + r * ss + c, src + (ok ? r * gs + c : 0), ok);
   }
 }
 
 template <int ROWS, int COLS>
 __device__ __forceinline__ void stage(float* dst, int ss, const __nv_bfloat16* src,
-                                      long long gs, int valid, int tid) {
+                                      long long gs, int valid, int cols, int tid) {
   constexpr int VECS = COLS / 8;
   constexpr int PER = ROWS * VECS / THREADS;
   static_assert(ROWS * VECS % THREADS == 0, "tile split");
@@ -119,8 +145,9 @@ __device__ __forceinline__ void stage(float* dst, int ss, const __nv_bfloat16* s
 #pragma unroll
   for (int e = 0; e < PER; ++e) {   // every load in flight before any store
     const int i = tid + e * THREADS, r = i / VECS, c = (i % VECS) * 8;
-    raw[e] = r < valid ? *reinterpret_cast<const uint4*>(src + r * gs + c)
-                       : make_uint4(0u, 0u, 0u, 0u);
+    raw[e] = r < valid && (cols >= COLS || c < cols)
+                 ? *reinterpret_cast<const uint4*>(src + r * gs + c)
+                 : make_uint4(0u, 0u, 0u, 0u);
   }
 #pragma unroll
   for (int e = 0; e < PER; ++e) {
@@ -194,12 +221,18 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0, fl
 
 // ---- 1. chunk states and C B^T ---------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2) ssd_chunk_kernel(
+// N: the instance's padded state width; pd <= P and nd <= N: the true head dim
+// and state size, rows and columns past them zero (PAD false: pd == P and
+// nd == N, known at compile time)
+template <typename T, int N, bool PAD>
+__global__ void __launch_bounds__(THREADS, Inst<N>::MIN_BLOCKS) ssd_chunk_kernel(
     const float* __restrict__ x, const float* __restrict__ dta, const T* __restrict__ bm,
     const T* __restrict__ cm, float* __restrict__ states, float* __restrict__ cb,
-    float* __restrict__ cum, int S, int H, int G) {
+    float* __restrict__ cum, int S, int H, int G, int pd_, int nd_) {
   constexpr bool EXACT = !std::is_same<T, float>::value;  // bf16: exact in TF32
+  const int pd = PAD ? pd_ : P, nd = PAD ? nd_ : N;
+  constexpr int RS = Inst<N>::RS;
+  constexpr int NT = N / 16;              // 8-column tiles in a warp's column half
   extern __shared__ __align__(16) float smem[];
   float* b_s = smem;                      // (Q, RS): the chunk's B rows
   float* r_s = smem + Q * RS;             // (Q, RS): C rows, or x rows and decays
@@ -212,14 +245,14 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_chunk_kernel(
   if (role >= H) {  // C B^T of group role - H: rows i, columns j, causal tiles
     const int g = role - H;
     const long long row0 = ((long long)bi * S + t0) * G + g;
-    stage<Q, N>(b_s, RS, bm + row0 * N, (long long)G * N, valid, tid);
-    stage<Q, N>(r_s, RS, cm + row0 * N, (long long)G * N, valid, tid);
+    stage<Q, N>(b_s, RS, bm + row0 * nd, (long long)G * nd, valid, nd, tid);
+    stage<Q, N>(r_s, RS, cm + row0 * nd, (long long)G * nd, valid, nd, tid);
     cp_wait_all();
     __syncthreads();
     const int i0 = 16 * mt;
     float acc[4][4] = {};
 #pragma unroll 4
-    for (int n0 = 0; n0 < N; n0 += 8) {
+    for (int n0 = 0; n0 < nd; n0 += 8) {
       FragA a;
       const float* cr = r_s + (i0 + gq) * RS + n0 + tq;
       frag_a<EXACT>(a, cr[0], cr[8 * RS], cr[4], cr[8 * RS + 4]);
@@ -248,10 +281,10 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_chunk_kernel(
   const int h = role, g = h / (H / G);
   float* x_s = r_s;                       // (Q, XS)
   float* w_s = r_s + Q * XS;              // (Q): exp(cum_last - cum_j)
-  stage<Q, P>(x_s, XS, x + (((long long)bi * S + t0) * H + h) * P, (long long)H * P,
-              valid, tid);
-  stage<Q, N>(b_s, RS, bm + (((long long)bi * S + t0) * G + g) * N, (long long)G * N,
-              valid, tid);
+  stage<Q, P>(x_s, XS, x + (((long long)bi * S + t0) * H + h) * pd, (long long)H * pd,
+              valid, pd, tid);
+  stage<Q, N>(b_s, RS, bm + (((long long)bi * S + t0) * G + g) * nd, (long long)G * nd,
+              valid, nd, tid);
   if (warp == 0) {  // cum over the chunk: lane owns positions 2 lane, 2 lane + 1
     const int j = 2 * lane;
     const float* dp = dta + ((long long)bi * S + t0 + j) * H + h;
@@ -275,7 +308,8 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_chunk_kernel(
   cp_wait_all();
   __syncthreads();
   const int p0 = 16 * mt;
-  float acc[8][4] = {};
+  if (PAD && p0 >= pd) return;            // the warp's rows are all padding
+  float acc[NT][4] = {};
 #pragma unroll 2
   for (int j0 = 0; j0 < Q; j0 += 8) {
     const float w0 = w_s[j0 + tq], w1 = w_s[j0 + tq + 4];
@@ -283,30 +317,37 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_chunk_kernel(
     FragA a;
     frag_a<false>(a, xr[0] * w0, xr[8] * w0, xr[4 * XS] * w1, xr[4 * XS + 8] * w1);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float* br = b_s + (j0 + tq) * RS + 64 * nh + 8 * nt + gq;
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n0 = (N / 2) * nh + 8 * nt;
+      if (PAD && n0 >= nd) continue;      // warp-uniform: a tile of padding
+      const float* br = b_s + (j0 + tq) * RS + n0 + gq;
       mma3<false, EXACT>(acc[nt], a, br[0], br[4 * RS]);
     }
   }
-  float* o = states + (((long long)bi * nc + c) * H + h) * P * N;
+  float* o = states + (((long long)bi * nc + c) * H + h) * pd * nd;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int n = 64 * nh + 8 * nt + 2 * tq;
-    *reinterpret_cast<float2*>(o + (p0 + gq) * N + n) = make_float2(acc[nt][0], acc[nt][1]);
-    *reinterpret_cast<float2*>(o + (p0 + gq + 8) * N + n) =
-        make_float2(acc[nt][2], acc[nt][3]);
+  for (int nt = 0; nt < NT; ++nt) {
+    const int n = (N / 2) * nh + 8 * nt + 2 * tq;
+    if (PAD && n >= nd) continue;         // nd is a multiple of 8: n + 1 < nd
+    if (!PAD || p0 + gq < pd)
+      *reinterpret_cast<float2*>(o + (p0 + gq) * nd + n) = make_float2(acc[nt][0], acc[nt][1]);
+    if (!PAD || p0 + gq + 8 < pd)
+      *reinterpret_cast<float2*>(o + (p0 + gq + 8) * nd + n) =
+          make_float2(acc[nt][2], acc[nt][3]);
   }
 }
 
 // ---- 2. the state recurrence over the chunks ---------------------------------
 
+// pn: the true P N, a multiple of 64
 __global__ void __launch_bounds__(THREADS) ssd_pass_kernel(
     float* __restrict__ states, const float* __restrict__ cum, float* __restrict__ h_out,
-    int nc, int H) {
+    int nc, int H, int pn) {
   const int h = blockIdx.y, bi = blockIdx.z;
   const int e = 4 * (blockIdx.x * THREADS + threadIdx.x);
-  const long long step = (long long)H * P * N;       // one chunk further
-  float* sp = states + ((long long)bi * nc * H + h) * P * N + e;
+  if (e >= pn) return;
+  const long long step = (long long)H * pn;          // one chunk further
+  float* sp = states + ((long long)bi * nc * H + h) * pn + e;
   const float* last = cum + ((long long)bi * nc * H + h) * Q + Q - 1;
   float4 hv = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 next = __ldcg(reinterpret_cast<const float4*>(sp));
@@ -318,24 +359,26 @@ __global__ void __launch_bounds__(THREADS) ssd_pass_kernel(
     hv = make_float4(fmaf(a, hv.x, s.x), fmaf(a, hv.y, s.y), fmaf(a, hv.z, s.z),
                      fmaf(a, hv.w, s.w));
   }
-  *reinterpret_cast<float4*>(h_out + ((long long)bi * H + h) * P * N + e) = hv;
+  *reinterpret_cast<float4*>(h_out + ((long long)bi * H + h) * pn + e) = hv;
 }
 
 // ---- 3. the outputs ----------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2) ssd_out_kernel(
+template <typename T, int N, bool PAD>
+__global__ void __launch_bounds__(THREADS, Inst<N>::MIN_BLOCKS) ssd_out_kernel(
     const float* __restrict__ x, const T* __restrict__ cm, const float* __restrict__ states,
     const float* __restrict__ cb, const float* __restrict__ cum, float* __restrict__ y,
-    int S, int H, int G) {
+    int S, int H, int G, int pd_, int nd_) {
   constexpr bool EXACT = !std::is_same<T, float>::value;
+  const int pd = PAD ? pd_ : P, nd = PAD ? nd_ : N;
   constexpr int PER = Q * Q / THREADS;
+  constexpr int CS = Inst<N>::CS, HS = Inst<N>::HS;
   extern __shared__ __align__(16) float smem[];
   float* c_s = smem;                      // (Q, CS)
-  float* h_s = smem + OFF_H;              // (P, HS): h_in[p][n]
-  float* x_s = smem + OFF_X;              // (Q, XS)
-  float* m_s = smem + OFF_M;              // (Q, MS)
-  float* cum_s = smem + OFF_CUM;          // (Q)
+  float* h_s = smem + Inst<N>::OFF_H;     // (P, HS): h_in[p][n]
+  float* x_s = smem + Inst<N>::OFF_X;     // (Q, XS)
+  float* m_s = smem + Inst<N>::OFF_M;     // (Q, MS)
+  float* cum_s = smem + Inst<N>::OFF_CUM; // (Q)
   const int c = blockIdx.x, h = blockIdx.y, bi = blockIdx.z, nc = gridDim.x;
   const int g = h / (H / G);
   const int t0 = c * Q, valid = min(Q, S - t0);
@@ -344,11 +387,11 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_out_kernel(
   const int mt = warp & 3, nh = warp >> 2;
   const long long ch = ((long long)bi * nc + c) * H + h;
 
-  stage<Q, N>(c_s, CS, cm + (((long long)bi * S + t0) * G + g) * N, (long long)G * N,
-              valid, tid);
-  stage<P, N>(h_s, HS, states + ch * P * N, N, P, tid);
-  stage<Q, P>(x_s, XS, x + (((long long)bi * S + t0) * H + h) * P, (long long)H * P,
-              valid, tid);
+  stage<Q, N>(c_s, CS, cm + (((long long)bi * S + t0) * G + g) * nd, (long long)G * nd,
+              valid, nd, tid);
+  stage<P, N>(h_s, HS, states + ch * pd * nd, nd, pd, nd, tid);
+  stage<Q, P>(x_s, XS, x + (((long long)bi * S + t0) * H + h) * pd, (long long)H * pd,
+              valid, pd, tid);
   const float* cbp = cb + (((long long)bi * nc + c) * G + g) * Q * Q;
   float cv[PER];
 #pragma unroll
@@ -370,12 +413,13 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_out_kernel(
   const int i0 = 16 * mt;
   float acc[4][4] = {};
 #pragma unroll 4
-  for (int n0 = 0; n0 < N; n0 += 8) {
+  for (int n0 = 0; n0 < nd; n0 += 8) {
     const float* cr = c_s + (i0 + gq) * CS + n0 + tq;
     FragA a;
     frag_a<EXACT>(a, cr[0], cr[8 * CS], cr[4], cr[8 * CS + 4]);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
+      if (PAD && 32 * nh + 8 * nt >= pd) continue;   // warp-uniform: columns of padding
       const float* hr = h_s + (32 * nh + 8 * nt + gq) * HS + n0 + tq;
       mma3<EXACT, false>(acc[nt], a, hr[0], hr[4]);
     }
@@ -395,6 +439,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_out_kernel(
     frag_a<false>(a, mr[0], mr[8 * MS], mr[4], mr[8 * MS + 4]);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
+      if (PAD && 32 * nh + 8 * nt >= pd) continue;
       const float* xr = x_s + (j0 + tq) * XS + 32 * nh + 8 * nt + gq;
       mma3<false, false>(acc[nt], a, xr[0], xr[4 * XS]);
     }
@@ -403,42 +448,55 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_out_kernel(
   for (int nt = 0; nt < 4; ++nt) {
     const int p = 32 * nh + 8 * nt + 2 * tq;
     const int i = i0 + gq;
+    if (PAD && p >= pd) continue;         // pd is a multiple of 8: p + 1 < pd
     if (i < valid)
-      *reinterpret_cast<float2*>(y + (((long long)bi * S + t0 + i) * H + h) * P + p) =
+      *reinterpret_cast<float2*>(y + (((long long)bi * S + t0 + i) * H + h) * pd + p) =
           make_float2(acc[nt][0], acc[nt][1]);
     if (i + 8 < valid)
-      *reinterpret_cast<float2*>(y + (((long long)bi * S + t0 + i + 8) * H + h) * P + p) =
+      *reinterpret_cast<float2*>(y + (((long long)bi * S + t0 + i + 8) * H + h) * pd + p) =
           make_float2(acc[nt][2], acc[nt][3]);
   }
 }
 
-template <typename T>
+template <typename T, int N, bool PAD>
 int launch(const float* x, const float* dta, const void* bm, const void* cm, float* y,
            float* h, float* states, float* cb, float* cum, int B, int S, int H, int G,
-           cudaStream_t stream) {
+           int pd, int nd, cudaStream_t stream) {
+  using I = Inst<N>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        ssd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, CHUNK_SMEM);
+        ssd_chunk_kernel<T, N, PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        I::CHUNK_SMEM);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(ssd_out_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, OUT_SMEM);
+      e = cudaFuncSetAttribute(ssd_out_kernel<T, N, PAD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, I::OUT_SMEM);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int nc = (S + Q - 1) / Q;
   const T* b = static_cast<const T*>(bm);
   const T* c = static_cast<const T*>(cm);
-  ssd_chunk_kernel<T><<<dim3(nc, H + G, B), THREADS, CHUNK_SMEM, stream>>>(
-      x, dta, b, c, states, cb, cum, S, H, G);
+  ssd_chunk_kernel<T, N, PAD><<<dim3(nc, H + G, B), THREADS, I::CHUNK_SMEM, stream>>>(
+      x, dta, b, c, states, cb, cum, S, H, G, pd, nd);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ssd_pass_kernel<<<dim3(PASS_BLOCKS, H, B), THREADS, 0, stream>>>(states, cum, h, nc, H);
+  const int pn = pd * nd;                 // pass: one float4 a thread
+  ssd_pass_kernel<<<dim3((pn + 4 * THREADS - 1) / (4 * THREADS), H, B), THREADS, 0,
+                    stream>>>(states, cum, h, nc, H, pn);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ssd_out_kernel<T><<<dim3(nc, H, B), THREADS, OUT_SMEM, stream>>>(x, c, states, cb, cum,
-                                                                   y, S, H, G);
+  ssd_out_kernel<T, N, PAD><<<dim3(nc, H, B), THREADS, I::OUT_SMEM, stream>>>(
+      x, c, states, cb, cum, y, S, H, G, pd, nd);
   return (int)cudaGetLastError();
+}
+
+// The padded state width of the instance that runs (P, N): 128 for N <= 128,
+// 256 above, or 0 where none does (P not a multiple of 8 up to 64, or N not one
+// up to 256).
+int instance(int P_, int N_) {
+  if (P_ < 8 || P_ > P || P_ % 8 || N_ < 8 || N_ > 256 || N_ % 8) return 0;
+  return N_ <= 128 ? 128 : 256;
 }
 
 }  // namespace
@@ -446,12 +504,14 @@ int launch(const float* x, const float* dta, const void* bm, const void* cm, flo
 // x (B,S,H,P) f32 dt-scaled, dta (B,S,H) f32, b/c (B,S,G,N) of `dtype`
 // (0 = float32, 1 = bfloat16), all contiguous; y (B,S,H,P) and h (B,H,P,N)
 // f32.  Scratch, f32, nc = ceil(S / 64): states (B,nc,H,P,N), cb
-// (B,nc,G,64,64), cum (B,nc,H,64).  Only P = 64 and N = 128 are
-// instantiated.  Three launches on `stream`; returns the first cudaError_t.
+// (B,nc,G,64,64), cum (B,nc,H,64).  P a multiple of 8 up to 64, N one up to
+// 256, G a divisor of H, run on instance(P, N).  Three launches on `stream`;
+// returns the first cudaError_t.
 extern "C" int ssd_scan(const void* x, const void* dta, const void* b, const void* c,
                         void* y, void* h, void* states, void* cb, void* cum, int B,
                         int S, int H, int G, int P_, int N_, int dtype, void* stream) {
-  if (P_ != P || N_ != N || G <= 0 || H % G) return (int)cudaErrorInvalidValue;
+  const int W = instance(P_, N_);
+  if (W == 0 || G <= 0 || H % G) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return 0;
   if (S == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -462,19 +522,27 @@ extern "C" int ssd_scan(const void* x, const void* dta, const void* b, const voi
   float* sf = static_cast<float*>(states);
   float* cbf = static_cast<float*>(cb);
   float* cumf = static_cast<float*>(cum);
-  if (dtype == 0)
-    return launch<float>(xf, df, b, c, yf, hf, sf, cbf, cumf, B, S, H, G, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(xf, df, b, c, yf, hf, sf, cbf, cumf, B, S, H, G, s);
+  const bool full = P_ == P && N_ == 128;   // mamba2-130m's (64, 128)
+#define SSD_ARGS xf, df, b, c, yf, hf, sf, cbf, cumf, B, S, H, G, P_, N_, s
+  if (dtype == 0 && full) return launch<float, 128, false>(SSD_ARGS);
+  if (dtype == 1 && full) return launch<__nv_bfloat16, 128, false>(SSD_ARGS);
+  if (dtype == 0) return W == 128 ? launch<float, 128, true>(SSD_ARGS)
+                                  : launch<float, 256, true>(SSD_ARGS);
+  if (dtype == 1) return W == 128 ? launch<__nv_bfloat16, 128, true>(SSD_ARGS)
+                                  : launch<__nv_bfloat16, 256, true>(SSD_ARGS);
+#undef SSD_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory per CTA of launch 0 (chunk states and C B^T), 1 (the
-// state pass) or 2 (the outputs); -1 for any other.
-extern "C" int ssd_scan_smem_bytes(int launch) {
-  if (launch == 0) return CHUNK_SMEM;
+// state pass) or 2 (the outputs) of the instance that runs (P, N); -1 for any
+// other launch or where no instance does.
+extern "C" int ssd_scan_smem_bytes(int launch, int P_, int N_) {
+  const int W = instance(P_, N_);
+  if (W == 0) return -1;
   if (launch == 1) return 0;
-  if (launch == 2) return OUT_SMEM;
+  if (launch == 0) return W == 128 ? Inst<128>::CHUNK_SMEM : Inst<256>::CHUNK_SMEM;
+  if (launch == 2) return W == 128 ? Inst<128>::OUT_SMEM : Inst<256>::OUT_SMEM;
   return -1;
 }
 

@@ -1,9 +1,12 @@
 """The kernels in model-native layouts (port of ``repro.kernels.ops``).
 
-Each wrapper checks its CTA's shared-memory working set against the Hopper
-per-block budget with the paper's planner, then dispatches on the tensors'
-device: CPU tensors go to the plain PyTorch version in ``ref``, CUDA tensors
-to the CUDA kernel, and any other device raises.  There is no fallback from
+Each wrapper checks the shared-memory working set of the kernel instance
+that will run against the Hopper per-block budget with the paper's planner,
+then dispatches on the tensors' device: CPU tensors go to the plain PyTorch
+version in ``ref``, CUDA tensors to the CUDA kernel, and any other device
+raises.  A CUDA tensor whose shape is outside a kernel's rule (its module's
+``instance``) raises that rule's ``ValueError``; a CPU tensor of such a shape
+runs the plain version, which takes any shape.  There is no fallback from
 the kernel to the plain version.  No kernel has a backward, so a wrapper
 refuses (``ValueError``) a tensor that requires grad while grad mode is on,
 on every device: its output would come back detached and the gradient would
@@ -27,7 +30,18 @@ from . import ssd_scan as _ssd
 from .ref import ref_attention_bhsd, ref_paged_attention, ref_rglru, ssd_chunked
 
 
-def _check_smem(blocks, what: str) -> None:
+def _check_smem(t, what: str, blocks_of, *shape) -> None:
+    """Check the working set of the instance that would run ``shape``
+    (``blocks_of(*shape)``, which raises ``ValueError`` naming the kernel's
+    rule where no instance takes it).  Outside the rule a CUDA tensor ``t``
+    raises; a CPU tensor goes on to the plain version, which takes any
+    shape."""
+    try:
+        blocks = blocks_of(*shape)
+    except ValueError:
+        if _device_type(t) == "cuda":
+            raise
+        return
     check = MemoryPlanner.check_smem(blocks)
     if not check["fits"]:
         raise ValueError(f"{what} working set exceeds shared memory: {check}")
@@ -68,7 +82,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Model layout q: (B,S,KV,G,hd); k/v: (B,S,KV,hd) -> ctx (B,S,KV,G,hd)."""
     _refuse_dtensor("flash_attention", q, k, v)
     _refuse_autograd("flash_attention", q, k, v)
-    _check_smem(_fa.smem_blocks(q.shape[-1], q.dtype), "flash attention")
+    _check_smem(q, "flash attention", _fa.smem_blocks, q.shape[-1], q.dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if _device_type(q) == "cpu":
         return flash_attention_plain(q, k, v, **kw)
@@ -92,7 +106,7 @@ def paged_attention(q, k_pages, v_pages, tables, positions):
     _refuse_dtensor("paged_attention", q, k_pages, v_pages, tables, positions)
     _refuse_autograd("paged_attention", q, k_pages, v_pages)
     _, kv, g, hd = q.shape
-    _check_smem(_pa.smem_blocks(g, hd, q.dtype), "paged attention")
+    _check_smem(q, "paged attention", _pa.smem_blocks, g, hd, q.dtype)
     if _device_type(q) == "cpu":
         return ref_paged_attention(q, k_pages, v_pages, tables, positions)
     out = _pa.paged_attention_decode(q, k_pages, v_pages, tables, positions)
@@ -113,7 +127,8 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=128):
     _refuse_dtensor("ssd_scan", x, dt, a_log, b_mat, c_mat, d_skip)
     _refuse_autograd("ssd_scan", x, dt, a_log, b_mat, c_mat, d_skip)
     for launch in _ssd.LAUNCHES:
-        _check_smem(_ssd.smem_blocks(launch), f"ssd scan ({launch})")
+        _check_smem(x, f"ssd scan ({launch})", _ssd.smem_blocks, launch, x.shape[-1],
+                    b_mat.shape[-1])
     if _device_type(x) == "cpu":
         return ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk)
     return ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, scan=_ssd_kernel)
@@ -135,7 +150,7 @@ def rglru_scan(a, b, h0=None, *, block=256):
     rounding."""
     _refuse_dtensor("rglru_scan", a, b, h0)
     _refuse_autograd("rglru_scan", a, b, h0)
-    _check_smem(_rg.smem_blocks(), "rglru scan")
+    _check_smem(a, "rglru scan", _rg.smem_blocks)
     if _device_type(a) == "cpu":
         return ref_rglru(a, b, h0, block=block)
     out = _rg.rglru_scan_kernel(a.contiguous(), b.contiguous(),

@@ -12,7 +12,11 @@ may overlap share them: eager launches use one buffer per (device, stream),
 and a launch captured into a CUDA graph gets a buffer of its own, zeroed
 inside the graph and kept alive with it.  The grid comes from host shapes
 alone, so ``positions`` is never read on the host.  See the source for the
-design and its bound.  The plain PyTorch version is
+design and its bound.  Every head dim that is a multiple of 8 from 8 to
+256 runs, on the smallest instance of width 64, 128 or 256 that holds it
+(:func:`instance`): the kernel zero-fills the columns past the true hd as it
+stages them and scales by 1/sqrt(hd) of the true hd, so q and the pools are
+passed as they are.  The plain PyTorch version is
 ``ref.ref_paged_attention``; ``ref.ref_paged_attention_split`` repeats the
 kernel's per-chunk algebra.
 
@@ -29,7 +33,7 @@ import torch
 from . import build
 
 CHUNK = 64                      # tokens per CTA (csrc: CHUNK)
-HEAD_DIMS = (64, 128)           # head dims the kernel is instantiated for
+WIDTHS = (64, 128, 256)         # the instances' widths (csrc: instance)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,11 +46,23 @@ _counters: dict[tuple[torch.device, int], torch.Tensor] = {}
 _graph_counters: list[torch.Tensor] = []
 
 
+def instance(hd: int) -> int:
+    """The width of the instance that runs head dim ``hd`` (csrc:
+    ``instance``): the smallest of ``WIDTHS`` that holds it, in either
+    dtype.  Raises ``ValueError`` outside the rule."""
+    if hd % 8 or not 8 <= hd <= WIDTHS[-1]:
+        raise ValueError(f"head dim {hd}: the paged kernel takes a multiple of 8 "
+                         f"from 8 to {WIDTHS[-1]}")
+    return next(w for w in WIDTHS if hd <= w)
+
+
 def smem_blocks(group: int, hd: int, dtype=torch.float32):
-    """Shared-memory working set per CTA, for ``MemoryPlanner.check_smem``
-    (csrc: ``paged_attention_smem_bytes``): the chunk's K and V rows padded
-    by 16 bytes, in the pool's dtype (bf16 counted as its 2-byte storage),
-    then f32 scaled q rows, scores and each row's (m, l)."""
+    """Shared-memory working set per CTA of the instance that runs head dim
+    ``hd``, for ``MemoryPlanner.check_smem`` (csrc:
+    ``paged_attention_smem_bytes``): the chunk's K and V rows padded by 16
+    bytes, in the pool's dtype (bf16 counted as its 2-byte storage), then
+    f32 scaled q rows, scores and each row's (m, l)."""
+    hd = instance(hd)
     store = np.dtype("uint16") if dtype == torch.bfloat16 else np.dtype("float32")
     row = hd + 16 // store.itemsize
     f32 = np.dtype("float32")
@@ -95,8 +111,7 @@ def paged_attention_decode(q, k_pages, v_pages, tables, positions):
     Raises ``ValueError`` on inputs the kernel does not take."""
     b, kv, g, hd = q.shape
     p, pt, kv_k, hd_k = k_pages.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    instance(hd)
     if (kv_k, hd_k) != (kv, hd) or v_pages.shape != k_pages.shape:
         raise ValueError(f"pool {tuple(k_pages.shape)} / {tuple(v_pages.shape)} "
                          f"does not match q {tuple(q.shape)}")

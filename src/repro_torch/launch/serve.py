@@ -200,7 +200,7 @@ def run_interleaved(eng, live, shared, train_step, max_steps: int = 100_000):
     }
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--preset", default="tiny", choices=[*PRESETS, "full"],
@@ -250,16 +250,38 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def sample_trace(args):
+    """The profile run: the sample trace the planner sizes the page pool from."""
+    return synth_trace(args.requests, args.prompt_len, args.gen_len,
+                       seed=args.seed, jitter=False)
+
+
+def make_engine(args, model: Transformer, params, trace, shared=None) -> ServeEngine:
+    """The engine ``main`` serves with: ``model`` and its loaded ``params``
+    over the sample ``trace``, at the parsed ``args``' sizes and policies."""
+    return ServeEngine(model, params, sample_trace=trace, max_len=args.max_len,
+                       max_batch=args.max_batch, page_tokens=args.page_tokens,
+                       policy=args.policy, prefill_chunk=args.prefill_chunk,
+                       accounting_cfg=get_config(args.arch), shared=shared,
+                       use_runner=args.runner, attn_mode=args.attn)
+
+
+def main(argv=None, run=None) -> ServeEngine:
+    """Serve the synthetic trace and print the run's report; returns the
+    engine.  ``run(eng, live) -> summary`` drives the engine over the live
+    requests (default: ``eng.run(live)``; with ``--share-hbm`` the joint
+    plan's interleaved loop runs instead), so a caller can wrap the serving
+    loop, as ``chip_smoke.py`` does to count kernel launches."""
+    args = parse_args(argv)
     cfg = reduced_config(args.arch, args.preset)
     model = Transformer(cfg, RunOpts(attention_impl="kernel"), device=args.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     params = model.init_loaded(gen)
 
-    # profile run: the sample trace the planner sizes the page pool from
-    trace = synth_trace(args.requests, args.prompt_len, args.gen_len,
-                        seed=args.seed, jitter=False)
+    trace = sample_trace(args)
 
     # full-size arch for the memory accounting; the chosen model executes
     full_cfg = get_config(args.arch)
@@ -285,11 +307,7 @@ def main(argv=None) -> None:
             shrink=lambda target: planner.plan_with_remat(
                 tprof, target_peak=target).profile)
 
-    eng = ServeEngine(model, params, sample_trace=trace, max_len=args.max_len,
-                      max_batch=args.max_batch, page_tokens=args.page_tokens,
-                      policy=args.policy, prefill_chunk=args.prefill_chunk,
-                      accounting_cfg=full_cfg, shared=shared,
-                      use_runner=args.runner, attn_mode=args.attn)
+    eng = make_engine(args, model, params, trace, shared)
     if args.runner:
         t0 = time.perf_counter()
         eng.warmup()
@@ -335,6 +353,8 @@ def main(argv=None) -> None:
                 max_grad_norm=(FULL_FINETUNE_MAX_GRAD_NORM
                                if args.preset == "full" else None))
             summary, colocated = run_interleaved(eng, live, shared, train_step)
+        elif run is not None:
+            summary = run(eng, live)
         else:
             summary = eng.run(live)
     tracker = None
@@ -411,6 +431,7 @@ def main(argv=None) -> None:
               f"feasible={jp.feasible} "
               f"reserves={{'serving': {jp.reserves['serving'] / 1e6:.1f}MB, "
               f"'training': {jp.reserves['training'] / 1e6:.1f}MB}}")
+    return eng
 
 
 if __name__ == "__main__":

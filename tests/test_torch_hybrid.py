@@ -297,7 +297,7 @@ def test_flash_smem_working_set_at_head_dim_256():
         "bytes": 65536, "budget": 227 * 1024, "fits": True,
         "utilization": 65536 / (227 * 1024)}
     assert MemoryPlanner.smem_footprint(tfa.smem_blocks(64)) == 2 * 32 * 65 * 4
-    assert 256 in tfa.HEAD_DIMS
+    assert tfa.instance(256) == 256
 
 
 @pytest.mark.cuda

@@ -233,16 +233,16 @@ def test_kernel_launchers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tpa.paged_attention_decode(q, kp, vp, tables, positions)
     with pytest.raises(ValueError, match="head dim"):
-        tpa.paged_attention_decode(q[..., :16], kp[..., :16], vp[..., :16],
+        tpa.paged_attention_decode(q[..., :12], kp[..., :12], vp[..., :12],
                                    tables, positions)
     x = torch.zeros(1, 14, 8, 64)
     kv = torch.zeros(1, 2, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_bhsd(x, kv, kv)
     with pytest.raises(ValueError, match="head dim"):
-        tfa.flash_attention_bhsd(torch.zeros(1, 14, 8, 48),
-                                 torch.zeros(1, 2, 8, 48),
-                                 torch.zeros(1, 2, 8, 48))
+        tfa.flash_attention_bhsd(torch.zeros(1, 14, 8, 44),
+                                 torch.zeros(1, 2, 8, 44),
+                                 torch.zeros(1, 2, 8, 44))
 
 
 def test_smem_budget_guard():
@@ -328,7 +328,7 @@ def test_smem_accounting_at_head_dim_128():
     stages 128-column rows padded by 16 bytes."""
     from repro_torch.core.planner import MemoryPlanner
     fp = MemoryPlanner.smem_footprint
-    assert 128 in tfa.HEAD_DIMS and 128 in tpa.HEAD_DIMS
+    assert tfa.instance(128) == tpa.instance(128) == 128
     assert fp(tfa.smem_blocks(128, torch.bfloat16)) == 5 * 64 * 128 * 2 + 1024 == 82944
     assert fp(tfa.smem_blocks(128, torch.float32)) == 2 * 32 * 128 * 4
     fixed = 4 * (3 * 128 + 3 * 64 + 2 * 3)

@@ -337,11 +337,12 @@ def test_admitted_configs_have_kernels_at_their_shapes():
         kinds = set(cfg.block_pattern) | set(cfg.tail_pattern)
         hd, group = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
         if kinds & {"attn", "local"}:
-            assert hd in tfa.HEAD_DIMS, (name, hd)
+            assert tfa.instance(hd) == hd, (name, hd)
             assert all(fits(tfa.smem_blocks(hd, dt)) for dt in tfa.DTYPE_CODES), name
         if "attn" in kinds:
-            assert hd in tpa.HEAD_DIMS, (name, hd)
+            assert tpa.instance(hd) == hd, (name, hd)
             assert all(fits(tpa.smem_blocks(group, hd, dt)) for dt in tpa.DTYPE_CODES), name
         if "mamba2" in kinds:
-            assert (cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups) in tssd.SHAPES, name
-            assert all(fits(tssd.smem_blocks(launch)) for launch in tssd.LAUNCHES), name
+            p, n = cfg.ssm_head_dim, cfg.ssm_state
+            assert tssd.instance(p, n, cfg.ssm_groups, cfg.ssm_heads) == (p, n), name
+            assert all(fits(tssd.smem_blocks(launch, p, n)) for launch in tssd.LAUNCHES), name

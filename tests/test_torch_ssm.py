@@ -256,20 +256,20 @@ def test_smem_working_set_fits_and_matches_the_source():
     source's: csrc/ssd_scan.cu CHUNK_SMEM = 2 Q (N+8) floats (B rows; C
     rows, or x rows and decays), none for the pass, OUT_SMEM = (Q (N+4) +
     P (N+4) + Q (P+8) + Q (Q+4) + Q) floats."""
-    q, p, n = tssd.CHUNK, tssd.HEAD_DIM, tssd.STATE
+    q, p, n = tssd.CHUNK, tssd.HEAD_DIM, tssd.STATES[0]
     want = {"chunk": 4 * 2 * q * (n + 8), "pass": 0,
             "output": 4 * (q * (n + 4) + p * (n + 4) + q * (p + 8) + q * (q + 4) + q)}
     assert want == {"chunk": 69632, "pass": 0, "output": 103680}
     for launch in tssd.LAUNCHES:
-        check = MemoryPlanner.check_smem(tssd.smem_blocks(launch))
+        check = MemoryPlanner.check_smem(tssd.smem_blocks(launch, p, n))
         assert check["fits"] and check["bytes"] == want[launch], launch
 
 
 def test_launcher_refuses_what_the_kernel_does_not_take():
     """Shape and device checks raise before anything is built."""
-    x, dt, a_log, b, c, _ = ssd_inputs(1, 8, 2, 8, 1, 16)
+    x, dt, a_log, b, c, _ = ssd_inputs(1, 8, 2, 12, 1, 16)
     dta = torch.from_numpy(dt * -np.exp(a_log))
-    with pytest.raises(ValueError, match="not in"):
+    with pytest.raises(ValueError, match="the SSD kernels take"):
         tssd.ssd_scan_kernel(torch.from_numpy(x), dta, *_t(b, c))
     x64 = torch.zeros(1, 8, 2, 64)
     bc = torch.zeros(1, 8, 1, 128)
