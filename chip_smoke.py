@@ -93,8 +93,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      encoder-decoder, at full width and depth (12 + 12 layers) serving 8
      requests through ``runtime.serve_lib``'s prefill over tokens and
      seeded frames (flash non-causal in the encoder, causal in the decoder:
-     24 launches a prefill) and its decode step eagerly and graphed (equal
-     streams, one capture), with the cross cache's measured bytes beside
+     24 launches a prefill) and its decode step, both eagerly and both
+     graphed (equal streams; one decode capture and one prefill capture,
+     the prefill replayed with 24 launches; prefill ms graphed and eager at
+     B=1 and B=8), with the cross cache's measured bytes beside
      the reference's accounting, an f32 2+2-layer cut on the card and the
      CPU (equal streams, prefill logits within 1e-4) and the full-depth
      bf16 forward against the plain version;
@@ -212,8 +214,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``ServeEngine(mesh=...)`` (DTensor parameters and pool, the kernels
      through ``local_map``), with the launch counters set to 0 just before
      it, beside phase 4's eager run without a mesh on the same weights and
-     trace, and fails unless the greedy streams are identical and the run
-     launched the paged and flash kernels;
+     trace, then the same engine with CUDA graphs under the mesh (one
+     capture per bucket and per rung at warmup, none in the run, one
+     replay per prefill) beside phase 4's graphed run without a mesh and
+     the eager mesh run, and fails unless the greedy streams of all of them
+     are identical and each run launched the paged and flash kernels;
   11. print the load phases' launches (``[load] launches``), the kernels
      JSON line, the card line, and the result line.
 
@@ -957,7 +962,8 @@ def serve_path(torch, ops, eng, live, expected, card, tag: str,
                 tokens_per_s=summary["tokens_per_s"], pool_bytes=stats["graph_pool_bytes"],
                 prefill_pool_bytes=pstats["graph_pool_bytes"],
                 n_compiles=stats["n_compiles"], completed=dict(eng.completed),
-                summary=summary, prefill_shapes=eng.prefill_compiles)
+                summary=summary, prefill_shapes=eng.prefill_compiles, steps=n_steps,
+                prefills=n_prefills, prefill_captures=pstats["n_captures"])
 
 
 def first_divergence(want: dict, got: dict):
@@ -1147,17 +1153,22 @@ def whisper_phase(torch, ops, Transformer, RunOpts, card: str) -> dict:
     """``[serve:whisper]``: whisper-small at full width and depth (12
     encoder and 12 decoder layers, seeded random bf16 weights) serving
     ``WHISPER_BATCH`` requests through ``runtime.serve_lib``:
-    ``build_prefill_step`` over {"tokens", "frames"} (eager: the encoder
-    runs the flash kernel non-causally over the 1500 frames, the decoder
-    causally over the prompt, 24 launches a prefill) and
-    ``build_decode_step`` run eagerly and then graphed (one capture, on a
-    warmup cache, none after it), each run with every launch counter set to
-    0 just before and read just after.  Fails unless both runs launch
-    flash 24 times and nothing else, and their streams are equal.  Prints
+    ``build_prefill_step`` over {"tokens", "frames"} (the encoder runs the
+    flash kernel non-causally over the 1500 frames, the decoder causally
+    over the prompt, 24 launches a prefill) and ``build_decode_step``, both
+    run eagerly and then both graphed (one prefill capture and one decode
+    capture, on a warmup batch, none after it: the run's prefill replays
+    the graph and its decode replays on the prefill graph's static cache),
+    each run with every launch counter set to 0 just before and read just
+    after.  Fails unless both runs launch flash 24 times and nothing else,
+    the graphed run's prefill is one replay, and their streams are equal.
+    Prints
     the weights, the measured cross (``xk``/``xv``) and self cache bytes
     beside the reference's accounting (``state_bytes``,
     ``cache_bytes_per_token`` x max_len, which leave the cross cache out),
-    prefill ms at B=1 and B=8, decode step ms graphed and eager, tokens/s
+    prefill ms graphed and eager at B=1 and B=8 (device and call ms, the
+    B=1 graph captured in the timing's first call), the prefill graphs'
+    captures and pool bytes, decode step ms graphed and eager, tokens/s
     and peak memory.  Then the bf16 ``forward`` with frames through the
     kernel against the plain version, held to 2x the ``full`` attention's
     distance from it at 1 encoder and 1 decoder layer of the served
@@ -1184,35 +1195,46 @@ def whisper_phase(torch, ops, Transformer, RunOpts, card: str) -> dict:
     model, params = load_model(torch, Transformer, cfg, RunOpts(attention_impl="kernel"),
                                SEED, "whisper")
     weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    prefill = serve_lib.build_prefill_step(model, None, max_len=max_len)
     expected = {"flash_attention": cfg.n_layers + cfg.encoder_layers,
                 "paged_attention": 0, "ssd_scan": 0, "rglru_scan": 0}
     runs = {}
     for name, graphs in (("eager", False), ("graphs", None)):
         hooks = []
+        prefill = serve_lib.build_prefill_step(model, None, max_len=max_len, graphs=graphs)
         decode = serve_lib.build_decode_step(model, None, graphs=graphs,
                                              trace_hook=hooks.append)
         warm = greedy(torch, prefill, decode, params, batch, 3)
         warm_hooks = len(hooks)
+        pwarm = prefill.stats()
         free_cuda(torch)
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         run = greedy(torch, prefill, decode, params, batch, gen, warm["cache"])
         launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+        pstats = prefill.stats()
+        replays = pstats["n_replays"] - pwarm["n_replays"]
         run.update(launches=launches, peak=torch.cuda.max_memory_allocated(),
-                   hooks=(warm_hooks, len(hooks)))
+                   hooks=(warm_hooks, len(hooks)), prefill=prefill)
         runs[name] = run
         print(f"[serve:whisper:{name}] B={b} prompt={WHISPER_PROMPT} gen={gen} "
               f"max_len={max_len} prefill_ms={run['prefill_ms']:.2f} "
               f"step_ms={run['step_ms']:.3f} tok/s={b * gen / run['wall_s']:.1f} "
               f"launches={launches} decode captures/traces {warm_hooks} at warmup, "
-              f"{len(hooks)} after the run; peak_mem={run['peak'] / 1e9:.3f}GB | {card}",
-              flush=True)
+              f"{len(hooks)} after the run; prefill graphs={pstats['graphs']} captures "
+              f"{pwarm['n_captures']} at warmup, {pstats['n_captures']} after the run, "
+              f"{replays} replays in it, prefill_graph_pool="
+              f"{pstats['graph_pool_bytes']} B; peak_mem={run['peak'] / 1e9:.3f}GB "
+              f"| {card}", flush=True)
         if launches != expected:
             raise AssertionError(f"whisper {name}: launches {launches}, expected {expected}")
         if len(hooks) != warm_hooks or warm_hooks != 1:
             raise AssertionError(f"whisper {name}: {warm_hooks} decode traces at warmup, "
                                  f"{len(hooks) - warm_hooks} more in the run")
+        want = (1, 1, 1) if graphs is None else (0, 0, 0)
+        if (pwarm["n_captures"], pstats["n_captures"], replays) != want:
+            raise AssertionError(f"whisper {name}: prefill captures {pwarm['n_captures']} "
+                                 f"at warmup, {pstats['n_captures']} after the run, "
+                                 f"{replays} replays in it; expected {want}")
         if not torch.isfinite(run["logits"]).all():
             raise AssertionError(f"whisper {name}: prefill logits not finite")
         del warm, decode
@@ -1222,19 +1244,30 @@ def whisper_phase(torch, ops, Transformer, RunOpts, card: str) -> dict:
     self_kv = (leaf_bytes["k"] + leaf_bytes["v"]) // b
     acct = serve_lib.cache_bytes_per_token(cfg) * max_len + serve_lib.state_bytes(cfg)
     same = bool(torch.equal(runs["eager"]["streams"], runs["graphs"]["streams"]))
-    p_ms = {}
-    for rows in (1, b):
-        sub = {"tokens": tokens[:rows], "frames": frames[:rows]}
-        p_ms[rows] = time_ms(torch, lambda: prefill(params, sub), iters=5, warmup=1)
     eager, graph = runs["eager"], runs["graphs"]
+    # the graphed step captures B=1 in its timing's first call; each timed
+    # call copies the frames into the graph's buffer, then replays
+    p_ms = {}
+    for name, rows in itertools.product(("eager", "graphs"), (1, b)):
+        sub = {"tokens": tokens[:rows], "frames": frames[:rows]}
+        step = runs[name]["prefill"]
+        p_ms[name, rows] = time_ms(torch, lambda: step(params, sub), iters=5, warmup=1)
+    pgraph = graph["prefill"].stats()
     print(f"[serve:whisper] weights {weights} B ({torch.cuda.memory_allocated() / 1e9:.3f}GB "
           f"allocated with the frames and the caches); per request: cross cache "
           f"xk+xv {cross} B measured, self cache k+v {self_kv} B at max_len {max_len}, "
           f"the reference's accounting state_bytes={serve_lib.state_bytes(cfg)} + "
           f"cache_bytes_per_token x max_len="
           f"{serve_lib.cache_bytes_per_token(cfg) * max_len} = {acct} B (the cross "
-          f"cache left out); prefill device/call ms B=1 {p_ms[1][0]:.2f}/{p_ms[1][1]:.2f} "
-          f"B={b} {p_ms[b][0]:.2f}/{p_ms[b][1]:.2f}; decode step_ms graphed "
+          f"cache left out); prefill device/call ms graphed / eager B=1 "
+          f"{p_ms['graphs', 1][0]:.2f}/{p_ms['graphs', 1][1]:.2f} / "
+          f"{p_ms['eager', 1][0]:.2f}/{p_ms['eager', 1][1]:.2f} "
+          f"({p_ms['eager', 1][1] / p_ms['graphs', 1][1]:.2f}x call) B={b} "
+          f"{p_ms['graphs', b][0]:.2f}/{p_ms['graphs', b][1]:.2f} / "
+          f"{p_ms['eager', b][0]:.2f}/{p_ms['eager', b][1]:.2f} "
+          f"({p_ms['eager', b][1] / p_ms['graphs', b][1]:.2f}x call); prefill graphs: "
+          f"{pgraph['n_captures']} captures (B={b}, B=1), graph_pool_bytes="
+          f"{pgraph['graph_pool_bytes']}; decode step_ms graphed "
           f"{graph['step_ms']:.3f} eager {eager['step_ms']:.3f} "
           f"({eager['step_ms'] / graph['step_ms']:.2f}x); tok/s graphed "
           f"{b * gen / graph['wall_s']:.1f} eager {b * gen / eager['wall_s']:.1f}; "
@@ -1244,7 +1277,7 @@ def whisper_phase(torch, ops, Transformer, RunOpts, card: str) -> dict:
         raise AssertionError("whisper: graphed token streams differ from eager")
     launches = graph["launches"]
     fwd_tokens = tokens[:2].repeat(1, 16)
-    del runs, cache, eager, graph, prefill
+    del runs, cache, eager, graph, prefill, step
     free_cuda(torch)
     for k, hold in ((1, True), (cfg.n_layers, False)):
         cfg_k = cfg.with_overrides(n_layers=k, encoder_layers=k)
@@ -2677,13 +2710,14 @@ def chunked_phase(torch, ops, card: str) -> dict:
     return launches
 
 
-def mesh_phase(torch, ops, card: str, eager: dict) -> dict:
+def mesh_phase(torch, ops, card: str, unsharded: dict) -> dict:
     """``[mesh:train]`` and ``[mesh:serve]`` (the module's docstring, phase
     10) over the one-card mesh; the process group ends with the phase.
-    ``eager`` is phase 4's eager unsharded run of the same qwen2 path (same
-    seeded weights and trace, ``graph_ab``'s ``"eager"``): the mesh run's
-    streams must equal it.  Returns the ``[mesh:serve]`` run's kernel
-    launches."""
+    ``unsharded`` is phase 4's graphed unsharded run of the same qwen2 path
+    (same seeded weights and trace, ``graph_ab``'s result, its eager run
+    under ``"eager"``): the mesh runs' streams must equal both.  Returns
+    the ``[mesh:serve]`` runs' kernel launches, eager and graphed, by run
+    (``"eager"``, ``"graphs"``)."""
     import statistics
 
     import torch.distributed as dist
@@ -2767,11 +2801,13 @@ def mesh_phase(torch, ops, card: str, eager: dict) -> dict:
             return {"flash_attention": cfg.n_layers * prefills,
                     "paged_attention": cfg.n_layers * steps, "ssd_scan": 0,
                     "rglru_scan": 0}
+        eager = unsharded["eager"]
         eng = ServeEngine(model, params, sample_trace=trace, max_len=MAX_LEN,
                           max_batch=MAX_BATCH, attn_mode="paged", graphs=False, mesh=mesh)
         res = {"eager": eager, "mesh": serve_path(torch, ops, eng, live, expected, card,
                                                   "mesh")}
         del eng
+        free_cuda(torch)
         where = first_divergence(res["eager"]["completed"], res["mesh"]["completed"])
         la = res["mesh"]["launches"]
         print(f"[mesh:serve] {ARCH} {cfg.n_layers} layers, {len(live)} requests x "
@@ -2789,12 +2825,53 @@ def mesh_phase(torch, ops, card: str, eager: dict) -> dict:
             raise AssertionError(f"mesh:serve: rid {rid} diverges at token {i}")
         if not (la["paged_attention"] > 0 and la["flash_attention"] > 0):
             raise AssertionError(f"mesh:serve: launches {la}")
+        # -- [mesh:serve:graphs]: the same engine with CUDA graphs under the mesh --
+        t0 = time.perf_counter()
+        eng = ServeEngine(model, params, sample_trace=trace, max_len=MAX_LEN,
+                          max_batch=MAX_BATCH, attn_mode="paged", graphs=None, mesh=mesh)
+        rungs, buckets = eng.prefill_rungs(), eng.runner.buckets
+        graphed = serve_path(torch, ops, eng, live, expected, card, "mesh:graphs")
+        del eng
+        lg = graphed["launches"]
+        wheres = {name: first_divergence(run["completed"], graphed["completed"])
+                  for name, run in (("eager mesh", res["mesh"]),
+                                    ("graphed unsharded", unsharded))}
+        print(f"[mesh:serve:graphs] {ARCH} {cfg.n_layers} layers, the same trace and "
+              f"weights, CUDA graphs under the mesh: decode step "
+              f"{graphed['step_ms']:.2f}ms against {unsharded['step_ms']:.2f}ms graphed "
+              f"without the mesh (phase 4's [serve:qwen2]; "
+              f"{graphed['step_ms'] / unsharded['step_ms']:.2f}x) and "
+              f"{res['mesh']['step_ms']:.2f}ms eager with it "
+              f"({res['mesh']['step_ms'] / graphed['step_ms']:.2f}x); prefill "
+              f"{graphed['prefill_ms']:.2f}ms against {unsharded['prefill_ms']:.2f} / "
+              f"{res['mesh']['prefill_ms']:.2f}ms; captures at warmup {len(buckets)} "
+              f"buckets + {len(rungs)} rungs, after the run decode {graphed['n_compiles']} "
+              f"prefill {graphed['prefill_captures']}; graph_pool_bytes decode "
+              f"{graphed['pool_bytes']} prefill {graphed['prefill_pool_bytes']}; launches "
+              f"[paged] {lg['paged_attention']} = {lg['paged_attention'] // graphed['steps']}"
+              f" x {graphed['steps']} replayed steps, [flash] {lg['flash_attention']} = "
+              f"{lg['flash_attention'] // graphed['prefills']} x {graphed['prefills']} "
+              f"replayed prefills; greedy streams identical to the eager mesh run "
+              f"{wheres['eager mesh'] is None} and to the graphed unsharded run "
+              f"{wheres['graphed unsharded'] is None} in {time.perf_counter() - t0:.1f}s "
+              f"| {card}", flush=True)
+        for name, where in wheres.items():
+            if where is not None:
+                rid, i = where
+                raise AssertionError(f"mesh:serve:graphs: rid {rid} diverges from the "
+                                     f"{name} run at token {i}")
+        if (graphed["n_compiles"], graphed["prefill_captures"]) != (len(buckets), len(rungs)):
+            raise AssertionError(f"mesh:serve:graphs: {graphed['n_compiles']} decode and "
+                                 f"{graphed['prefill_captures']} prefill captures for "
+                                 f"{len(buckets)} buckets and {len(rungs)} rungs")
+        if not (lg["paged_attention"] > 0 and lg["flash_attention"] > 0):
+            raise AssertionError(f"mesh:serve:graphs: launches {lg}")
         del model, params
     finally:
         dist.destroy_process_group()
     free_cuda(torch)
     print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f}s", flush=True)
-    return la
+    return {"eager": la, "graphs": lg}
 
 
 def main() -> int:
@@ -2969,7 +3046,7 @@ def main() -> int:
         "flash_attention": cfg.n_layers * prefills,
         "paged_attention": cfg.n_layers * steps, "ssd_scan": 0,
         "rglru_scan": 0}, card, "qwen2")
-    qwen2, qwen2_eager = qwen2_run["launches"], qwen2_run["eager"]
+    qwen2 = qwen2_run["launches"]
     stamp(t_start, "[graph:qwen2]")
     churn = churn_phase(torch, ops, cfg, model, params, card)
     stamp(t_start, "[serve:churn]")
@@ -3134,7 +3211,8 @@ def main() -> int:
     paper = {k: sum(r[k] for r in paper_runs) for k in train_q}
     chunked = chunked_phase(torch, ops, card)
     stamp(t_start, "phase 9 chunked")
-    mesh = mesh_phase(torch, ops, card, qwen2_eager)
+    mesh_runs = mesh_phase(torch, ops, card, qwen2_run)
+    mesh = {k: mesh_runs["eager"][k] + mesh_runs["graphs"][k] for k in mesh_runs["eager"]}
     stamp(t_start, "phase 10 mesh")
     # -- 11. records -----------------------------------------------------------------------
     pk = paged[("bfloat16", MAX_BATCH)]
@@ -3203,6 +3281,7 @@ def main() -> int:
          "paper_launches": paper["paged_attention"],
          "chunked_launches": chunked["paged_attention"],
          "mesh_launches": mesh["paged_attention"],
+         "mesh_graphs_launches": mesh_runs["graphs"]["paged_attention"],
          "max_abs_err": max(paged_worst["bfloat16"], paged128_worst["bfloat16"],
                             *(w["bfloat16"] for _, w in paged_dense.values()),
                             shapes_worst["paged"]),
@@ -3230,6 +3309,7 @@ def main() -> int:
          "paper_launches": paper["flash_attention"],
          "chunked_launches": chunked["flash_attention"],
          "mesh_launches": mesh["flash_attention"],
+         "mesh_graphs_launches": mesh_runs["graphs"]["flash_attention"],
          "max_abs_err": max(flash_worst["bfloat16"], flash128_worst["bfloat16"],
                             flash_wide_worst["bfloat16"],
                             *(w["bfloat16"] for _, w in flash_dense.values()),
@@ -3255,6 +3335,7 @@ def main() -> int:
          "train_launches": train["ssd_scan"],
          "paper_launches": paper["ssd_scan"], "chunked_launches": chunked["ssd_scan"],
          "mesh_launches": mesh["ssd_scan"],
+         "mesh_graphs_launches": mesh_runs["graphs"]["ssd_scan"],
          "max_abs_err": max(ssd_worst["bfloat16"], shapes_worst["ssd"]), "ms": sk["ms"],
          "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
          "bound_by": sk["bound_by"], "library_ms": None,
@@ -3266,6 +3347,7 @@ def main() -> int:
          "launches": rgemma["rglru_scan"], "train_launches": train["rglru_scan"],
          "paper_launches": paper["rglru_scan"], "chunked_launches": chunked["rglru_scan"],
          "mesh_launches": mesh["rglru_scan"],
+         "mesh_graphs_launches": mesh_runs["graphs"]["rglru_scan"],
          "max_abs_err": rglru_worst, "ms": rk["ms"],
          "plain_ms": rk["plain_ms"], "bound_ms": rk["bound_ms"],
          "bound_by": rk["bound_by"], "library_ms": None,

@@ -12,9 +12,9 @@ window of engine steps with every request already decoding.
 Attention models decode off the paged pool (``attn_mode="paged"``); models
 with recurrent state and the MoE decoders decode in gather mode, the only
 mode they support.  The encoder-decoder, which no engine serves, goes
-through ``runtime.serve_lib``'s steps instead: ``--steps`` eager prefills
-of ``--batch`` prompts over seeded frames, then ``--steps`` decode steps
-of the slab step (one CUDA graph on the card), each window profiled.
+through ``runtime.serve_lib``'s steps instead: ``--steps`` prefills of
+``--batch`` prompts over seeded frames, then ``--steps`` decode steps of
+the slab step (on the card one CUDA graph each), each window profiled.
 
 The engine is profiled as built: on the card its runner replays one CUDA
 graph per bucket.  Prints the host time per step, the device time the
@@ -140,9 +140,9 @@ def _print_kernels(kernels, n: int, per: str = "step") -> None:
 
 
 def _profile_encoder_decoder(model, params, args) -> None:
-    """The encoder-decoder through ``runtime.serve_lib``: eager prefills of
+    """The encoder-decoder through ``runtime.serve_lib``: prefills of
     ``args.batch`` seeded prompts over seeded frames, then decode steps of
-    the slab step (graphed on the card), each window profiled."""
+    the slab step (both graphed on the card), each window profiled."""
     cfg, dev = model.cfg, model.device
     g = torch.Generator(device=dev).manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),

@@ -57,16 +57,25 @@ def rope_angles(positions, head_dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
-def sinusoid(positions, d: int, dtype):
-    """Whisper's encoder position table: ``cat(sin(ang), cos(ang))`` over
-    ``ang = positions * freqs`` in f32, (..., d) in ``dtype``.  The
-    frequencies are made in float64 numpy and cast to f32 before the
-    product, as the reference's f32 positions times its numpy table are:
-    at positions up to 1499 another order of rounding moves sin and cos by
-    ~1e-4."""
+def sinusoid_freqs(d: int) -> torch.Tensor:
+    """``sinusoid``'s (d // 2,) frequencies, a host tensor: made in float64
+    numpy and cast to f32 before the product, as the reference's f32
+    positions times its numpy table are: at positions up to 1499 another
+    order of rounding moves sin and cos by ~1e-4."""
     half = d // 2
-    freqs = np.exp(-math.log(10_000.0) * np.arange(half) / half).astype(np.float32)
-    ang = positions.float()[..., None] * torch.from_numpy(freqs).to(positions.device)
+    return torch.from_numpy(
+        np.exp(-math.log(10_000.0) * np.arange(half) / half).astype(np.float32))
+
+
+def sinusoid(positions, d: int, dtype, freqs=None):
+    """Whisper's encoder position table: ``cat(sin(ang), cos(ang))`` over
+    ``ang = positions * freqs`` in f32, (..., d) in ``dtype``.  ``freqs``
+    is ``sinusoid_freqs(d)`` on the positions' device, copied there when
+    not given: a model passes its own, made once, so that no host array is
+    copied in while a CUDA graph is captured."""
+    if freqs is None:
+        freqs = sinusoid_freqs(d).to(positions.device)
+    ang = positions.float()[..., None] * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 

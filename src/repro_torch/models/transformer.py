@@ -49,6 +49,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
@@ -60,7 +61,7 @@ from . import moe as moe_lib
 from . import rglru as rglru_lib
 from . import ssm as ssm_lib
 from .layers import (GATED_ACTS, apply_norm, apply_rope, embed_lookup, mlp, rope_angles,
-                     sinusoid, upcast)
+                     sinusoid, sinusoid_freqs, upcast)
 from .schema import P, Schema, abstract_params, init_params
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -413,6 +414,10 @@ class Transformer:
         self._enc_last = (torch.tensor(cfg.encoder_seq - 1, dtype=torch.int32,
                                        device=self.device)
                           if cfg.is_encoder_decoder else None)
+        # the encoder's sinusoid frequencies, made once on the device for the
+        # same reason (``_encode``)
+        self._enc_freqs = (sinusoid_freqs(cfg.d_model).to(self.device)
+                           if cfg.is_encoder_decoder else None)
 
     # ---- schema / params ------------------------------------------------------
     def schema(self) -> Schema:
@@ -551,7 +556,11 @@ class Transformer:
         remat, as the reference's ``_encode`` does."""
         dt = self.compute_dtype
         pos = torch.arange(frames.shape[1], device=frames.device)
-        x = frames.to(dt) + sinusoid(pos, self.cfg.d_model, dt)[None]
+        # the frequencies made at init (a CUDA graph capture takes no host
+        # copy); a traced profile's fake frames take the host table, a
+        # constant, as the reference's jaxpr does
+        freqs = None if is_fake(frames) else self._enc_freqs
+        x = frames.to(dt) + sinusoid(pos, self.cfg.d_model, dt, freqs)[None]
         x = _shard_residual(x)
         for p in params["encoder"]["blocks"]:
             p = mesh_ctx.gather_fsdp(self.load(p))

@@ -5,9 +5,15 @@ A step captured once into a CUDA graph replays its kernels with no Python
 and no per-op launch cost.  The graph reads and writes the addresses of the
 tensors it was captured with, so a ``StepGraph`` is bound to them: the
 parameters by identity, every other tensor by ``data_ptr()`` and shape.  A
-caller with other tensors must capture again; replaying would read stale
+DTensor (a wrapper without storage of its own) is bound by its local
+tensor's: a leaf placed anew holds a new local tensor and captures again.
+A caller with other tensors must capture again; replaying would read stale
 memory.  The bound tensors are held for the graph's life, so their
 addresses cannot be handed to another tensor meanwhile.
+
+Under a mesh DTensor's sharding propagation and ``local_map`` run in Python
+at capture only; a replay runs the local kernels (and, on a mesh that
+splits a tensor, the collectives) they launched.
 
 A capture executes nothing, so capturing against live state (the engine's
 cache) leaves it as it was.  Lazy first-call work (cuBLAS handles, kernel
@@ -32,7 +38,10 @@ def use_graphs(graphs: Optional[bool], device: torch.device) -> bool:
 
 
 def _signature(tensors: Sequence[torch.Tensor]) -> list:
-    return [(t.data_ptr(), t.shape) for t in tensors]
+    """``(data_ptr, shape)`` of each tensor; of a DTensor's local tensor."""
+    from torch.distributed.tensor import DTensor
+    local = [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
+    return [(t.data_ptr(), t.shape) for t in local]
 
 
 class StepGraph:

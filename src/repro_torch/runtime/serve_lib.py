@@ -5,19 +5,21 @@ This is where the paper's technique is a first-class serving feature: request
 cache slabs are rectangles (size = cache bytes at final length, lifetime =
 [admit, finish)), planned with the best-fit heuristic, with §4.3
 reoptimization when a request outgrows its profiled length.  Port of
-``repro.runtime.serve_lib``.  The reference jits both steps; here the
-decode step is captured into one CUDA graph per batch shape on the card
-(``runtime.graphs``), and so is the prefill of each padded prompt length;
-on the CPU both run eagerly, and so do unpadded prompts everywhere.
+``repro.runtime.serve_lib``.  The reference jits both steps; here, on the
+card, the decode step is captured into one CUDA graph per batch shape
+(``runtime.graphs``), and so is the prefill of each padded prompt length
+and of each encoder-decoder batch shape with its frames; on the CPU both
+run eagerly, and so do unpadded prompts everywhere.
 
-Given a ``DeviceMesh`` both steps run eagerly over DTensor parameters
-placed by ``sharding_rules.param_specs``, with the mesh and the model's
+Given a ``DeviceMesh`` both steps run over DTensor parameters placed by
+``sharding_rules.param_specs``, with the mesh and the model's
 ``RunOpts.mesh_rules()`` installed (``mesh_ctx.use_mesh``), as the
 reference's jitted steps run under its in/out shardings: the batch is
 placed by ``batch_specs``, the cache by ``cache_specs`` and the logits come
-back whole.  Capturing DTensor dispatch in CUDA graphs is not done yet
-(ROADMAP queue 1: CUDA graphs under a mesh), so ``graphs=True`` with a mesh
-raises.
+back whole.  On the card the same graphs are captured under the mesh:
+DTensor's dispatch and the ``local_map`` regions run once, at capture, and
+each replay runs the local kernels (on a mesh that splits a tensor, the
+collectives too).
 """
 from __future__ import annotations
 
@@ -41,19 +43,14 @@ DTYPE_ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
 # ---------------------------------------------------------------------------
 
 
-MESH_GRAPHS = "ROADMAP queue 1: CUDA graphs under a mesh"
-
-
-def mesh_graphs(mesh, graphs: Optional[bool], what: str) -> Optional[bool]:
-    """``graphs`` for a step over ``mesh``: None without a mesh; under one
-    the steps run eagerly (False), and ``graphs=True`` raises."""
-    if mesh is None:
-        return graphs
-    if graphs:
-        raise ValueError(f"{what}: graphs=True under a mesh: capturing DTensor "
-                         f"dispatch in CUDA graphs is not done yet ({MESH_GRAPHS})")
-    mesh_ctx.check_mesh(mesh, what)
-    return False
+def step_graphs(mesh, graphs: Optional[bool], device, what: str) -> bool:
+    """``graphs`` resolved for a step on ``device`` (``use_graphs``: None
+    means capture on a CUDA device, True elsewhere raises ``ValueError``);
+    a ``mesh`` must be one ``mesh_ctx.check_mesh`` takes."""
+    graphs = use_graphs(graphs, device)
+    if mesh is not None:
+        mesh_ctx.check_mesh(mesh, what)
+    return graphs
 
 
 def place_cache(cache: dict, mesh, rules: Optional[dict] = None) -> dict:
@@ -71,19 +68,28 @@ class PrefillStep:
     """``prefill(params, batch)`` -> ``model.prefill(params, batch,
     max_len=max_len)``; built by ``build_prefill_step``.
 
-    With graphs a padded prompt's prefill (a batch with ``true_len``)
-    replays one CUDA graph per batch shape, bound to the ``params`` it was
-    captured with; another ``params`` captures again.  The graphs share
-    a graph memory pool of their own, apart from the decode graphs'.
-    Before a signature's first capture the step runs once eagerly on the
-    graph's own input buffers, to pay first-call costs outside the
-    capture.  Each call copies the batch's tokens and ``true_len`` into
-    those buffers, so any ``true_len`` of the length replays the same graph
-    (the model reads it on the device); the graph returns its static logits
-    and cache, which the next replay of that shape overwrites.  A batch
-    without ``true_len`` (an unpadded prompt) runs eagerly, and so does one
-    with ``frames`` (the encoder-decoder's: no graph holds a frames
-    buffer).
+    With graphs a padded prompt's prefill (a batch with ``true_len``) and
+    an encoder-decoder's (a batch with ``frames``) replay one CUDA graph
+    per signature: the tokens' shape, whether ``true_len`` is given, and
+    the frames' shape and dtype.  A graph is bound to the ``params`` it was
+    captured with; another ``params`` captures again.  The graphs share a
+    graph memory pool of their own, apart from the decode graphs'.  Each
+    signature has static input buffers, made once (the tokens, ``true_len``
+    and the frames, as the batch has them); before the signature's first
+    capture the step runs once eagerly on them, to pay first-call costs
+    outside the capture.  Each call copies the batch into them, so any
+    ``true_len`` of the length and any frames of the shape replay the same
+    graph (the model reads both on the device).  The graph returns its
+    static logits and cache (an encoder-decoder's cross ``xk``/``xv``
+    too), which the next replay of that signature overwrites: a caller
+    takes what it needs of them (copies them, or decodes on that cache in
+    place) before it prefills that signature again.  A batch with neither
+    (an unpadded prompt) runs eagerly.
+
+    Under a mesh the step places the batch by ``batch_specs`` and returns
+    the logits whole and the cache placed by ``cache_specs``; captured, the
+    placement runs once, at capture, and the returned DTensors wrap the
+    graph's static local tensors.
 
     ``trace_hook(batch)`` fires once per capture and, eagerly, once per new
     signature: the reference's jit traces once per such signature.  With
@@ -91,17 +97,18 @@ class PrefillStep:
     events recorded around it (``launch.profile_serve`` times them)."""
 
     def __init__(self, model, max_len: Optional[int], trace_hook,
-                 graphs: Optional[bool], mesh=None):
+                 graphs: bool, mesh=None):
         self.model = model
         self.mesh = mesh
         self.max_len = max_len
         self.trace_hook = trace_hook
-        self.graphs = use_graphs(graphs, model.device)
+        self.graphs = graphs
         self.pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self.n_captures = self.n_replays = 0
         self.replay_events: Optional[list] = None
         self._seen: set = set()
-        self._captured: dict = {}      # signature -> (StepGraph, tokens, true_len)
+        self._captured: dict = {}      # signature -> StepGraph
+        self._static: dict = {}        # signature -> its input buffers
 
     def _eager(self, params, batch):
         if self.mesh is None:
@@ -122,24 +129,25 @@ class PrefillStep:
         if self.trace_hook is not None:
             self.trace_hook(batch)
 
+    @staticmethod
+    def signature(batch) -> tuple:
+        """(tokens shape, whether ``true_len`` is given, frames shape and
+        dtype or None): one graph each."""
+        frames = batch.get("frames")
+        return (tuple(batch["tokens"].shape), "true_len" in batch,
+                None if frames is None else (tuple(frames.shape), frames.dtype))
+
     def __call__(self, params, batch):
-        tokens = batch["tokens"]
-        sig = (tuple(tokens.shape), "true_len" in batch)
-        if not (self.graphs and sig[1]) or "frames" in batch:
+        sig = self.signature(batch)
+        if not (self.graphs and (sig[1] or sig[2] is not None)):
             if sig not in self._seen:
                 self._seen.add(sig)
                 self._hook(batch)
             return self._eager(params, batch)
-        entry = self._captured.get(sig)
-        if entry is None or not entry[0].binds(params, []):
-            entry = self._capture(params, batch, sig)
-        g, tok_buf, len_buf = entry
-        tok_buf.copy_(tokens)
-        true_len = batch["true_len"]
-        if isinstance(true_len, torch.Tensor):
-            len_buf.copy_(true_len)
-        else:
-            len_buf.fill_(int(true_len))
+        g = self._captured.get(sig)
+        if g is None or not g.binds(params, []):
+            g = self._capture(params, batch, sig)
+        self._fill(self._static[sig], batch)
         self.n_replays += 1
         if self.replay_events is None:
             return g.replay()
@@ -150,22 +158,44 @@ class PrefillStep:
         self.replay_events.append((start, end))
         return out
 
-    def _capture(self, params, batch, sig):
-        tokens = batch["tokens"]
+    def _buffers(self, batch) -> dict:
+        """The signature's static inputs, zeroed (``true_len`` the tokens'
+        length)."""
         dev = self.model.device
-        static = {"tokens": torch.zeros(tokens.shape, dtype=tokens.dtype, device=dev),
-                  "true_len": torch.full((tokens.shape[0],), tokens.shape[1],
-                                         dtype=torch.int32, device=dev)}
+        tokens = batch["tokens"]
+        static = {"tokens": torch.zeros(tokens.shape, dtype=tokens.dtype, device=dev)}
+        if "true_len" in batch:
+            static["true_len"] = torch.full((tokens.shape[0],), tokens.shape[1],
+                                            dtype=torch.int32, device=dev)
+        if "frames" in batch:
+            frames = batch["frames"]
+            static["frames"] = torch.zeros(frames.shape, dtype=frames.dtype, device=dev)
+        return static
+
+    @staticmethod
+    def _fill(static: dict, batch) -> None:
+        """Copy ``batch`` into the static buffers (device to device; an int
+        ``true_len`` is filled in)."""
+        for name, buf in static.items():
+            value = batch[name]
+            if isinstance(value, torch.Tensor):
+                buf.copy_(value)
+            else:
+                buf.fill_(int(value))
+
+    def _capture(self, params, batch, sig):
+        static = self._static.get(sig)
+        if static is None:
+            static = self._static[sig] = self._buffers(batch)
         if sig not in self._seen:
             self._seen.add(sig)
             self._eager(params, static)
         self._captured.pop(sig, None)       # its pool blocks go back first
-        g = StepGraph(lambda: self._eager(params, static), params=params,
-                      tensors=[], pool=self.pool)
-        entry = self._captured[sig] = (g, static["tokens"], static["true_len"])
+        g = self._captured[sig] = StepGraph(lambda: self._eager(params, static),
+                                            params=params, tensors=[], pool=self.pool)
         self.n_captures += 1
         self._hook(batch)
-        return entry
+        return g
 
     def stats(self) -> dict:
         return {"graphs": self.graphs, "n_captures": self.n_captures,
@@ -177,14 +207,14 @@ def build_prefill_step(model, mesh, batch_sds: Optional[dict] = None,
                        max_len: Optional[int] = None, trace_hook=None,
                        graphs: Optional[bool] = None) -> PrefillStep:
     """The prefill step (``PrefillStep``).  ``graphs`` (default: on when the
-    model lies on a CUDA device) captures padded prompts; True on another
-    device raises ``ValueError``.  With a ``DeviceMesh`` it runs eagerly
-    over DTensor parameters, the batch placed by ``batch_specs``, and
-    returns the logits whole and the cache placed by ``cache_specs``;
-    ``batch_sds`` (the reference's in-sharding shapes) is not needed: the
-    batch's own shapes place it."""
+    model lies on a CUDA device) captures padded prompts and batches with
+    frames; True on another device raises ``ValueError``.  With a
+    ``DeviceMesh`` it runs over DTensor parameters, the batch placed by
+    ``batch_specs``, and returns the logits whole and the cache placed by
+    ``cache_specs``; ``batch_sds`` (the reference's in-sharding shapes) is
+    not needed: the batch's own shapes place it."""
     del batch_sds
-    graphs = mesh_graphs(mesh, graphs, "build_prefill_step")
+    graphs = step_graphs(mesh, graphs, model.device, "build_prefill_step")
     return PrefillStep(model, max_len, trace_hook, graphs, mesh)
 
 
@@ -209,37 +239,41 @@ def build_decode_step(model, mesh, batch: Optional[int] = None,
     ``donate`` is implied (the cache is updated in place); ``batch`` and
     ``max_len`` only size the reference's in-shardings.
 
-    With a ``DeviceMesh`` the step runs eagerly over DTensor parameters: the
-    cache's plain leaves are placed in the dict by ``cache_specs`` (with
-    ``shard_cache_len`` the cache length over the model axis: each rank
-    holds a slice of every row and the decode attention's softmax and
-    context sums meet across it), the tokens by ``batch_specs``, and the
-    logits come back whole."""
+    With a ``DeviceMesh`` the step runs over DTensor parameters: the
+    cache's plain leaves are placed in the dict by ``cache_specs`` on the
+    first call, before any warm run or capture (with ``shard_cache_len``
+    the cache length over the model axis: each rank holds a slice of every
+    row and the decode attention's softmax and context sums meet across
+    it), the tokens by ``batch_specs`` (a graph places its input buffer at
+    capture), and the logits come back whole."""
     del batch, max_len, donate
-    if mesh is not None:
-        mesh_graphs(mesh, graphs, "build_decode_step")
-        return _mesh_decode(model, mesh, shard_cache_len, trace_hook)
-    graphs = use_graphs(graphs, model.device)
+    graphs = step_graphs(mesh, graphs, model.device, "build_decode_step")
+    rules = {"cache": ("model",)} if shard_cache_len else None
     seen: set = set()
     captured: dict[int, StepGraph] = {}
     pool = torch.cuda.graph_pool_handle() if graphs else None
 
     @torch.no_grad()
     def step(params, cache, tokens):
+        if mesh is not None:
+            spec = sharding_rules.batch_specs({"tokens": tokens}, mesh)["tokens"]
+            tokens = mesh_ctx.distribute(tokens, mesh, spec)
         logits, new = model.decode_step(params, cache, tokens)
         for name, leaf in new.items():
             if leaf is not cache[name]:
                 cache[name].copy_(leaf)
-        return logits
+        return mesh_ctx.whole(logits)
 
-    def decode(params, cache, tokens):
+    def run(params, cache, tokens):
         b = int(tokens.shape[0])
+        if mesh is not None:
+            place_cache(cache, mesh, rules)
         if not graphs:
             if b not in seen:
                 seen.add(b)
                 if trace_hook is not None:
                     trace_hook(tokens)
-            return step(params, cache, tokens), cache
+            return step(params, cache, tokens)
         g = captured.get(b)
         if g is None or not g.binds(params, list(cache.values())):
             if b not in seen:
@@ -254,30 +288,13 @@ def build_decode_step(model, mesh, batch: Optional[int] = None,
             if trace_hook is not None:
                 trace_hook(tokens)
         g.out[1].copy_(tokens)
-        return g.replay()[0], cache
-    return decode
+        return g.replay()[0]
 
-
-def _mesh_decode(model, mesh, shard_cache_len: bool, trace_hook):
-    rules = {"cache": ("model",)} if shard_cache_len else None
-    seen: set = set()
-
-    @torch.no_grad()
     def decode(params, cache, tokens):
-        b = int(tokens.shape[0])
-        if b not in seen:
-            seen.add(b)
-            if trace_hook is not None:
-                trace_hook(tokens)
+        if mesh is None:
+            return run(params, cache, tokens), cache
         with mesh_ctx.use_mesh(mesh, rules=model.opts.mesh_rules()):
-            place_cache(cache, mesh, rules)
-            spec = sharding_rules.batch_specs({"tokens": tokens}, mesh)["tokens"]
-            logits, new = model.decode_step(params, cache,
-                                            mesh_ctx.distribute(tokens, mesh, spec))
-            for name, leaf in new.items():
-                if leaf is not cache[name]:
-                    cache[name].copy_(leaf)
-            return mesh_ctx.whole(logits), cache
+            return run(params, cache, tokens), cache
     return decode
 
 

@@ -25,10 +25,12 @@ is set.
 Given a ``DeviceMesh`` the engine serves over DTensor parameters
 (``sharding_rules.param_specs``) and a DTensor cache or pool
 (``cache_specs`` with the batch axis whole: the host addresses slots, so
-each rank holds every slot's rows of its kv heads), and runs prefill and
-decode eagerly: ``graphs=True`` with a mesh raises (ROADMAP queue 1: CUDA
-graphs under a mesh).  The kernels run on each rank's shards through
-``local_map``.
+each rank holds every slot's rows of its kv heads).  The kernels run on
+each rank's shards through ``local_map``.  On the card ``warmup()``
+captures every runner bucket and every rung of the prompt ladder under
+the mesh, as without one: DTensor's dispatch and the ``local_map`` regions
+run at capture, and a replay runs their local kernels.  Prefill's writes
+into the slots (``mesh_ctx.write_local``) stay eager, outside any graph.
 """
 from __future__ import annotations
 
@@ -46,9 +48,8 @@ from ..models.transformer import Transformer
 from ..obs.metrics import get_registry
 from ..obs.trace import get_tracer
 from ..runtime import mesh_ctx, sharding_rules
-from ..runtime.graphs import use_graphs
 from ..runtime.serve_lib import (Request, build_decode_step, build_prefill_step,
-                                 mesh_graphs, place_cache)
+                                 place_cache, step_graphs)
 from . import pages as pages_lib
 from .metrics import ServeMetrics
 from .pages import PagePoolExhausted, PagedKVCache
@@ -103,10 +104,10 @@ class ServeEngine:
         rung of the prompt ladder, through CUDA graphs; None means on when
         the model lies on a CUDA device, False runs the same steps eagerly.
 
-        ``mesh`` (a ``DeviceMesh``): serve sharded, eagerly (the module's
-        docstring); ``params`` may be plain (placed here) or DTensors.  An
-        encoder-decoder ``model`` raises ``ValueError``: the engine, like
-        the reference's, has no path for encoder frames."""
+        ``mesh`` (a ``DeviceMesh``): serve sharded, with graphs as without
+        one (the module's docstring); ``params`` may be plain (placed here)
+        or DTensors.  An encoder-decoder ``model`` raises ``ValueError``:
+        the engine, like the reference's, has no path for encoder frames."""
         if model.cfg.is_encoder_decoder:
             raise ValueError(
                 f"ServeEngine: {model.cfg.name} is an encoder-decoder and the "
@@ -115,7 +116,7 @@ class ServeEngine:
                 "build_prefill_step and build_decode_step with a batch of "
                 '{"tokens", "frames"}')
         self.mesh = mesh
-        graphs = mesh_graphs(mesh, graphs, "ServeEngine")
+        self.graphs = step_graphs(mesh, graphs, model.device, "ServeEngine")
         if mesh is not None:
             params = sharding_rules.distribute_tree(
                 params, sharding_rules.param_specs(model.schema(), mesh), mesh)
@@ -140,7 +141,6 @@ class ServeEngine:
         self.sched = Scheduler(self.kv, max_batch=max_batch, policy=policy,
                                max_concurrency=cap, prefill_chunk=prefill_chunk)
         self.metrics = metrics if metrics is not None else ServeMetrics()
-        self.graphs = use_graphs(graphs, model.device)
         cfg = model.cfg
         self._pad_prefill = self.pads_prefill(cfg)
         self.prefill = build_prefill_step(model, mesh,

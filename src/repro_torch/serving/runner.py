@@ -27,6 +27,11 @@ on the card and on the CPU.  So after the bucket's rows are written back
 (and the greedy tokens), the last slot's row is written once more from the
 bucket's last row, and every duplicate slot ends holding the reference's
 row.
+
+Under a mesh (the engine's, installed around ``warmup()`` and every step)
+the cache leaves are DTensors whose slots no rank splits: the gather and
+scatter index their local tensors, a graph binds those, and DTensor's
+dispatch runs at capture only.
 """
 from __future__ import annotations
 

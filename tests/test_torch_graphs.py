@@ -14,8 +14,6 @@ import math
 import jax.numpy as jnp
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
 from repro.runtime.serve_lib import Request as JRequest
 from repro.serving import GenRequest as JGenRequest
@@ -29,6 +27,7 @@ from repro_torch.runtime.serve_lib import build_decode_step, build_prefill_step
 from repro_torch.serving import DecodeRunner, ServeEngine, ServeMetrics, bucket_ladder
 from repro_torch.serving import GenRequest as TGenRequest
 from repro_torch.serving import pages as tpages
+from torch_capture_check import HostTraffic as _HostTraffic
 from torch_port_utils import MOE_SMALL, SMALL, models, prompt
 
 PAGE_STATS = ("page_tokens", "page_bytes", "n_pages", "used_pages",
@@ -173,8 +172,9 @@ def test_metrics_object_is_the_one_filled(pair):
 
 
 def test_unported_options_raise(pair):
-    """A mesh is served eagerly: graphs=True with one raises, naming the
-    ROADMAP item, and anything but a DeviceMesh is refused."""
+    """Anything but a DeviceMesh is refused; graphs=True with a mesh is
+    refused on a CPU model as without one (graphs under a mesh capture on
+    the card)."""
     _, _, tm, tp = pair
     trace = [TRequest(rid=1, prompt_len=8, gen_len=4, arrival=0)]
     with pytest.raises(TypeError, match="DeviceMesh"):
@@ -183,11 +183,11 @@ def test_unported_options_raise(pair):
     for build in (build_prefill_step, build_decode_step):
         with pytest.raises(TypeError, match="DeviceMesh"):
             build(tm, object())
-    with pytest.raises(ValueError, match="ROADMAP queue 1: CUDA graphs under a mesh"):
+    with pytest.raises(ValueError, match="needs a model on a CUDA device"):
         ServeEngine(tm, tp, sample_trace=trace, max_len=32, max_batch=2,
                     mesh=object(), graphs=True)
     for build in (build_prefill_step, build_decode_step):
-        with pytest.raises(ValueError, match="CUDA graphs under a mesh"):
+        with pytest.raises(ValueError, match="needs a model on a CUDA device"):
             build(tm, object(), graphs=True)
 
 
@@ -278,24 +278,6 @@ def test_graphs_need_a_cuda_model(pair):
 # --------------------------------------------------------------------------
 # what capture needs of the code: no host traffic, launches counted per replay
 # --------------------------------------------------------------------------
-
-
-class _HostTraffic(TorchDispatchMode):
-    """Records every op that reads a device value on the host or takes a
-    host tensor; with the model on ``meta`` every legitimate input is a
-    meta tensor."""
-
-    def __init__(self):
-        super().__init__()
-        self.seen = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        tensors = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
-        if (func is torch.ops.aten._local_scalar_dense.default
-                or any(t.device.type == "cpu" for t in tensors)):
-            self.seen.append(str(func))
-        return func(*args, **kwargs)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-130m", "recurrentgemma-9b",

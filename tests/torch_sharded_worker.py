@@ -2,8 +2,10 @@
 (data 2, model 2) mesh of 4 gloo ranks on the CPU, each held against the
 same step unsharded.
 
-Run as ``python tests/torch_sharded_worker.py <dir>``, where ``<dir>`` holds
-``inputs.pt`` (the seeded parameters, batches and inputs the test wrote).
+Run as ``python tests/torch_sharded_worker.py <dir> [case,...]``, where
+``<dir>`` holds ``inputs.pt`` (the seeded parameters, batches and inputs
+the test wrote); with a list of case names only those run, and ``capture``
+(the serving steps' capture safety) runs only when named.
 It spawns the ranks with ``torch.multiprocessing``; they meet through a
 ``FileStore`` in ``<dir>`` (no TCP port, so parallel test workers cannot
 collide), run one thread each and import no JAX.  Rank 0 writes every
@@ -273,7 +275,16 @@ def comm_case(mesh, inp):
     return out
 
 
-def _rank(rank: int, tmp: str) -> None:
+def capture_case(mesh, inp):
+    """Capture safety of the serving steps a graph captures under the mesh
+    (``torch_capture_check.mesh_steps_report``): host reads, tensors built
+    from host data and the collectives each step issues."""
+    from torch_capture_check import mesh_steps_report
+    model = _model("qwen2-0.5b", attention_impl="kernel")
+    return mesh_steps_report(model, model.load(_clone(inp["qwen2-0.5b"]["params"])), mesh)
+
+
+def _rank(rank: int, tmp: str, only=None) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     torch.set_num_threads(1)
@@ -305,6 +316,9 @@ def _rank(rank: int, tmp: str) -> None:
             ("comm", lambda: comm_case(mesh, inp)),
             ("elastic", lambda: elastic_and_checkpoint_case(mesh, inp, tmp, rank)),
         ]
+        if only is not None:
+            extra = [("capture", lambda: capture_case(mesh, inp))]
+            cases = [(n, fn) for n, fn in cases + extra if n in only]
         for name, fn in cases:
             t0 = time.perf_counter()
             res[name] = fn()
@@ -321,10 +335,10 @@ def _rank(rank: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def main(tmp: str) -> None:
+def main(tmp: str, only=None) -> None:
     import torch.multiprocessing as mp
-    mp.start_processes(_rank, args=(tmp,), nprocs=WORLD, start_method="spawn")
+    mp.start_processes(_rank, args=(tmp, only), nprocs=WORLD, start_method="spawn")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], sys.argv[2].split(",") if len(sys.argv) > 2 else None)
